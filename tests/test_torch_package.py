@@ -1,0 +1,121 @@
+"""The PyTorch port stands alone: no JAX and no reference package at run
+time, entry points on the card unless asked, and stdlib copies that match
+the reference they were copied from."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as ref_configs
+import repro.obs.metrics as ref_metrics
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.obs import metrics
+from repro_torch.viscosity.lanefault import LaneFault
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _foreign(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_import_leaves_no_jax_or_reference_module():
+    code = (
+        "import pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) > 20   # every module was imported
+
+
+def test_no_file_imports_jax_or_reference_statically():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [f"{f.relative_to(ROOT)}: {n}" for n in names
+                          if _foreign(n)]
+    assert offenders == []
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = get_config("qwen1.5-4b-smoke")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg).init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, {}, ServeConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": np.zeros(2, np.float32)})
+    assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen1.5-4b-smoke"])
+def test_config_copy_matches_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(ref_configs.get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x7b",
+                                  "zamba2-1.2b-smoke", "whisper-base"])
+def test_unported_arch_names_its_roadmap_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+
+
+def test_metrics_copy_matches_reference():
+    assert metrics.SCHEMA == ref_metrics.SCHEMA
+    assert metrics.DEFAULT_BUCKETS == ref_metrics.DEFAULT_BUCKETS
+
+
+def test_build_rejects_unknown_source_and_keys_by_sources():
+    with pytest.raises(ValueError, match="unknown kernel sources"):
+        _build.build(["no_such_kernel"])
+    d = _build.build_dir()
+    assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+
+
+def test_lane_fault_args_bitmask():
+    f = LaneFault("gain", (0, 31, 32, 2559), 2560, gain=2.0)
+    kind, mask, value, gain = _build.lane_fault_args(f, 2560,
+                                                     torch.device("cpu"))
+    words = mask.numpy().view(np.uint32)
+    assert kind == _build.FAULT_KINDS["gain"] and gain == 2.0
+    assert words.shape == (80,)
+    bits = [w * 32 + b for w in range(80) for b in range(32)
+            if (int(words[w]) >> b) & 1]
+    assert bits == [0, 31, 32, 2559]
+    # another output width takes the healthy instantiation
+    assert _build.lane_fault_args(f, 2559, torch.device("cpu"))[0] == -1
+    assert _build.lane_fault_args(None, 2560, torch.device("cpu"))[0] == -1
