@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -8,28 +8,41 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 1. build   — compile the Hopper kernels from ``src/repro_torch/csrc`` with
              nvcc (all sources at once) into ``build/repro_torch/``;
 2. parity  — each kernel against its plain PyTorch version on the card, in
-             bf16 at the serving shapes, healthy and under one LaneFault of
-             each kind: flash attention at P in {128, 200} (causal,
-             H=Hkv=20, D=128, kv_len padding), SwiGLU at M in {1, 4, 200};
-3. serve   — qwen1.5-4b at full width (40 layers, d_model 2560, vocab
-             151936; random weights from a seeded torch.Generator) through
-             the port's ServeEngine on the HW route, in RECOMPILE and
-             RESIDENT mode, each with a fault on ``swiglu_mlp`` at step 4:
-             every request completes, the modes agree token for token,
-             recompiles are 1 and 0, and both kernels' launch counters rose
-             by 40 per prefill (attention, SwiGLU) and 40 per decode tick
-             (SwiGLU) while SwiGLU was healthy;
-4. sw      — three requests on the SW route, bit-identical to the port's
-             single-request ``reference_decode``; the HW route's prefill
-             logits finite and within 5% of the SW oracle's;
+             bf16, healthy and under a LaneFault, at the shapes the serving
+             paths give it.  First the Mamba2 SSD (against its blocked
+             plain version and the token-by-token scan): three chunks of
+             128 at zamba2-1.2b's (H, P, N) = (64, 64, 64), one unpadded
+             chunk of 100, B = 2 with padding (S = 200), and a narrow
+             P = 40 under a gain fault.  Then flash attention (qwen1.5-4b:
+             P in {128, 200}, H = 20, D = 128; zamba2-1.2b: P = 384, H = 32,
+             D = 64) and SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
+             zamba2-1.2b 2048 -> 8192: M in {4, 384});
+3. serve   — each model at full width (random weights from a seeded
+             torch.Generator) through the port's ServeEngine on the HW
+             route, in RECOMPILE and RESIDENT mode, with a stage fault at
+             step 4 and admissions after it: every request completes, the
+             modes agree token for token, recompiles are 1 and 0, and each
+             kernel's launch counter rose by exactly its launches per
+             prefill and per decode tick while its stage was healthy.
+             qwen1.5-4b (40 layers): 6 requests of 16-128 prompt tokens,
+             fault on ``swiglu_mlp``.  zamba2-1.2b (38 Mamba2 layers, the
+             shared block 6 times): 6 requests of 96-384 prompt tokens, so
+             prefill crosses chunk boundaries, fault on ``mamba2_ssd``;
+4. sw      — per model, three requests on the SW route, bit-identical to
+             the port's single-request ``reference_decode``, and the HW
+             route's prefill logits finite and within 5% of the largest
+             SW logit;
 5. times   — per-kernel ms (CUDA events) beside the plain version's and a
-             library call's (a yardstick the port never calls), the bound
-             from this run's shapes, prefill ms, decode-tick ms, tokens/s,
-             and a torch.profiler trace of one prefill and one decode tick
-             (device time by kernel, the device's busy share).
+             library call's where one PyTorch call computes the same
+             function (a yardstick the port never calls), the bound from
+             this run's shapes, per model the prefill ms, decode-tick ms and
+             tokens/s, and a torch.profiler trace of one prefill and one
+             decode tick (device time by kernel, the device's idle share).
 
-The second-to-last line is one JSON object with the per-kernel numbers; the
-last line is ``{"ok": true, "device": {...}}``.  Details also go to
+The second-to-last line is one JSON object with the per-kernel numbers
+(``launches`` sums the serve phase's counts over both models, each read
+with the counters set to 0 just before that model's serve); the last line
+is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -50,10 +63,16 @@ PEAK_BYTES = 3.35e12
 
 ATTN_TOL = (2e-2, 1e-2)     # (max abs, max abs / max |plain|)
 SWIGLU_TOL = (2e-2, 2e-2)
-# HW against SW logits after 40 bf16 layers: each route rounds its
+# The SSD kernel and its plain version compute y and the state in f32 from
+# the same bf16 inputs in other summation orders; y is then rounded to bf16
+# by both, so they may differ by one bf16 ulp.  The parity inputs keep
+# max|y| near 1.4 (B and C ~ N(0, 0.1^2)), where one ulp is 0.008.
+SSD_TOL = (2e-2, 1e-2)
+# HW against SW logits after every bf16 layer: each route rounds its
 # activations to bf16 at other points, so the logits drift apart by a few
 # bf16 ulps per layer; 5% of the largest logit bounds that drift.
 LOGITS_REL = 5e-2
+FAULT_STEP = 4
 
 
 def out(line: str = ""):
@@ -80,11 +99,18 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: int, ops: int):
+    """(least ms on the card, what bounds it) for ``nbytes`` moved and
+    ``ops`` bf16 operations."""
+    tb, to = nbytes / PEAK_BYTES, ops / PEAK_BF16_FLOPS
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
 def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                     max_len, dev):
-    """torch.profiler over one prefill (P = 128) and one decode tick with
-    4 active slots: device time by kernel and the device's busy share of
-    the traced wall time (the profiler's own overhead inflates the wall)."""
+    """torch.profiler over one prefill and one decode tick with 4 active
+    slots: device time by kernel and the device's busy share of the traced
+    wall time (the profiler's own overhead inflates the wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,7 +124,7 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
         sess.submit(r)
     while eng.occupancy() < 4:
         sess.step()
-    phases = {"prefill_P128": lambda: hw_model.prefill(
+    phases = {f"prefill_P{toks.shape[1]}": lambda: hw_model.prefill(
         params, {"tokens": toks, "cache": cache}), "decode_tick_4": sess.step}
     result = {}
     for name, fn in phases.items():
@@ -119,11 +145,12 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
         result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                         "idle_share": (1.0 - busy_ms / wall_ms
                                        if busy_ms else None),
+                        "kernels": sum(r[2] for r in rows),
                         "top": rows[:8]}
-        out(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
-            f"{busy_ms:.3f} ms" + "".join(
-                f"\n[profile]   {ms:.3f} ms x{n} {k[:70]}"
-                for k, ms, n in rows[:8]))
+        out(f"[profile] {cfg.name} {name}: wall {wall_ms:.2f} ms, device "
+            f"busy {busy_ms:.3f} ms, {result[name]['kernels']} device "
+            "events" + "".join(f"\n[profile]   {ms:.3f} ms x{n} {k[:70]}"
+                               for k, ms, n in rows[:8]))
     sess.close()
     return result
 
@@ -147,6 +174,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (attention_flops,
                                                      attention_ref_blocked,
                                                      flash_attention_bhsd)
+    from repro_torch.kernels.mamba2_scan import (ssd_chunked_cuda, ssd_flops,
+                                                 ssd_ref_blocked,
+                                                 ssd_scan_ref)
     from repro_torch.kernels.swiglu import (swiglu_flops, swiglu_fused,
                                             swiglu_ref_blocked)
     from repro_torch.kernels.swiglu.ops import default_tiles
@@ -154,6 +184,7 @@ def main() -> int:
     from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig,
                                    ServeEngine, percentile, reference_decode,
                                    synthetic_workload)
+    from repro_torch.train.runner import model_stage_names
     from repro_torch.viscosity import HW, SW
     from repro_torch.viscosity.lanefault import KINDS, LaneFault
 
@@ -162,6 +193,8 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda}
     out(f"device {report['device']} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    wrappers = {"flash_attention": flash_attention_bhsd,
+                "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda}
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -179,9 +212,9 @@ def main() -> int:
     # --------------------------------------------------------- 2. parity
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape, scale=1.0):
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev)
-                * scale).to(torch.bfloat16)
+                * scale).to(dtype)
 
     def compare(tag, got, want, tol):
         d = (got.float() - want.float()).abs().max().item()
@@ -194,225 +227,331 @@ def main() -> int:
         check(ok, f"{tag} disagrees with its plain version")
         return d
 
-    max_err = {"flash_attention": 0.0, "swiglu_mlp": 0.0}
-    H, D = 20, 128
-    for P in (128, 200):
-        S = -(-P // 128) * 128          # ops pads the prompt to bq = 128
-        q, k, v = (randn(1, H, S, D) for _ in range(3))
-        for kind in (None,) + KINDS:
-            fault = None if kind is None else LaneFault(kind, (3, 77), D)
-            kw = dict(causal=True, kv_len=P, bq=128, bk=128,
-                      lane_fault=fault)
-            got = flash_attention_bhsd(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want = attention_ref_blocked(q, k, v, **kw)
-            max_err["flash_attention"] = max(
-                max_err["flash_attention"],
-                compare(f"flash_attention P={P} fault={kind}", got, want,
-                        ATTN_TOL))
-    cfg = get_config("qwen1.5-4b")
-    Dm, Ff = cfg.d_model, cfg.d_ff
-    w1, w3 = randn(Dm, Ff, scale=Dm ** -0.5), randn(Dm, Ff, scale=Dm ** -0.5)
-    w2 = randn(Ff, Dm, scale=Ff ** -0.5)
-    for M in (1, 4, 200):
-        x = randn(M, Dm)
-        bm, bf, bs = default_tiles(M, Ff)
-        for kind in (None,) + KINDS:
-            fault = None if kind is None else LaneFault(kind, (5, 2000), Dm)
-            got = swiglu_fused(x, w1, w3, w2, lane_fault=fault)
-            torch.cuda.synchronize()
-            want = swiglu_ref_blocked(x, w1, w3, w2, bm=bm, bf=bf, bs=bs,
-                                      lane_fault=fault)
-            max_err["swiglu_mlp"] = max(
-                max_err["swiglu_mlp"],
-                compare(f"swiglu M={M} fault={kind}", got, want, SWIGLU_TOL))
+    max_err = {name: 0.0 for name in wrappers}
+
+    def ssd_inputs(Bt, S, H, P, N):
+        # in the scan's domain: dt = softplus(.) > 0, A < 0 (zamba2's
+        # A = -exp(A_log) spans -1 .. -16)
+        return (randn(Bt, S, H, P),
+                F.softplus(randn(Bt, S, H, dtype=torch.float32) - 1.0),
+                -torch.linspace(1.0, 16.0, H, device=dev),
+                randn(Bt, S, N, scale=0.1), randn(Bt, S, N, scale=0.1))
+
+    # (B, S, H, P, N, lane fault): chunk 128 throughout
+    for Bt, S, H, P, N, fault in (
+            (1, 384, 64, 64, 64, None),      # three chunks
+            (1, 100, 64, 64, 64, None),      # L = S: one unpadded chunk
+            (2, 200, 64, 64, 64, None),      # padded to 256 (dt = 0)
+            (1, 384, 64, 40, 64, LaneFault("gain", (3, 17, 39), 40,
+                                           gain=2.0))):   # narrow P
+        x, dt, A, Bm, C = ssd_inputs(Bt, S, H, P, N)
+        L = min(128, S)
+        pad = (L - S % L) % L
+        xp = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, C))
+        tag = f"mamba2_ssd B={Bt} S={S} P={P} fault={fault and fault.kind}"
+        y, state = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
+                                    lane_fault=fault, with_state=True)
+        torch.cuda.synchronize()
+        y = y[:, :S]
+        check(not bool(torch.isnan(y.float()).any()), f"{tag}: NaN in y")
+        want_y, want_state = ssd_ref_blocked(xp, dtp, A, Bp, Cp, chunk=128,
+                                             lane_fault=fault)
+        max_err["mamba2_ssd"] = max(
+            max_err["mamba2_ssd"],
+            compare(f"{tag} y", y, want_y[:, :S], SSD_TOL),
+            compare(f"{tag} state", state, want_state, SSD_TOL))
+        if fault is None:   # the token-by-token oracle, unpadded
+            scan_y, scan_state = ssd_scan_ref(x, dt, A, Bm, C)
+            compare(f"{tag} y vs scan", y, scan_y, SSD_TOL)
+            compare(f"{tag} state vs scan", state, scan_state, SSD_TOL)
+
+    def attention_parity(H, D, prompts):
+        for P in prompts:
+            S = -(-P // 128) * 128      # ops pads the prompt to bq = 128
+            q, k, v = (randn(1, H, S, D) for _ in range(3))
+            for kind in (None,) + KINDS:
+                fault = None if kind is None else LaneFault(kind, (3, D - 5),
+                                                            D)
+                kw = dict(causal=True, kv_len=P, bq=128, bk=128,
+                          lane_fault=fault)
+                got = flash_attention_bhsd(q, k, v, **kw)
+                torch.cuda.synchronize()
+                want = attention_ref_blocked(q, k, v, **kw)
+                max_err["flash_attention"] = max(
+                    max_err["flash_attention"],
+                    compare(f"flash_attention H={H} D={D} P={P} "
+                            f"fault={kind}", got, want, ATTN_TOL))
+
+    def swiglu_weights(Dm, Ff):
+        return (randn(Dm, Ff, scale=Dm ** -0.5),
+                randn(Dm, Ff, scale=Dm ** -0.5),
+                randn(Ff, Dm, scale=Ff ** -0.5))
+
+    def swiglu_parity(Dm, Ff, rows):
+        w1, w3, w2 = swiglu_weights(Dm, Ff)
+        for M in rows:
+            x = randn(M, Dm)
+            bm, bf, bs = default_tiles(M, Ff)
+            for kind in (None,) + KINDS:
+                fault = None if kind is None else LaneFault(kind, (5, Dm - 60),
+                                                            Dm)
+                got = swiglu_fused(x, w1, w3, w2, lane_fault=fault)
+                torch.cuda.synchronize()
+                want = swiglu_ref_blocked(x, w1, w3, w2, bm=bm, bf=bf, bs=bs,
+                                          lane_fault=fault)
+                max_err["swiglu_mlp"] = max(
+                    max_err["swiglu_mlp"],
+                    compare(f"swiglu {Dm}->{Ff} M={M} fault={kind}", got,
+                            want, SWIGLU_TOL))
+
+    qwen, zamba = get_config("qwen1.5-4b"), get_config("zamba2-1.2b")
+    attention_parity(qwen.num_heads, qwen.resolved_head_dim, (128, 200))
+    attention_parity(zamba.num_heads, zamba.resolved_head_dim, (384,))
+    swiglu_parity(qwen.d_model, qwen.d_ff, (1, 4, 200))
+    swiglu_parity(zamba.d_model, zamba.d_ff, (4, 384))
     report["max_abs_err"] = max_err
 
-    # ---------------------------------------------------------- 3. serve
-    t0 = time.perf_counter()
-    model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
-    params = compute_params(params, torch.bfloat16)   # f32 copy released
-    torch.cuda.synchronize()
-    report["init_s"] = time.perf_counter() - t0
-    out(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {Dm}, "
-        f"vocab {cfg.vocab_size}; weights ready in {report['init_s']:.1f} s")
-    L = cfg.num_layers
-    reqs = synthetic_workload(cfg.vocab_size, 6, np.random.default_rng(0),
-                              min_prompt=16, max_prompt=128, min_new=8,
-                              max_new=16, arrival_every=2, per_arrival=2)
-    max_len = 128 + 16
-    fault_step, fault_stage = 4, "swiglu_mlp"
-
-    flash_attention_bhsd.launches = 0
-    swiglu_fused.launches = 0
-    runs = {}
-    for mode in (RECOMPILE, RESIDENT):
-        eng = ServeEngine(cfg, params, ServeConfig(
-            max_len=max_len, max_slots=4, hw_route=HW, failover=mode),
-            device=dev)
-        a0, s0 = flash_attention_bhsd.launches, swiglu_fused.launches
-        sess = eng.session()
-        for r in reqs:
-            sess.submit(r)
-        want_sw = 0
-        t_start = time.perf_counter()
-        while sess.pending():
-            if sess.step_count == fault_step:
-                eng.inject_fault(fault_stage)
-            healthy = not eng.fault_state.is_faulty(fault_stage)
-            admitted = sess.stats["admitted"]
-            tick = sess.step()
-            if healthy:
-                want_sw += L * ((sess.stats["admitted"] - admitted)
-                                + (1 if tick["active"] else 0))
-        wall = time.perf_counter() - t_start
-        stats = sess.close()
-        done = {c.rid: c for c in sess.poll()}
-        attn_n = flash_attention_bhsd.launches - a0
-        sw_n = swiglu_fused.launches - s0
-        out(f"[serve] {mode}: {len(done)}/{len(reqs)} done in "
-            f"{stats['steps']} steps, {wall:.2f} s; recompiles "
-            f"{stats['recompiles']}; launches attention {attn_n} "
-            f"(want {L * len(reqs)}), swiglu {sw_n} (want {want_sw})")
-        check(sorted(done) == sorted(r.rid for r in reqs),
-              f"{mode}: not every request completed")
-        for r in reqs:
-            check(len(done[r.rid].tokens) == r.max_new_tokens,
-                  f"{mode}: request {r.rid} has a short completion")
-        check(stats["recompiles"] == (1 if mode == RECOMPILE else 0),
-              f"{mode}: recompiles {stats['recompiles']}")
-        check(attn_n == L * len(reqs), f"{mode}: attention launches {attn_n}")
-        check(sw_n == want_sw and want_sw > 0,
-              f"{mode}: swiglu launches {sw_n}, want {want_sw}")
-        runs[mode] = {r.rid: done[r.rid].tokens.tolist() for r in reqs}
-    check(runs[RECOMPILE] == runs[RESIDENT],
-          "RECOMPILE and RESIDENT served different tokens")
-    launches = {"flash_attention": flash_attention_bhsd.launches,
-                "swiglu_mlp": swiglu_fused.launches}
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path never launched: {launches}")
-    report["launches"] = launches
-    out(f"[serve] modes agree on {sum(map(len, runs[RESIDENT].values()))} "
-        f"tokens; launches {launches}")
-
-    # ------------------------------------------------------------- 4. sw
-    sw_reqs = reqs[:3]
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_len=max_len, max_slots=4, hw_route=SW), device=dev)
-    a0, s0 = flash_attention_bhsd.launches, swiglu_fused.launches
-    done, _ = eng.serve(sw_reqs)
-    for r in sw_reqs:
-        ref = reference_decode(cfg, eng.params, r.prompt, r.max_new_tokens,
-                               max_len=max_len)
-        check(done[r.rid].tokens.tolist() == ref.tolist(),
-              f"SW route: request {r.rid} differs from reference_decode")
-    check((flash_attention_bhsd.launches, swiglu_fused.launches) == (a0, s0),
-          "the SW route launched a kernel")
-    out(f"[sw] {len(sw_reqs)} requests bit-identical to reference_decode")
-    # the kernel route against the SW oracle at full width, on one prompt
-    prompt = torch.as_tensor(np.asarray(reqs[0].prompt, np.int64),
-                             device=dev)[None]
-    last = {}
-    for route in (HW, SW):
-        m = build_model(cfg, routes={"flash_attention": route,
-                                     "swiglu_mlp": route})
-        logits, _ = m.prefill(params, {"tokens": prompt, "cache":
-                                       m.init_cache(1, max_len, device=dev)})
-        last[route] = logits[0, -1].float()
-    check(last[HW].shape == (cfg.vocab_size,)
-          and bool(torch.isfinite(last[HW]).all()),
-          "HW prefill logits are not finite of shape (vocab,)")
-    d = (last[HW] - last[SW]).abs().max().item()
-    rel = d / last[SW].abs().max().item()
-    out(f"[sw] HW vs SW prefill logits (P={prompt.shape[1]}): max_abs "
-        f"{d:.3e} max_rel {rel:.3e} (tol rel {LOGITS_REL:g}); argmax "
-        f"{int(last[HW].argmax())} vs {int(last[SW].argmax())}")
-    check(rel <= LOGITS_REL, "HW route logits disagree with the SW oracle")
-    report["hw_vs_sw_logits"] = {"max_abs": d, "max_rel": rel}
-
-    # ---------------------------------------------------------- 5. times
+    # ------------------------------------------------- 3-4. serve and sw
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     report["nvidia_smi"] = smi
+    launches = {name: {} for name in wrappers}
+
+    def serve_path(cfg, workload, fault_stage, per_prefill, per_tick,
+                   prefill_len):
+        """Phases 3 and 4 for one model, then its end-to-end times (a
+        prefill of ``prefill_len`` tokens, a healthy serve, the profiler);
+        returns its report entry."""
+        entry = {}
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        params = compute_params(params, torch.bfloat16)  # f32 copy released
+        torch.cuda.synchronize()
+        entry["init_s"] = time.perf_counter() - t0
+        out(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}; weights ready in "
+            f"{entry['init_s']:.1f} s")
+        reqs = synthetic_workload(cfg.vocab_size, 6,
+                                  np.random.default_rng(0), **workload)
+        max_len = workload["max_prompt"] + workload["max_new"]
+        stages = model_stage_names(cfg)
+        for w in wrappers.values():      # counts of this path's run only
+            w.launches = 0
+        runs = {}
+        for mode in (RECOMPILE, RESIDENT):
+            eng = ServeEngine(cfg, params, ServeConfig(
+                max_len=max_len, max_slots=4, hw_route=HW, failover=mode),
+                device=dev)
+            before = {s: wrappers[s].launches for s in stages}
+            want = dict.fromkeys(stages, 0)
+            before_fault = 0
+            sess = eng.session()
+            for r in reqs:
+                sess.submit(r)
+            t_start = time.perf_counter()
+            while sess.pending():
+                if sess.step_count == FAULT_STEP:
+                    eng.inject_fault(fault_stage)
+                    before_fault = wrappers[fault_stage].launches - \
+                        before[fault_stage]
+                admitted = sess.stats["admitted"]
+                healthy = {s: not eng.fault_state.is_faulty(s)
+                           for s in stages}
+                tick = sess.step()
+                for s in stages:
+                    if healthy[s]:
+                        want[s] += per_prefill[s] * (
+                            sess.stats["admitted"] - admitted) + \
+                            per_tick[s] * (1 if tick["active"] else 0)
+            wall = time.perf_counter() - t_start
+            stats = sess.close()
+            done = {c.rid: c for c in sess.poll()}
+            got = {s: wrappers[s].launches - before[s] for s in stages}
+            out(f"[serve] {cfg.name} {mode}: {len(done)}/{len(reqs)} done "
+                f"in {stats['steps']} steps, {wall:.2f} s; recompiles "
+                f"{stats['recompiles']}; launches {got} (want {want}); "
+                f"{fault_stage} launches before the step-{FAULT_STEP} "
+                f"fault {before_fault}")
+            check(sorted(done) == sorted(r.rid for r in reqs),
+                  f"{cfg.name} {mode}: not every request completed")
+            check(any(r.arrival >= FAULT_STEP for r in reqs),
+                  f"{cfg.name}: no admission after the fault")
+            for r in reqs:
+                check(len(done[r.rid].tokens) == r.max_new_tokens,
+                      f"{cfg.name} {mode}: request {r.rid} is short")
+            check(stats["recompiles"] == (1 if mode == RECOMPILE else 0),
+                  f"{cfg.name} {mode}: recompiles {stats['recompiles']}")
+            check(got == want and all(n > 0 for n in got.values()),
+                  f"{cfg.name} {mode}: launches {got}, want {want}")
+            check(before_fault > 0, f"{cfg.name} {mode}: {fault_stage} "
+                  "never launched before its fault")
+            runs[mode] = {r.rid: done[r.rid].tokens.tolist() for r in reqs}
+        check(runs[RECOMPILE] == runs[RESIDENT],
+              f"{cfg.name}: RECOMPILE and RESIDENT served different tokens")
+        for s in stages:
+            launches[s][cfg.name] = wrappers[s].launches
+        out(f"[serve] {cfg.name}: modes agree on "
+            f"{sum(map(len, runs[RESIDENT].values()))} tokens; launches "
+            f"{ {s: wrappers[s].launches for s in stages} }")
+
+        sw_reqs = reqs[:3]
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_len=max_len, max_slots=4, hw_route=SW), device=dev)
+        before = [w.launches for w in wrappers.values()]
+        done, _ = eng.serve(sw_reqs)
+        for r in sw_reqs:
+            ref = reference_decode(cfg, eng.params, r.prompt,
+                                   r.max_new_tokens, max_len=max_len)
+            check(done[r.rid].tokens.tolist() == ref.tolist(),
+                  f"{cfg.name} SW route: request {r.rid} differs from "
+                  "reference_decode")
+        check([w.launches for w in wrappers.values()] == before,
+              f"{cfg.name}: the SW route launched a kernel")
+        out(f"[sw] {cfg.name}: {len(sw_reqs)} requests bit-identical to "
+            "reference_decode")
+        # the kernel route against the SW oracle at full width
+        longest = max(reqs, key=lambda r: len(r.prompt))
+        prompt = torch.as_tensor(np.asarray(longest.prompt, np.int64),
+                                 device=dev)[None]
+        last = {}
+        for route in (HW, SW):
+            m = build_model(cfg, routes={s: route for s in stages})
+            logits, _ = m.prefill(params, {
+                "tokens": prompt, "cache": m.init_cache(1, max_len,
+                                                        device=dev)})
+            last[route] = logits[0, -1].float()
+            check(last[route].shape == (cfg.vocab_size,)
+                  and bool(torch.isfinite(last[route]).all()),
+                  f"{cfg.name} {route} prefill logits are not finite of "
+                  "shape (vocab,)")
+        d = (last[HW] - last[SW]).abs().max().item()
+        rel = d / last[SW].abs().max().item()
+        out(f"[sw] {cfg.name} HW vs SW prefill logits (P="
+            f"{prompt.shape[1]}): max_abs {d:.3e} max_rel {rel:.3e} (tol "
+            f"rel {LOGITS_REL:g}); argmax {int(last[HW].argmax())} vs "
+            f"{int(last[SW].argmax())}")
+        check(rel <= LOGITS_REL,
+              f"{cfg.name}: HW route logits disagree with the SW oracle")
+        entry["hw_vs_sw_logits"] = {"max_abs": d, "max_rel": rel,
+                                    "prompt": prompt.shape[1]}
+
+        # end to end: prefill of the longest prompt, a healthy HW serve
+        hw_model = build_model(cfg, routes={s: HW for s in stages})
+        toks = torch.randint(0, cfg.vocab_size, (1, prefill_len),
+                             generator=gen, device=dev)
+        cache = hw_model.init_cache(1, max_len, device=dev)
+        prefill_ms = time_ms(torch, lambda: hw_model.prefill(
+            params, {"tokens": toks, "cache": cache}), 5)
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_len=max_len, max_slots=4, hw_route=HW), device=dev)
+        t0 = time.perf_counter()
+        done, stats = eng.serve(reqs)
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(c.tokens) for c in done.values())
+        entry["serve"] = {
+            f"prefill_ms_P{toks.shape[1]}": prefill_ms,
+            "decode_tick_ms_median": 1e3 * percentile(stats["step_times"],
+                                                      0.5),
+            "tokens_per_s": n_tok / wall, "tokens": n_tok, "wall_s": wall,
+            "slots": 4, "requests": len(reqs)}
+        entry["profile"] = profile_serving(torch, cfg, hw_model, params,
+                                           toks, cache, reqs, max_len, dev)
+        out(f"[times] {cfg.name} serve: {json.dumps(entry['serve'])}")
+        return entry
+
+    Lq, G = qwen.num_layers, zamba.num_layers // zamba.shared_attn_every
+    report["qwen1.5-4b"] = serve_path(
+        qwen, dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
+                   arrival_every=2, per_arrival=2), "swiglu_mlp",
+        per_prefill={"flash_attention": Lq, "swiglu_mlp": Lq},
+        per_tick={"flash_attention": 0, "swiglu_mlp": Lq}, prefill_len=128)
+    torch.cuda.empty_cache()
+    report["zamba2-1.2b"] = serve_path(
+        zamba, dict(min_prompt=96, max_prompt=384, min_new=8, max_new=16,
+                    arrival_every=3, per_arrival=2), "mamba2_ssd",
+        per_prefill={"flash_attention": G, "swiglu_mlp": G,
+                     "mamba2_ssd": zamba.num_layers},
+        per_tick={"flash_attention": 0, "swiglu_mlp": G, "mamba2_ssd": 0},
+        prefill_len=384)
+    check(all(sum(n.values()) > 0 for n in launches.values()),
+          f"a kernel of the paths never launched: {launches}")
+    report["launches"] = launches
+
+    # ---------------------------------------------------------- 5. times
+    def kernel_entry(name, source, replaces, shape, **numbers):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name],
+                "max_abs_err": max_err[name], "shape": shape, **numbers}
+
     kernels = []
-    # attention at the serving prefill shape: P = 128, causal
-    P = 128
+    # attention at qwen1.5-4b's prefill shape: P = 128, causal
+    H, D, P = qwen.num_heads, qwen.resolved_head_dim, 128
     q, k, v = (randn(1, H, P, D) for _ in range(3))
     akw = dict(causal=True, kv_len=P, bq=128, bk=128)
-    attn_bytes = 4 * q.numel() * 2
-    attn_ops = attention_flops(1, P, P, H, D, causal=True)
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
-        "launches": launches["flash_attention"],
-        "max_abs_err": max_err["flash_attention"],
-        "ms": time_ms(torch, lambda: flash_attention_bhsd(q, k, v, **akw),
-                      50),
-        "plain_ms": time_ms(torch, lambda: attention_ref_blocked(q, k, v,
-                                                                 **akw), 10),
-        "bound_ms": 1e3 * max(attn_bytes / PEAK_BYTES,
-                              attn_ops / PEAK_BF16_FLOPS),
-        "bound_by": ("bytes" if attn_bytes / PEAK_BYTES
-                     >= attn_ops / PEAK_BF16_FLOPS else "operations"),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 50),
-    })
+    ms, by = bound(4 * q.numel() * 2, attention_flops(1, P, P, H, D,
+                                                      causal=True))
+    kernels.append(kernel_entry(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:33",
+        f"B=1 H={H} P={P} D={D} causal",
+        ms=time_ms(torch, lambda: flash_attention_bhsd(q, k, v, **akw), 50),
+        plain_ms=time_ms(torch, lambda: attention_ref_blocked(q, k, v, **akw),
+                         10),
+        bound_ms=ms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 50)))
     shapes = {}
-    for M in (4, 128):
+    for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384)):
+        Dm, Ff = cfg.d_model, cfg.d_ff
+        w1, w3, w2 = swiglu_weights(Dm, Ff)
         x = randn(M, Dm)
         bm, bf, bs = default_tiles(M, Ff)
-        by = (x.numel() + w1.numel() + w3.numel() + w2.numel()
-              + M * Dm) * 2
-        ops = swiglu_flops(M, Dm, Ff)
-        shapes[M] = {
+        ms, by = bound((x.numel() + w1.numel() + w3.numel() + w2.numel()
+                        + M * Dm) * 2, swiglu_flops(M, Dm, Ff))
+        key = f"{cfg.name} M={M}"
+        shapes[key] = {
             "ms": time_ms(torch, lambda: swiglu_fused(x, w1, w3, w2), 20),
             "plain_ms": time_ms(torch, lambda: swiglu_ref_blocked(
                 x, w1, w3, w2, bm=bm, bf=bf, bs=bs), 2, warmup=1),
             "library_ms": time_ms(torch, lambda: (
                 F.silu(x @ w1) * (x @ w3)) @ w2, 20),
-            "bound_ms": 1e3 * max(by / PEAK_BYTES, ops / PEAK_BF16_FLOPS),
-            "bound_by": ("bytes" if by / PEAK_BYTES
-                         >= ops / PEAK_BF16_FLOPS else "operations"),
-        }
-        out(f"[times] swiglu M={M}: " + " ".join(
+            "bound_ms": ms, "bound_by": by}
+        out(f"[times] swiglu {key}: " + " ".join(
             f"{k_}={v_:.4f}" if isinstance(v_, float) else f"{k_}={v_}"
-            for k_, v_ in shapes[M].items()))
+            for k_, v_ in shapes[key].items()))
     report["swiglu_shapes"] = shapes
-    kernels.append({
-        "name": "swiglu_mlp", "route": "cuda",
-        "source": "src/repro_torch/csrc/swiglu.cu",
-        "replaces": "src/repro/kernels/swiglu/kernel.py:32",
-        "launches": launches["swiglu_mlp"],
-        "max_abs_err": max_err["swiglu_mlp"], **shapes[4],
-    })
-    # end to end: prefill at P = 128, and a healthy HW serve's ticks
-    hw_model = build_model(cfg, routes={"flash_attention": HW,
-                                        "swiglu_mlp": HW})
-    toks = torch.randint(0, cfg.vocab_size, (1, P), generator=gen,
-                         device=dev)
-    cache = hw_model.init_cache(1, max_len, device=dev)
-    prefill_ms = time_ms(torch, lambda: hw_model.prefill(
-        params, {"tokens": toks, "cache": cache}), 5)
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_len=max_len, max_slots=4, hw_route=HW), device=dev)
-    t0 = time.perf_counter()
-    done, stats = eng.serve(reqs)
-    wall = time.perf_counter() - t0
-    n_tok = sum(len(c.tokens) for c in done.values())
-    report["serve"] = {
-        "prefill_ms_P128": prefill_ms,
-        "decode_tick_ms_median": 1e3 * percentile(stats["step_times"], 0.5),
-        "tokens_per_s": n_tok / wall, "tokens": n_tok, "wall_s": wall,
-        "slots": 4, "requests": len(reqs)}
+    kernels.append(kernel_entry(
+        "swiglu_mlp", "src/repro_torch/csrc/swiglu.cu",
+        "src/repro/kernels/swiglu/kernel.py:32",
+        "qwen1.5-4b decode M=4 2560->6912->2560", **shapes["qwen1.5-4b M=4"]))
+    # the SSD at zamba2-1.2b's prefill shape, with the final state (as the
+    # prefill calls it): B=1 S=384 H=64 P=N=64, chunk 128
+    H, Pd, N, S = 64, zamba.ssm.head_dim, zamba.ssm.state_dim, 384
+    x, dt, A, Bm, C = ssd_inputs(1, S, H, Pd, N)
+    ssd_bytes = (x.numel() * 2 * 2 + dt.numel() * 4 + A.numel() * 4
+                 + 2 * Bm.numel() * 2 + H * N * Pd * 4)
+    ms, by = bound(ssd_bytes, ssd_flops(1, S, H, Pd, N, chunk=128))
+    kernels.append(kernel_entry(
+        "mamba2_ssd", "src/repro_torch/csrc/mamba2_ssd.cu",
+        "src/repro/kernels/mamba2_scan/kernel.py:28",
+        f"B=1 S={S} H={H} P={Pd} N={N} chunk=128, final state",
+        ms=time_ms(torch, lambda: ssd_chunked_cuda(
+            x, dt, A, Bm, C, chunk=128, with_state=True), 50),
+        plain_ms=time_ms(torch, lambda: ssd_ref_blocked(
+            x, dt, A, Bm, C, chunk=128), 10),
+        bound_ms=ms, bound_by=by, library_ms=None))
     report["kernels"] = kernels
-    report["profile"] = profile_serving(torch, cfg, hw_model, params, toks,
-                                        cache, reqs, max_len, dev)
-    out(f"[times] serve: {json.dumps(report['serve'])}")
+    for kn in kernels:
+        out(f"[times] {kn['name']} {kn['shape']}: ms {kn['ms']:.4f} plain "
+            f"{kn['plain_ms']:.4f} bound {kn['bound_ms']:.5f} "
+            f"({kn['bound_by']}) library {kn['library_ms']}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,17 +1,21 @@
-"""Decoder block of the dense family: attention + gated MLP.
+"""Decoder blocks: attention + gated MLP (dense, and the hybrid family's
+shared block), Mamba2.
 
 Port of the reference's ``models/blocks.py`` (``LayerMeta``,
-``make_metas``, ``attn_block``); the MoE, RWKV6 and Mamba2 blocks wait for
-their slices.
+``make_metas``, ``attn_block``, ``init_mamba_block``, ``mamba_block``); the
+MoE and RWKV6 blocks wait for their slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch import viscosity
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as mamba_mod
 
 
 @dataclass(frozen=True)
@@ -67,3 +71,25 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
         h = L.norm(p["ln2"], x, eps=cfg.norm_eps)
     return x + L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
                      row_independent=step)
+
+
+def init_mamba_block(gen, n, cfg: ModelConfig, dtype, device):
+    """``n`` stacked Mamba2 layers: pre-norm + mixer."""
+    return {"ln1": L.init_norm(cfg.d_model, dtype, device, lead=(n,)),
+            "mix": mamba_mod.init_mamba2(gen, n, cfg, dtype, device)}
+
+
+def mamba_block(p, x, cfg: ModelConfig, routes, state=None, step=False):
+    """Returns x after one Mamba2 layer.  ``state`` (views of the layer's
+    conv tail and SSM state) is written in place by a prefill and by a
+    decode step; decode runs each slot on its own, as a B=1 decode would,
+    so batched decode equals single-request decode bit for bit."""
+    route = routes.get("mamba2_ssd", viscosity.SW)
+    if step and x.shape[0] > 1:
+        return torch.cat([
+            mamba_block(p, x[i:i + 1], cfg, routes, step=True,
+                        state={k: v[i:i + 1] for k, v in state.items()})
+            for i in range(x.shape[0])])
+    h = L.norm(p["ln1"], x, eps=cfg.norm_eps)
+    return x + mamba_mod.mamba2_block(p["mix"], h, cfg, route=route,
+                                      state=state, step=step)

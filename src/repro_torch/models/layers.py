@@ -41,6 +41,13 @@ def norm(p, x, *, eps=1e-6, layernorm=False):
     return y.to(x.dtype)
 
 
+def rms_norm_simple(x, *, eps=1e-6):
+    """RMS norm without a scale, computed in f32 (the Mamba2 gated norm)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            ).to(x.dtype)
+
+
 # ------------------------------------------------------------ embeddings
 def init_embed(gen, vocab, d, dtype, device):
     return {"table": (torch.randn((vocab, d), generator=gen, device=device)

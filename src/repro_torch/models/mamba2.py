@@ -1,0 +1,136 @@
+"""Mamba2 (SSD) block: in_proj -> causal depthwise conv -> SSD -> gated out.
+
+Port of the reference's ``models/mamba2.py``.  The SSD core routes through
+the Viscosity ``mamba2_ssd`` stage.  Decode state per layer: conv tail
+(B, K-1, conv_dim) + SSM state (B, H, N, P) f32, written in place.
+
+The prefill's final SSM state follows the route.  On the HW target it is
+the one the kernel's last chunk leaves (the reference recomputes it with
+the plain ``ssd_chunked``; the port does not run the plain version on the
+card's main path); on SW it is the one the oracle's scan ends with; every
+other target (INTERPRET, the DEGRADED rungs, whose lanes are partly the
+oracle's) takes it from ``ssd_chunked``, as the reference does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import viscosity
+from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+from repro_torch.kernels.mamba2_scan import ref as ssd_ref
+from repro_torch.models.layers import _he, rms_norm_simple
+
+
+def dims(cfg):
+    d_inner = cfg.ssm.expand * cfg.d_model
+    nheads = d_inner // cfg.ssm.head_dim
+    conv_dim = d_inner + 2 * cfg.ssm.state_dim
+    return d_inner, nheads, conv_dim
+
+
+def init_mamba2(gen, L, cfg, dtype, device):
+    """``L`` stacked layers of Mamba2 params, the reference's keys and
+    initialisers; A_log, D and dt_bias are f32 whatever ``dtype``."""
+    d = cfg.d_model
+    N = cfg.ssm.state_dim
+    d_inner, nheads, conv_dim = dims(cfg)
+    proj_out = 2 * d_inner + 2 * N + nheads        # z, x, B, C, dt
+    f32 = dict(dtype=torch.float32, device=device)
+    u = torch.rand((L, nheads), generator=gen, **f32)
+    lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
+    dt0 = torch.exp(lo + (hi - lo) * u)
+    return {
+        "in_proj": _he(gen, (L, d, proj_out), d, dtype, device),
+        "conv_w": (torch.randn((L, cfg.ssm.conv_kernel, conv_dim),
+                               generator=gen, **f32) * 0.1).to(dtype),
+        "conv_b": torch.zeros((L, conv_dim), dtype=dtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads, **f32)
+                           ).expand(L, nheads).clone(),
+        "D": torch.ones((L, nheads), **f32),
+        "dt_bias": torch.log(torch.expm1(dt0)),
+        "out_proj": _he(gen, (L, d_inner, d), d_inner, dtype, device),
+        "norm_scale": torch.ones((L, d_inner), dtype=dtype, device=device),
+    }
+
+
+def _split(cfg, proj):
+    """in_proj output -> (z, xBC, dt_raw)."""
+    d_inner, nheads, conv_dim = dims(cfg)
+    return torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
+
+
+def _causal_conv(xbc, w, b, *, tail=None):
+    """Depthwise causal conv along seq.  xbc (B,S,C); w (K,C).
+
+    ``tail`` (B, K-1, C): previous tokens (decode); else zero history.
+    Returns (y (B,S,C), new_tail (B,K-1,C))."""
+    B, S, C = xbc.shape
+    K = w.shape[0]
+    hist = tail if tail is not None else xbc.new_zeros((B, K - 1, C))
+    xx = torch.cat([hist.to(xbc.dtype), xbc], dim=1)
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=xbc.device)
+    for i in range(K):  # K static and tiny (4)
+        y = y + xx[:, i:i + S].float() * w[i].float()
+    y = F.silu(y + b.float()).to(xbc.dtype)
+    return y, xx[:, -(K - 1):]
+
+
+def _state_from_lowering(route) -> bool:
+    """True when the lowering this call runs returns the final state of
+    its own scan: HW (the kernel) and SW (``ssd_chunked``), as a target or
+    a resident handle whose healthy target is HW or SW."""
+    target = route.hw if hasattr(route, "select") else route
+    return target in (viscosity.HW, viscosity.SW)
+
+
+def mamba2_block(p, x, cfg, *, route=viscosity.SW, state=None, step=False):
+    """x (B,S,D) -> (B,S,D).  ``state`` = {"conv": (B,K-1,conv_dim), "ssm":
+    (B,H,N,P)}, views into the cache that the prefill (``step`` False) and
+    the single-token decode (``step``) overwrite in place."""
+    B, S, _ = x.shape
+    d_inner, nheads, _ = dims(cfg)
+    N = cfg.ssm.state_dim
+    P = cfg.ssm.head_dim
+    proj = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = _split(cfg, proj)
+    tail = state["conv"] if state is not None else None
+    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], tail=tail)
+    xs, B_, C_ = torch.split(xbc, [d_inner, N, N], dim=-1)
+    xs = xs.reshape(B, S, nheads, P)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["A_log"])
+
+    if step:
+        y, new_ssm = ssd_ref.ssd_step(state["ssm"], xs[:, 0], dt[:, 0], A,
+                                      B_[:, 0], C_[:, 0])
+        y = y[:, None]
+    elif state is not None and _state_from_lowering(route):
+        y, new_ssm = ssd_ops.ssd(xs, dt, A, B_, C_, route=route,
+                                 chunk=cfg.ssm.chunk, with_state=True)
+    else:
+        y = ssd_ops.ssd(xs, dt, A, B_, C_, route=route, chunk=cfg.ssm.chunk)
+        if state is not None:
+            _, new_ssm = ssd_ref.ssd_chunked(xs, dt, A, B_, C_,
+                                             chunk=cfg.ssm.chunk)
+    if state is not None:
+        state["conv"].copy_(new_tail)
+        state["ssm"].copy_(new_ssm)
+    y = y + xs.float() * p["D"][None, None, :, None]
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rms_norm_simple(y * F.silu(z), eps=cfg.norm_eps) * \
+        p["norm_scale"].to(x.dtype)
+    return y @ p["out_proj"].to(x.dtype)
+
+
+def init_mamba2_state(L, B, cfg, dtype, device):
+    """Stacked per-layer decode state: conv (L,B,K-1,conv_dim) in
+    ``dtype``, ssm (L,B,H,N,P) f32."""
+    _, nheads, conv_dim = dims(cfg)
+    return {
+        "conv": torch.zeros((L, B, cfg.ssm.conv_kernel - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((L, B, nheads, cfg.ssm.state_dim,
+                            cfg.ssm.head_dim), dtype=torch.float32,
+                           device=device),
+    }

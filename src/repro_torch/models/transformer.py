@@ -1,13 +1,14 @@
-"""Decoder-only LM of the dense family: train forward (loss), prefill,
-decode, caches.
+"""Decoder-only LM of the dense and hybrid families: train forward
+(loss), prefill, decode, caches.
 
 Port of the reference's ``models/transformer.py``.  Params are a nested
 dict with the reference's keys and its stacked (L, ...) layer layout, so
 slicing a layer is a free view; the reference's ``lax.scan`` over layer
-groups is a Python loop.  Families other than dense (MoE, hybrid, SSM,
-VLM, audio) and the dense variants this slice does not need (windows,
-softcaps, post-norms, LayerNorm, qk-norm, tied embeddings) raise
-``NotImplementedError``.
+groups is a Python loop.  The hybrid family (Zamba2) is a Mamba2 backbone
+with one shared (tied) attention+MLP block applied after every
+``shared_attn_every`` Mamba2 layers.  Other families (MoE, SSM, VLM,
+audio) and the variants these slices do not need (windows, softcaps,
+post-norms, LayerNorm, qk-norm) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,54 +16,66 @@ from typing import Any, Dict, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, MAMBA2, ModelConfig
 from repro_torch.core.routing import as_routes
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rope as rope_mod
 
 PyTree = Any
-_NORMS = ("ln1", "ln2", "final_norm")
+# Subtrees and leaves that keep the param dtype in ``compute_params``: the
+# norm scales (the norms compute in f32) and the Mamba2 scalars and conv,
+# which the reference reads in f32 and never casts to the compute dtype.
+_KEEP_DTYPE = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias",
+               "conv_w", "conv_b")
+_PATTERN = {"dense": ATTN_GLOBAL, "hybrid": MAMBA2}
 
 
 def _unsupported(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in _PATTERN:
         return f"family {cfg.family!r}"
     for flag in ("window", "attn_softcap", "final_softcap", "post_norms",
                  "use_layernorm", "qk_norm", "embed_scale", "mrope_sections",
-                 "stub_frontend", "is_encdec", "tie_embeddings"):
+                 "stub_frontend", "is_encdec"):
         if getattr(cfg, flag):
             return f"{flag}={getattr(cfg, flag)!r}"
-    if set(cfg.layer_pattern or (ATTN_GLOBAL,)) != {ATTN_GLOBAL}:
+    if set(cfg.layer_pattern or (ATTN_GLOBAL,)) != {_PATTERN[cfg.family]}:
         return f"layer_pattern={cfg.layer_pattern!r}"
+    if cfg.family == "hybrid" and not cfg.shared_attn_every:
+        return "shared_attn_every=0"
     if not cfg.gated_mlp:
         return "gated_mlp=False"
     return None
 
 
+def _tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked (L, ...) param tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return _tree_map(lambda a: a[i], tree)
 
 
 def compute_params(params: PyTree, dtype: torch.dtype,
                    device=None) -> PyTree:
     """Weights, biases and tables cast once to the compute dtype (and
-    moved to ``device`` when given); norm scales keep the param dtype (the
-    norms compute in f32).  The
-    reference casts each weight on every call (``astype`` in the layers);
-    the cast is deterministic, so casting once gives the same values.
-    Leaves already in ``dtype`` are shared, not copied."""
-    def walk(tree, under_norm):
+    moved to ``device`` when given); the ``_KEEP_DTYPE`` subtrees keep the
+    param dtype.  The reference casts each weight on every call
+    (``astype`` in the layers); the cast is deterministic, so casting once
+    gives the same values.  Leaves already in ``dtype`` are shared, not
+    copied."""
+    def walk(tree, keep):
         if isinstance(tree, dict):
-            return {k: walk(v, under_norm or k in _NORMS)
+            return {k: walk(v, keep or k in _KEEP_DTYPE)
                     for k, v in tree.items()}
-        return tree.to(device=device, dtype=tree.dtype if under_norm
-                       else dtype)
+        return tree.to(device=device, dtype=tree.dtype if keep else dtype)
     return walk(params, False)
 
 
@@ -77,10 +90,17 @@ class LMModel:
         if why is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {why} is not ported yet (the port covers the "
-                "dense qwen1.5-4b path; see ROADMAP queue 1 item 12)")
+                "dense qwen1.5-4b and hybrid zamba2-1.2b paths; see ROADMAP "
+                "queue 1 item 12)")
         self.cfg = cfg
         self.routes = as_routes(routes)
-        self.meta = B.make_metas(cfg)[0]
+        if cfg.family == "hybrid":
+            self.meta = B.LayerMeta(kind=ATTN_GLOBAL, window=0,
+                                    theta=cfg.rope_theta, local=False)
+            self.n_groups = cfg.num_layers // cfg.shared_attn_every
+            self.n_tail = cfg.num_layers % cfg.shared_attn_every
+        else:
+            self.meta = B.make_metas(cfg)[0]
         self.compute_dtype = getattr(torch, cfg.dtype)
         self.param_dtype = getattr(torch, cfg.param_dtype)
 
@@ -93,28 +113,66 @@ class LMModel:
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
         dt, n = self.param_dtype, cfg.num_layers
-        hd = cfg.resolved_head_dim
-        return {
-            "embed": L.init_embed(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-            "final_norm": L.init_norm(cfg.d_model, dt, dev),
-            "layers": {
+
+        def attn_layers(n):
+            return {
                 "ln1": L.init_norm(cfg.d_model, dt, dev, lead=(n,)),
                 "attn": attn_mod.init_attention(
-                    gen, n, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, hd,
-                    dt, dev, qkv_bias=cfg.qkv_bias),
+                    gen, n, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim, dt, dev, qkv_bias=cfg.qkv_bias),
                 "ln2": L.init_norm(cfg.d_model, dt, dev, lead=(n,)),
                 "mlp": L.init_mlp(gen, n, cfg.d_model, cfg.d_ff, dt, dev),
-            },
-            "lm_head": L.init_lm_head(gen, cfg.d_model, cfg.vocab_size, dt,
-                                      dev),
+            }
+        params = {
+            "embed": L.init_embed(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+            "final_norm": L.init_norm(cfg.d_model, dt, dev),
         }
+        if cfg.family == "hybrid":
+            params["layers"] = B.init_mamba_block(gen, n, cfg, dt, dev)
+            params["shared"] = _layer(attn_layers(1), 0)
+        else:
+            params["layers"] = attn_layers(n)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.init_lm_head(gen, cfg.d_model,
+                                               cfg.vocab_size, dt, dev)
+        return params
 
     def init_cache(self, Bt: int, max_len: int, device=None) -> PyTree:
+        """Dense: the KV cache of every layer.  Hybrid: {"mamba": conv
+        tails and SSM states of every Mamba2 layer, "attn": the KV cache of
+        each shared-block application}.  Every leaf has the slot axis at
+        dim 1."""
         cfg = self.cfg
-        return attn_mod.init_kv_cache(
-            cfg.num_layers, Bt, max_len, cfg.num_kv_heads,
-            cfg.resolved_head_dim, self.compute_dtype,
-            resolve_device(device))
+        dev = resolve_device(device)
+        n_kv = self.n_groups if cfg.family == "hybrid" else cfg.num_layers
+        kv = attn_mod.init_kv_cache(
+            n_kv, Bt, max_len, cfg.num_kv_heads, cfg.resolved_head_dim,
+            self.compute_dtype, dev)
+        if cfg.family != "hybrid":
+            return kv
+        return {"mamba": mamba_mod.init_mamba2_state(
+            cfg.num_layers, Bt, cfg, self.compute_dtype, dev), "attn": kv}
+
+    @staticmethod
+    def cache_lane(cache: PyTree, i: int) -> PyTree:
+        """Slot ``i``'s lane of a cache: views (slot axis kept, size 1) of
+        every leaf, which a prefill writes in place."""
+        return _tree_map(lambda c: c[:, i:i + 1], cache)
+
+    @staticmethod
+    def clear_lane(lane: PyTree) -> PyTree:
+        """Empty a lane in place for a new sequence: KV and SSM state
+        zeroed, KV positions -1 (nothing written)."""
+        def clear(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    clear(v)
+                elif k == "pos":
+                    v.fill_(-1)
+                else:
+                    v.zero_()
+        clear(lane)
+        return lane
 
     # --------------------------------------------------------- backbone
     def _rope(self, positions):
@@ -128,14 +186,41 @@ class LMModel:
 
     def _logits(self, params, h):
         h = L.norm(params["final_norm"], h, eps=self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            return L.logits_from_embed(params["embed"]["table"], h)
         return L.lm_head(params["lm_head"], h)
 
     def _run_layers(self, params, x, rope, cache=None, t=None, tpos=None,
                     step=False):
+        if self.cfg.family == "hybrid":
+            return self._run_hybrid(params, x, rope, cache, t, tpos, step)
         for i in range(self.cfg.num_layers):
             x = B.attn_block(_layer(params["layers"], i), x, self.cfg,
                              self.meta, rope, self.routes, cache=cache,
                              layer=i, t=t, tpos=tpos, step=step)
+        return x
+
+    def _run_hybrid(self, params, x, rope, cache, t, tpos, step):
+        """Zamba2: groups of ``shared_attn_every`` Mamba2 layers, each
+        followed by the shared block (its KV in cache layer ``g``), then
+        the tail of ``num_layers % shared_attn_every`` Mamba2 layers."""
+        cfg = self.cfg
+        per = cfg.shared_attn_every
+
+        def mamba(li, x):
+            state = (None if cache is None else
+                     {k: v[li] for k, v in cache["mamba"].items()})
+            return B.mamba_block(_layer(params["layers"], li), x, cfg,
+                                 self.routes, state=state, step=step)
+        for g in range(self.n_groups):
+            for j in range(per):
+                x = mamba(g * per + j, x)
+            x = B.attn_block(params["shared"], x, cfg, self.meta, rope,
+                             self.routes,
+                             cache=None if cache is None else cache["attn"],
+                             layer=g, t=t, tpos=tpos, step=step)
+        for j in range(self.n_tail):
+            x = mamba(self.n_groups * per + j, x)
         return x
 
     # ----------------------------------------------------------- modes
@@ -148,9 +233,11 @@ class LMModel:
         x = self._run_layers(params, x, self._rope(
             rope_mod.positions_default(Bt, S, x.device)))
         h = L.norm(params["final_norm"], x, eps=cfg.norm_eps)
+        tied = cfg.tie_embeddings
+        w = params["embed"]["table"] if tied else params["lm_head"]["w"]
         loss, denom = L.chunked_xent(
-            h, batch["targets"], params["lm_head"]["w"], tied=False,
-            chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
+            h, batch["targets"], w, tied=tied, chunk=cfg.loss_chunk,
+            mask=batch.get("loss_mask"))
         return loss, {"xent": loss, "tokens": denom, "loss": loss}
 
     def logits_all(self, params, batch) -> torch.Tensor:

@@ -16,8 +16,10 @@ Two failover modes mirror the paper's two mechanisms:
     call; failover flips a bit and rebuilds nothing.  The resident
     prefill is resident too.
 
-The slot batch is written out (the reference vmaps a B=1 decode): the KV
-pool is one (L, slots, Smax, Hkv, Dh) cache, and a decode tick is one
+The slot batch is written out (the reference vmaps a B=1 decode): the
+pool is one cache with the slot axis at dim 1 of every leaf (KV
+(L, slots, Smax, Hkv, Dh); for the hybrid family also the Mamba2 conv
+tails and SSM states), and a decode tick is one
 ``decode_step`` over every slot.  Plain ops in decode run per slot, so on
 the SW route the served tokens are bit-identical to the single-request
 ``reference_decode`` (the reference's contract); the HW SwiGLU kernel
@@ -313,14 +315,12 @@ class ServeEngine(_SlotPool):
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None]
         P = prompt.shape[1]
-        # The slot's KV lane, as views of the pool, emptied for the
+        # The slot's cache lane, as views of the pool, emptied for the
         # newcomer; prefill writes it in place.
-        lane = {k: c[:, i:i + 1] for k, c in self._caches.items()}
-        lane["k"].zero_()
-        lane["v"].zero_()
-        lane["pos"].fill_(-1)
-        logits, _ = self._model(self._prefill).prefill(
-            self.params, {"tokens": prompt, "cache": lane})
+        model = self._model(self._prefill)
+        lane = model.clear_lane(model.cache_lane(self._caches, i))
+        logits, _ = model.prefill(self.params, {"tokens": prompt,
+                                                "cache": lane})
         first = logits[:, -1].argmax(-1)                   # (1,)
         self._toks[i] = first
         self._tvec[i] = P
