@@ -1,9 +1,9 @@
 """Decoder blocks: attention + gated MLP (dense, and the hybrid family's
-shared block), Mamba2.
+shared block), Mamba2, RWKV-6.
 
 Port of the reference's ``models/blocks.py`` (``LayerMeta``,
-``make_metas``, ``attn_block``, ``init_mamba_block``, ``mamba_block``); the
-MoE and RWKV6 blocks wait for their slices.
+``make_metas``, ``attn_block``, ``init_mamba_block``, ``mamba_block``,
+``init_rwkv_block``, ``rwkv_block``); the MoE block waits for its slice.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 
 
 @dataclass(frozen=True)
@@ -73,6 +74,15 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
                      row_independent=step)
 
 
+def _per_slot(block, x, state):
+    """``block(x_i, state_i)`` for each slot i on its own, as a B=1 decode
+    would run it, so batched decode equals single-request decode bit for
+    bit; each slot's state views are written in place."""
+    return torch.cat([
+        block(x[i:i + 1], {k: v[i:i + 1] for k, v in state.items()})
+        for i in range(x.shape[0])])
+
+
 def init_mamba_block(gen, n, cfg: ModelConfig, dtype, device):
     """``n`` stacked Mamba2 layers: pre-norm + mixer."""
     return {"ln1": L.init_norm(cfg.d_model, dtype, device, lead=(n,)),
@@ -84,12 +94,33 @@ def mamba_block(p, x, cfg: ModelConfig, routes, state=None, step=False):
     conv tail and SSM state) is written in place by a prefill and by a
     decode step; decode runs each slot on its own, as a B=1 decode would,
     so batched decode equals single-request decode bit for bit."""
-    route = routes.get("mamba2_ssd", viscosity.SW)
     if step and x.shape[0] > 1:
-        return torch.cat([
-            mamba_block(p, x[i:i + 1], cfg, routes, step=True,
-                        state={k: v[i:i + 1] for k, v in state.items()})
-            for i in range(x.shape[0])])
+        return _per_slot(lambda xi, si: mamba_block(p, xi, cfg, routes, si,
+                                                    step=True), x, state)
+    route = routes.get("mamba2_ssd", viscosity.SW)
     h = L.norm(p["ln1"], x, eps=cfg.norm_eps)
     return x + mamba_mod.mamba2_block(p["mix"], h, cfg, route=route,
                                       state=state, step=step)
+
+
+def init_rwkv_block(gen, n, cfg: ModelConfig, dtype, device):
+    """``n`` stacked RWKV-6 layers: pre-norms, time-mix and channel-mix
+    (both under ``tm``, as in the reference)."""
+    return {"ln1": L.init_norm(cfg.d_model, dtype, device, lead=(n,)),
+            "tm": rwkv_mod.init_rwkv6(gen, n, cfg, dtype, device),
+            "ln2": L.init_norm(cfg.d_model, dtype, device, lead=(n,))}
+
+
+def rwkv_block(p, x, cfg: ModelConfig, routes, state=None, step=False):
+    """Returns x after one RWKV-6 layer.  ``state`` (views of the layer's
+    token shifts and WKV state) is written in place by a prefill and by a
+    decode step; decode runs each slot on its own."""
+    if step and x.shape[0] > 1:
+        return _per_slot(lambda xi, si: rwkv_block(p, xi, cfg, routes, si,
+                                                   step=True), x, state)
+    route = routes.get("rwkv6_wkv", viscosity.SW)
+    h = L.norm(p["ln1"], x, eps=cfg.norm_eps)
+    x = x + rwkv_mod.time_mix(p["tm"], h, cfg, route=route, state=state,
+                              step=step)
+    h = L.norm(p["ln2"], x, eps=cfg.norm_eps)
+    return x + rwkv_mod.channel_mix(p["tm"], h, state=state)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import viscosity
+from repro_torch.core.routing import state_from_lowering
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan import ref as ssd_ref
 from repro_torch.models.layers import _he, rms_norm_simple
@@ -76,14 +77,6 @@ def _causal_conv(xbc, w, b, *, tail=None):
     return y, xx[:, -(K - 1):]
 
 
-def _state_from_lowering(route) -> bool:
-    """True when the lowering this call runs returns the final state of
-    its own scan: HW (the kernel) and SW (``ssd_chunked``), as a target or
-    a resident handle whose healthy target is HW or SW."""
-    target = route.hw if hasattr(route, "select") else route
-    return target in (viscosity.HW, viscosity.SW)
-
-
 def mamba2_block(p, x, cfg, *, route=viscosity.SW, state=None, step=False):
     """x (B,S,D) -> (B,S,D).  ``state`` = {"conv": (B,K-1,conv_dim), "ssm":
     (B,H,N,P)}, views into the cache that the prefill (``step`` False) and
@@ -105,7 +98,7 @@ def mamba2_block(p, x, cfg, *, route=viscosity.SW, state=None, step=False):
         y, new_ssm = ssd_ref.ssd_step(state["ssm"], xs[:, 0], dt[:, 0], A,
                                       B_[:, 0], C_[:, 0])
         y = y[:, None]
-    elif state is not None and _state_from_lowering(route):
+    elif state is not None and state_from_lowering(route):
         y, new_ssm = ssd_ops.ssd(xs, dt, A, B_, C_, route=route,
                                  chunk=cfg.ssm.chunk, with_state=True)
     else:

@@ -1,4 +1,4 @@
-"""Decoder-only LM of the dense and hybrid families: train forward
+"""Decoder-only LM of the dense, hybrid and SSM families: train forward
 (loss), prefill, decode, caches.
 
 Port of the reference's ``models/transformer.py``.  Params are a nested
@@ -6,9 +6,10 @@ dict with the reference's keys and its stacked (L, ...) layer layout, so
 slicing a layer is a free view; the reference's ``lax.scan`` over layer
 groups is a Python loop.  The hybrid family (Zamba2) is a Mamba2 backbone
 with one shared (tied) attention+MLP block applied after every
-``shared_attn_every`` Mamba2 layers.  Other families (MoE, SSM, VLM,
-audio) and the variants these slices do not need (windows, softcaps,
-post-norms, LayerNorm, qk-norm) raise ``NotImplementedError``.
+``shared_attn_every`` Mamba2 layers; the SSM family (RWKV-6) is a stack of
+attention-free RWKV-6 layers.  Other families (MoE, VLM, audio) and the
+variants these slices do not need (windows, softcaps, post-norms,
+LayerNorm, qk-norm) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Dict, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ATTN_GLOBAL, MAMBA2, ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, MAMBA2, RWKV6, ModelConfig
 from repro_torch.core.routing import as_routes
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -24,14 +25,16 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rope as rope_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 
 PyTree = Any
 # Subtrees and leaves that keep the param dtype in ``compute_params``: the
-# norm scales (the norms compute in f32) and the Mamba2 scalars and conv,
-# which the reference reads in f32 and never casts to the compute dtype.
+# norm scales (the norms compute in f32), the Mamba2 scalars and conv, and
+# the RWKV-6 decay params and bonus, which the reference reads in f32 and
+# never casts to the compute dtype.
 _KEEP_DTYPE = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias",
-               "conv_w", "conv_b")
-_PATTERN = {"dense": ATTN_GLOBAL, "hybrid": MAMBA2}
+               "conv_w", "conv_b", "w0", "w_lora_a", "w_lora_b", "u")
+_PATTERN = {"dense": ATTN_GLOBAL, "hybrid": MAMBA2, "ssm": RWKV6}
 
 
 def _unsupported(cfg: ModelConfig):
@@ -46,7 +49,8 @@ def _unsupported(cfg: ModelConfig):
         return f"layer_pattern={cfg.layer_pattern!r}"
     if cfg.family == "hybrid" and not cfg.shared_attn_every:
         return "shared_attn_every=0"
-    if not cfg.gated_mlp:
+    # the SSM family's MLP is RWKV-6's own channel-mix, never gated
+    if not cfg.gated_mlp and cfg.family != "ssm":
         return "gated_mlp=False"
     return None
 
@@ -90,8 +94,8 @@ class LMModel:
         if why is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {why} is not ported yet (the port covers the "
-                "dense qwen1.5-4b and hybrid zamba2-1.2b paths; see ROADMAP "
-                "queue 1 item 12)")
+                "dense qwen1.5-4b, hybrid zamba2-1.2b and ssm rwkv6-1.6b "
+                "paths; see ROADMAP queue 1 item 12)")
         self.cfg = cfg
         self.routes = as_routes(routes)
         if cfg.family == "hybrid":
@@ -130,6 +134,8 @@ class LMModel:
         if cfg.family == "hybrid":
             params["layers"] = B.init_mamba_block(gen, n, cfg, dt, dev)
             params["shared"] = _layer(attn_layers(1), 0)
+        elif cfg.family == "ssm":
+            params["layers"] = B.init_rwkv_block(gen, n, cfg, dt, dev)
         else:
             params["layers"] = attn_layers(n)
         if not cfg.tie_embeddings:
@@ -140,10 +146,14 @@ class LMModel:
     def init_cache(self, Bt: int, max_len: int, device=None) -> PyTree:
         """Dense: the KV cache of every layer.  Hybrid: {"mamba": conv
         tails and SSM states of every Mamba2 layer, "attn": the KV cache of
-        each shared-block application}.  Every leaf has the slot axis at
-        dim 1."""
+        each shared-block application}.  SSM: the token shifts and WKV
+        states of every RWKV-6 layer (no KV; ``max_len`` is unused).  Every
+        leaf has the slot axis at dim 1."""
         cfg = self.cfg
         dev = resolve_device(device)
+        if cfg.family == "ssm":
+            return rwkv_mod.init_rwkv6_state(cfg.num_layers, Bt, cfg,
+                                             self.compute_dtype, dev)
         n_kv = self.n_groups if cfg.family == "hybrid" else cfg.num_layers
         kv = attn_mod.init_kv_cache(
             n_kv, Bt, max_len, cfg.num_kv_heads, cfg.resolved_head_dim,
@@ -176,7 +186,10 @@ class LMModel:
 
     # --------------------------------------------------------- backbone
     def _rope(self, positions):
-        """cos/sin tables for ``positions`` (one theta: no local layers)."""
+        """cos/sin tables for ``positions`` (one theta: no local layers);
+        None for the attention-free SSM family."""
+        if self.cfg.attn_free:
+            return None
         return rope_mod.rope_tables(positions, self.cfg.resolved_head_dim,
                                     self.cfg.rope_theta)
 
@@ -194,6 +207,13 @@ class LMModel:
                     step=False):
         if self.cfg.family == "hybrid":
             return self._run_hybrid(params, x, rope, cache, t, tpos, step)
+        if self.cfg.family == "ssm":
+            for i in range(self.cfg.num_layers):
+                state = (None if cache is None else
+                         {k: v[i] for k, v in cache.items()})
+                x = B.rwkv_block(_layer(params["layers"], i), x, self.cfg,
+                                 self.routes, state=state, step=step)
+            return x
         for i in range(self.cfg.num_layers):
             x = B.attn_block(_layer(params["layers"], i), x, self.cfg,
                              self.meta, rope, self.routes, cache=cache,

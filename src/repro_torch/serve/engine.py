@@ -19,7 +19,8 @@ Two failover modes mirror the paper's two mechanisms:
 The slot batch is written out (the reference vmaps a B=1 decode): the
 pool is one cache with the slot axis at dim 1 of every leaf (KV
 (L, slots, Smax, Hkv, Dh); for the hybrid family also the Mamba2 conv
-tails and SSM states), and a decode tick is one
+tails and SSM states; for the SSM family the RWKV-6 token shifts and WKV
+states instead of KV), and a decode tick is one
 ``decode_step`` over every slot.  Plain ops in decode run per slot, so on
 the SW route the served tokens are bit-identical to the single-request
 ``reference_decode`` (the reference's contract); the HW SwiGLU kernel

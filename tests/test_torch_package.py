@@ -81,14 +81,15 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen1.5-4b-smoke",
-                                  "zamba2-1.2b", "zamba2-1.2b-smoke"])
+                                  "zamba2-1.2b", "zamba2-1.2b-smoke",
+                                  "rwkv6-1.6b", "rwkv6-1.6b-smoke"])
 def test_config_copy_matches_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(ref_configs.get_config(arch))
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x7b",
-                                  "rwkv6-1.6b-smoke", "whisper-base"])
+                                  "gemma3-1b-smoke", "whisper-base"])
 def test_unported_arch_names_its_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
