@@ -7,9 +7,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 
 1. build   — compile the Hopper kernels from ``src/repro_torch/csrc`` with
              nvcc (all sources at once) into ``build/repro_torch/``;
-2. parity  — each kernel against its plain PyTorch version on the card, in
-             bf16, healthy and under a LaneFault, at the shapes the serving
-             paths give it.  First the RWKV-6 WKV (against its blocked
+2. parity  — each kernel against its plain PyTorch version on the card.
+             First the Fig. 4 checksum, bit for bit against the chunked
+             plain ``checksum_ref``: bool, uint8, int32, int64, float16,
+             bfloat16 and float32 at 0, 1, 3, 4 and 64 bytes and 8191, 8192
+             and 8193 words, a view at every byte offset 1-16, a transposed
+             tensor, 2^30 bytes of 0xFF (2^33 bits: checksum 0) and one
+             byte more (8), 1 GiB of bf16, and the (4, 16) uint8 outputs
+             that the AES canary compares: each 11- and 3-stage stage's SW
+             run on its canary.  Then the others in bf16, healthy
+             and under a LaneFault, at the shapes the serving paths give
+             them.  The RWKV-6 WKV (against its blocked
              plain version and the token-by-token scan, o and the final
              state, healthy and under each lane-fault kind): 32 chunks of
              16 at rwkv6-1.6b's (H, K, V) = (32, 64, 64), a ragged S = 100
@@ -25,13 +33,35 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              P in {128, 200}, H = 20, D = 128; zamba2-1.2b: P = 384, H = 32,
              D = 64) and SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
              zamba2-1.2b 2048 -> 8192: M in {4, 384});
-3. serve   — each model at full width (random weights from a seeded
-             torch.Generator) through the port's ServeEngine on the HW
-             route, in RECOMPILE and RESIDENT mode, with a stage fault at
-             step 4 and admissions after it: every request completes, the
-             modes agree token for token, recompiles are 1 and 0, and each
-             kernel's launch counter rose by exactly its launches per
-             prefill and per decode tick while its stage was healthy.
+3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
+             complex64 (512 MiB), the 8x8 DCT over (2^20, 8, 8) float32
+             (256 MiB), AES-128 in 11 and 3 stages over 64 MiB of
+             plaintext.  The healthy run equals ``run_reference`` (exactly)
+             and ``fft_reference`` / ``dct_reference`` within 1e-4; with
+             the reference example's faults (FFT stage 3 and DCT stage 4 at
+             gain 0.25, AES stage 5 ``^ 0x40`` and a stuck-at-one
+             ``| 0x40``) the canary sweep finds exactly the faulty stage
+             (AES: as the canary's popcount predicts, the XOR being
+             invisible when 32 of its 64 bytes have bit 6 set), the
+             rerouted run and ``run_resident`` under every single-stage
+             mask equal the healthy output, and the checksum kernel runs
+             22 times per 11-stage AES sweep and 6 per 3-stage sweep;
+4. serve   — each model at full width (random weights from a seeded
+             torch.Generator).  First its canary stages on the card: every
+             healthy stage passes on HW (``max|hw - sw|`` printed beside its
+             tol) and each lane-fault kind fails it, and
+             ``checksum_tree`` over its whole parameter dict equals the
+             plain fold.  Then the port's ServeEngine on the HW route, in
+             RECOMPILE and RESIDENT mode, with a ``FaultClassifier`` over a
+             ``ChaosCanary``: a transient canary fault on the model's fault
+             stage at step 2 goes through probation to
+             ``transient_recovered`` with the HW route kept and nothing
+             built; a hard one at step 4 goes to ``persistent``, with
+             admissions after it: every request completes, the modes agree
+             token for token, recompiles are 1 and 0, and each kernel's
+             launch counter rose by exactly its launches per prefill and
+             per decode tick while its stage was healthy, plus the probes'
+             own canary launches (2 + 3 on the fault stage's kernel).
              qwen1.5-4b (40 layers): 6 requests of 16-128 prompt tokens,
              fault on ``swiglu_mlp``.  zamba2-1.2b (38 Mamba2 layers, the
              shared block 6 times): 6 requests of 96-384 prompt tokens, so
@@ -39,7 +69,7 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              rwkv6-1.6b (24 RWKV-6 layers): 6 requests of 64-512 prompt
              tokens, so a prefill walks 4-32 chunks with ragged tails,
              fault on ``rwkv6_wkv``;
-4. sw      — per model, three requests on the SW route, bit-identical to
+5. sw      — per model, three requests on the SW route, bit-identical to
              the port's single-request ``reference_decode``, and the HW
              route's prefill logits finite and within 5% of the largest
              SW logit.  rwkv6-1.6b amplifies bf16 rounding from layer to
@@ -47,18 +77,19 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              by layer (each time-mix on HW and SW from the same input),
              and end to end the HW logits must lie within 1.25 times the
              bf16 SW route's distance from the f32 SW model;
-5. times   — per-kernel ms (CUDA events) beside the plain version's and a
+6. times   — per-kernel ms (CUDA events) beside the plain version's and a
              library call's where one PyTorch call computes the same
              function (a yardstick the port never calls), the bound from
              this run's shapes (attention also at zamba2-1.2b's prefill
-             shape), per model the prefill ms, decode-tick ms and
+             shape; the checksum over 1 GiB of bf16 and over the 64-byte
+             AES canary), per model the prefill ms, decode-tick ms and
              tokens/s, and a torch.profiler trace of one prefill and one
              decode tick (device time by kernel, the device's idle share).
 
 The second-to-last line is one JSON object with the per-kernel numbers
-(``launches`` sums the serve phase's counts over the models, each read
-with the counters set to 0 just before that model's serve); the last line
-is ``{"ok": true, "device": {...}}``.  Details also go to
+(``launches`` sums the counts of the paths, each read with the counters
+set to 0 just before that path: each model's serve, probes included, and
+the case studies); the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -98,6 +129,7 @@ WKV_TOL = (2e-2, 1e-2)
 # bf16 ulps per layer; 5% of the largest logit bounds that drift.
 LOGITS_REL = 5e-2
 FAULT_STEP = 4
+TRANSIENT_STEP = 2
 
 
 def out(line: str = ""):
@@ -193,9 +225,20 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
 
+    from repro_torch.chaos import CANARY_WIDTHS, ChaosCanary, canary_fault
     from repro_torch.configs import get_config
+    from repro_torch.core import (CanaryChecker, FaultState,
+                                  StagedAccelerator, inject)
+    from repro_torch.core import casestudies as cs
+    from repro_torch.core.fault import (PERSISTENT, TRANSIENT_RECOVERED,
+                                        FaultClassifier)
+    from repro_torch.core.stage import Stage
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels.checksum import (checksum_popcount, checksum_ref,
+                                              checksum_tree,
+                                              checksum_tree_ref)
+    from repro_torch.viscosity.lang import tree_leaves
     from repro_torch.kernels.flash_attention import (attention_flops,
                                                      attention_ref_blocked,
                                                      flash_attention_bhsd)
@@ -212,8 +255,8 @@ def main() -> int:
     from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig,
                                    ServeEngine, percentile, reference_decode,
                                    synthetic_workload)
-    from repro_torch.train.runner import model_stage_names
-    from repro_torch.viscosity import HW, SW
+    from repro_torch.train.runner import canary_stages, model_stage_names
+    from repro_torch.viscosity import HW, SW, lanefault
     from repro_torch.viscosity.lanefault import KINDS, LaneFault
 
     dev = resolve_device("cuda")
@@ -221,7 +264,8 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda}
     out(f"device {report['device']} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    wrappers = {"flash_attention": flash_attention_bhsd,
+    wrappers = {"checksum": checksum_popcount,
+                "flash_attention": flash_attention_bhsd,
                 "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda,
                 "rwkv6_wkv": wkv6_chunked_cuda}
 
@@ -257,6 +301,56 @@ def main() -> int:
         return d
 
     max_err = {name: 0.0 for name in wrappers}
+
+    # the Fig. 4 checksum, bit for bit against its chunked plain version
+    def checksum_parity(tag, x):
+        got = int(checksum_popcount(x))
+        torch.cuda.synchronize()
+        want = int(checksum_ref(x))
+        max_err["checksum"] = max(max_err["checksum"], abs(got - want))
+        check(got == want, f"checksum {tag}: {got}, plain {want}")
+        return got
+
+    def random_bytes(nbytes):
+        return torch.randint(0, 256, (nbytes,), generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    n_cases = 0
+    for dtype in (torch.bool, torch.uint8, torch.int32, torch.int64,
+                  torch.float16, torch.bfloat16, torch.float32):
+        item = torch.empty((), dtype=dtype).element_size()
+        for nbytes in (0, 1, 3, 4, 64, 4 * 8191, 4 * 8192, 4 * 8193):
+            raw = random_bytes(nbytes // item * item)
+            x = raw > 127 if dtype == torch.bool else raw.view(dtype)
+            checksum_parity(f"{dtype} {x.numel()} elements", x)
+            n_cases += 1
+    raw = random_bytes(100003)
+    for off in range(1, 17):                 # every 16-byte misalignment
+        checksum_parity(f"uint8[{off}:]", raw[off:])
+    checksum_parity("uint8[1:-3]", raw[1:-3])
+    m = torch.randn((777, 333), generator=gen, device=dev)
+    check(not m.t().is_contiguous(), "the transposed case is contiguous")
+    checksum_parity("transposed (333, 777) f32", m.t())
+    ones = torch.full((1 << 30,), 255, dtype=torch.uint8, device=dev)
+    wrap = (checksum_parity("2^30 bytes of 0xFF", ones),
+            checksum_parity("2^30 + 1 bytes of 0xFF",
+                            torch.cat([ones, ones[:1]])))
+    check(wrap == (0, 8), f"checksum wrap cases gave {wrap}, want (0, 8)")
+    del ones
+    big = randn(1 << 29)                     # 1 GiB of bf16
+    checksum_parity("1 GiB bf16", big)
+    n_cases += 21
+    aes_key = np.arange(16, dtype=np.uint8)
+    for n_stages in (11, 3):             # what the AES canary compares
+        for st in cs.aes_accelerator(aes_key, n_stages, device=dev).stages:
+            y = st.run(*st.canary_inputs(0), route=SW)
+            check(y.shape == (4, 16) and y.dtype == torch.uint8
+                  and y.is_cuda, f"AES {st.name} canary output {y.shape}")
+            checksum_parity(f"AES{n_stages} {st.name} canary output", y)
+            n_cases += 1
+    out(f"[parity] checksum: {n_cases} cases bit-identical to checksum_ref "
+        "(7 dtypes x 8 sizes, 17 unaligned views, a transposed tensor, the "
+        "wrap to 0 and to 8, 1 GiB of bf16, 14 AES canary outputs)")
 
     def wkv_inputs(Bt, S, H, K, V, lw_clamp=False):
         # lw in the model's clamp [-4, -1e-4] (a plain normal would leave
@@ -387,8 +481,6 @@ def main() -> int:
     swiglu_parity(qwen.d_model, qwen.d_ff, (1, 4, 200))
     swiglu_parity(zamba.d_model, zamba.d_ff, (4, 384))
     report["max_abs_err"] = max_err
-
-    # ------------------------------------------------- 3-4. serve and sw
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -396,14 +488,146 @@ def main() -> int:
     report["nvidia_smi"] = smi
     launches = {name: {} for name in wrappers}
 
+    # ---------------------------------------------------------- 3. cases
+    def case_study(acc, x, faults, *, reference=None, expect=None):
+        """One accelerator at size: the healthy run against the all-SW run
+        (exactly) and ``reference`` (1e-4); per ``faults`` entry (label,
+        stage index, stage -> faulty stage) the canary sweep's finding
+        (``expect(label, canary of that stage)`` or exactly that stage),
+        the checksum launches of the sweep, the rerouted run; then
+        ``run_resident`` under every single-stage mask."""
+        name, n = acc.name, len(acc.stages)
+        healthy = acc.run(x)
+        entry = {"input": f"{tuple(x.shape)} {x.dtype}",
+                 "run_ms": time_ms(torch, lambda: acc.run(x), 3)}
+        check(torch.equal(healthy, acc.run_reference(x)),
+              f"{name}: the HW run differs from run_reference")
+        if reference is not None:
+            err = (healthy - reference(x)).abs().max().item()
+            entry["max_abs_vs_reference"] = err
+            check(err <= 1e-4, f"{name}: {err:.3e} from the reference")
+        for label, idx, corrupt in faults:
+            stages = list(acc.stages)
+            stages[idx] = corrupt(stages[idx])
+            broken = StagedAccelerator(name, stages)
+            check(not torch.equal(broken.run(x), healthy),
+                  f"{name} {label}: the fault is invisible in the output")
+            state = FaultState()
+            n0 = checksum_popcount.launches
+            found = CanaryChecker(broken.stages).sweep(state)
+            sweep = checksum_popcount.launches - n0
+            want = ([stages[idx].name] if expect is None else
+                    expect(label, acc.stages[idx],
+                           stages[idx].canary_inputs(0)[0]))
+            check(found == want, f"{name} {label}: the canary found "
+                  f"{found}, want {want}")
+            check(sweep == (2 * n if stages[idx].tol == 0.0 else 0),
+                  f"{name} {label}: {sweep} checksum launches in a sweep")
+            if found:
+                check(torch.equal(broken.run(
+                    x, state.signature(broken.stage_names)), healthy),
+                    f"{name} {label}: the rerouted run differs")
+                mask = [i != idx for i in range(n)]
+                check(torch.equal(broken.run_resident(x, mask), healthy),
+                      f"{name} {label}: the resident reroute differs")
+            entry[label] = {"found": found, "checksum_launches": sweep}
+        for i in range(n):
+            check(torch.equal(acc.run_resident(
+                x, [j != i for j in range(n)]), healthy),
+                f"{name}: run_resident without stage {i} differs")
+        out(f"[cases] {name}: {json.dumps(entry)}")
+        return entry
+
+    def gain(stage):
+        return inject(stage, kind="gain", magnitude=0.25)
+
+    def aes_fault(op):
+        def corrupt(stage):
+            return Stage(name=stage.name, hw=lambda s, f=stage.hw: op(f(s)),
+                         sw=stage.sw, ports=stage.ports, tol=0.0, device=dev)
+        return corrupt
+
+    def popcount_rule(label, stage, canary):
+        # ^ 0x40 moves the 64-byte canary's popcount by 64 - 2n, | 0x40 by
+        # 64 - n (n = output bytes with bit 6 set): the checksum sees the
+        # fault unless that is 0
+        n = int(((stage.run(canary, route=SW) >> 6) & 1).sum())
+        seen = n != 32 if label == "xor_0x40" else n < 64
+        out(f"[cases] {stage.name} {label}: {n} canary bytes have bit 6 "
+            f"set, so the checksum {'sees' if seen else 'cannot see'} it")
+        return [stage.name] if seen else []
+
+    for w in wrappers.values():      # the case studies' own count
+        w.launches = 0
+    cases = {"fft": case_study(
+        cs.fft_accelerator(64, device=dev),
+        torch.randn((1 << 20, 64), generator=gen, device=dev,
+                    dtype=torch.complex64),
+        [("gain_0.25", 3, gain)], reference=cs.fft_reference)}
+    cases["dct"] = case_study(
+        cs.dct_accelerator(device=dev),
+        torch.randn((1 << 20, 8, 8), generator=gen, device=dev),
+        [("gain_0.25", 4, gain)], reference=cs.dct_reference)
+    plaintext = random_bytes(64 << 20).view(-1, 16)
+    fips = torch.tensor([[0x00, 0x11, 0x22, 0x33, 0x44, 0x55, 0x66, 0x77,
+                          0x88, 0x99, 0xaa, 0xbb, 0xcc, 0xdd, 0xee, 0xff]],
+                        dtype=torch.uint8, device=dev)
+    for n_stages, idx in ((11, 5), (3, 1)):
+        aes = cs.aes_accelerator(aes_key, n_stages, device=dev)
+        check(bytes(aes.run(fips)[0].tolist()).hex()
+              == "69c4e0d86a7b0430d8cdb78070b4c55a",
+              f"aes{n_stages}: FIPS-197 C.1 ciphertext differs")
+        cases[f"aes{n_stages}"] = case_study(
+            aes, plaintext,
+            [("xor_0x40", idx, aes_fault(lambda o: o ^ 0x40)),
+             ("or_0x40", idx, aes_fault(lambda o: o | 0x40))],
+            expect=popcount_rule)
+    launches["checksum"]["casestudies"] = checksum_popcount.launches
+    report["casestudies"] = cases
+    out(f"[cases] checksum launches in the case studies: "
+        f"{checksum_popcount.launches} (22 per 11-stage AES sweep, 6 per "
+        "3-stage sweep)")
+
+    # ------------------------------------------------- 4-5. serve and sw
+
+    def canary_phase(cfg):
+        """Every healthy canary stage passes on HW; each lane-fault kind
+        (armed at the canary's width) fails it."""
+        stages = canary_stages(cfg, device=dev)
+        chk = CanaryChecker(stages, route_hw=HW)
+        margins = {}
+        for st in stages:
+            args = st.canary_inputs(0)
+            sw = st.run(*args, route=SW)
+            d = CanaryChecker.max_diff(st.run(*args, route=HW), sw)
+            healthy = chk.check_stage(st)
+            caught = {}
+            for kind in KINDS:
+                with lanefault.inject(st.name, LaneFault(
+                        kind, (1,), CANARY_WIDTHS[st.name])):
+                    caught[kind] = not chk.check_stage(st)
+            margins[st.name] = {"max_abs_hw_sw": d, "tol": st.tol,
+                                "max_abs_sw": sw.float().abs().max().item(),
+                                "faults_caught": caught}
+            out(f"[canary] {cfg.name} {st.name}: healthy max|hw-sw| {d:.3e} "
+                f"(tol {st.tol:g}, max|sw| "
+                f"{margins[st.name]['max_abs_sw']:.3f}) "
+                f"{'pass' if healthy else 'FAIL'}; lane faults caught "
+                f"{caught}")
+            check(healthy and d <= st.tol,
+                  f"{cfg.name} {st.name}: the healthy canary fails on HW")
+            check(all(caught.values()),
+                  f"{cfg.name} {st.name}: a lane fault passed the canary")
+        return margins
+
     def serve_path(cfg, workload, fault_stage, per_prefill, per_tick,
                    prefill_len, logits_check=None):
-        """Phases 3 and 4 for one model, then its end-to-end times (a
+        """Phases 4 and 5 for one model, then its end-to-end times (a
         prefill of ``prefill_len`` tokens, a healthy serve, the profiler);
         returns its report entry.  ``logits_check(cfg, params, params32,
         prompt, last)`` replaces the bound on HW against SW prefill logits
         for a model that amplifies bf16 rounding (see ``rwkv_logits``)."""
-        entry = {}
+        entry = {"canaries": canary_phase(cfg)}
         t0 = time.perf_counter()
         model = build_model(cfg)
         params32 = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -416,6 +640,18 @@ def main() -> int:
         out(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
             f"{cfg.d_model}, vocab {cfg.vocab_size}; weights ready in "
             f"{entry['init_s']:.1f} s")
+        # checksum_tree over the parameters against the plain fold
+        leaves = tree_leaves(params)
+        got, want = checksum_tree(params), checksum_tree_ref(params)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        entry["checksum_tree"] = {
+            "value": got, "leaves": len(leaves), "bytes": nbytes,
+            "ms": time_ms(torch, lambda: checksum_tree(params), 3)}
+        out(f"[parity] checksum_tree over {cfg.name}'s {len(leaves)} "
+            f"parameter leaves ({nbytes / 2**30:.2f} GiB): {got} (plain "
+            f"fold {want}) in {entry['checksum_tree']['ms']:.2f} ms")
+        check(got == want, f"{cfg.name}: checksum_tree disagrees with the "
+              "plain fold")
         reqs = synthetic_workload(cfg.vocab_size, 6,
                                   np.random.default_rng(0), **workload)
         max_len = workload["max_prompt"] + workload["max_new"]
@@ -424,21 +660,55 @@ def main() -> int:
             w.launches = 0
         runs = {}
         for mode in (RECOMPILE, RESIDENT):
+            canary = ChaosCanary(CanaryChecker(canary_stages(cfg, device=dev),
+                                               route_hw=HW))
             eng = ServeEngine(cfg, params, ServeConfig(
                 max_len=max_len, max_slots=4, hw_route=HW, failover=mode),
-                device=dev)
+                device=dev, classifier=FaultClassifier(canary))
             before = {s: wrappers[s].launches for s in stages}
             want = dict.fromkeys(stages, 0)
+            probe = dict.fromkeys(stages, 0)   # the canary probes' launches
             before_fault = 0
+            healthy_plan = eng.plan()
+
+            def observe(step, fails):
+                """A detection on the fault stage at ``step``, its canary
+                armed to fail ``fails`` probes (None: every probe)."""
+                n0 = {s: wrappers[s].launches for s in stages}
+                canary.arm(fault_stage, canary_fault(fault_stage),
+                           fails=fails)
+                transient = eng.observe_fault(fault_stage, step=step)
+                canary.disarm(fault_stage)
+                for s in stages:
+                    probe[s] += wrappers[s].launches - n0[s]
+                return transient
+
             sess = eng.session()
             for r in reqs:
                 sess.submit(r)
             t_start = time.perf_counter()
             while sess.pending():
+                if sess.step_count == TRANSIENT_STEP:
+                    builds = (eng._prefill.compiles, eng._decode.compiles)
+                    check(observe(TRANSIENT_STEP, 1), f"{cfg.name} {mode}: "
+                          "the transient episode was not transient")
+                    check(eng.fault_state.log[-1]["kind"]
+                          == TRANSIENT_RECOVERED and eng.plan()
+                          == healthy_plan and all(eng.health_mask()),
+                          f"{cfg.name} {mode}: the transient episode left "
+                          "the HW route")
+                if sess.step_count == TRANSIENT_STEP + 1:
+                    check((eng._prefill.compiles, eng._decode.compiles)
+                          == builds, f"{cfg.name} {mode}: the transient "
+                          "episode built a model")
                 if sess.step_count == FAULT_STEP:
-                    eng.inject_fault(fault_stage)
                     before_fault = wrappers[fault_stage].launches - \
-                        before[fault_stage]
+                        before[fault_stage] - probe[fault_stage]
+                    check(not observe(FAULT_STEP, None)
+                          and eng.fault_state.log[-1]["kind"] == PERSISTENT
+                          and eng.fault_state.is_faulty(fault_stage),
+                          f"{cfg.name} {mode}: the hard fault was not "
+                          "persistent")
                 admitted = sess.stats["admitted"]
                 healthy = {s: not eng.fault_state.is_faulty(s)
                            for s in stages}
@@ -451,12 +721,19 @@ def main() -> int:
             wall = time.perf_counter() - t_start
             stats = sess.close()
             done = {c.rid: c for c in sess.poll()}
-            got = {s: wrappers[s].launches - before[s] for s in stages}
+            got = {s: wrappers[s].launches - before[s] - probe[s]
+                   for s in stages}
+            verdicts = [e["kind"] for e in eng.fault_state.log
+                        if e["kind"] in (TRANSIENT_RECOVERED, PERSISTENT)]
             out(f"[serve] {cfg.name} {mode}: {len(done)}/{len(reqs)} done "
                 f"in {stats['steps']} steps, {wall:.2f} s; recompiles "
-                f"{stats['recompiles']}; launches {got} (want {want}); "
+                f"{stats['recompiles']}; launches {got} (want {want}) and "
+                f"{probe} by the canary probes; verdicts {verdicts}; "
                 f"{fault_stage} launches before the step-{FAULT_STEP} "
                 f"fault {before_fault}")
+            check(probe == {s: 5 if s == fault_stage else 0 for s in stages},
+                  f"{cfg.name} {mode}: probe launches {probe}, want 2 + 3 "
+                  f"on {fault_stage}")
             check(sorted(done) == sorted(r.rid for r in reqs),
                   f"{cfg.name} {mode}: not every request completed")
             check(any(r.arrival >= FAULT_STEP for r in reqs),
@@ -473,8 +750,10 @@ def main() -> int:
             runs[mode] = {r.rid: done[r.rid].tokens.tolist() for r in reqs}
         check(runs[RECOMPILE] == runs[RESIDENT],
               f"{cfg.name}: RECOMPILE and RESIDENT served different tokens")
-        for s in stages:
+        for s in stages + ["checksum"]:
             launches[s][cfg.name] = wrappers[s].launches
+        check(checksum_popcount.launches == 0, f"{cfg.name}: the serve "
+              "launched the checksum (its stages compare with tol > 0)")
         out(f"[serve] {cfg.name}: modes agree on "
             f"{sum(map(len, runs[RESIDENT].values()))} tokens; launches "
             f"{ {s: wrappers[s].launches for s in stages} }")
@@ -712,6 +991,29 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: wkv6_ref_blocked(
             r, k, v, lw, u, chunk=16), 10),
         bound_ms=ms, bound_by=by, library_ms=None))
+    # the checksum over 1 GiB of bf16 and over the 64-byte AES canary
+    canary = cs.aes_accelerator(aes_key, 11, device=dev).stages[5] \
+        .canary_inputs(0)[0]
+    checksum_parity("AES canary (4, 16) uint8", canary)
+    ck = {}
+    for label, x, reps in (("1 GiB bf16", big, 20),
+                           ("AES canary (4, 16) uint8", canary, 200)):
+        nbytes = x.numel() * x.element_size()
+        ms, by = bound(nbytes, 0)
+        ck[label] = {"ms": time_ms(torch, lambda: checksum_popcount(x), reps),
+                     "plain_ms": time_ms(torch, lambda: checksum_ref(x),
+                                         max(2, reps // 10), warmup=1),
+                     "bound_ms": ms, "bound_by": by, "library_ms": None,
+                     "bytes": nbytes}
+        out(f"[times] checksum {label}: " + " ".join(
+            f"{k_}={v_:.6f}" if isinstance(v_, float) else f"{k_}={v_}"
+            for k_, v_ in ck[label].items()))
+    report["checksum_shapes"] = ck
+    del big
+    kernels.insert(0, kernel_entry(
+        "checksum", "src/repro_torch/csrc/checksum.cu",
+        "src/repro/kernels/checksum/kernel.py:17", "1 GiB bf16",
+        **{k_: v_ for k_, v_ in ck["1 GiB bf16"].items() if k_ != "bytes"}))
     report["kernels"] = kernels
     for kn in kernels:
         out(f"[times] {kn['name']} {kn['shape']}: ms {kn['ms']:.4f} plain "

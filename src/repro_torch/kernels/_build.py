@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "mamba2_ssd", "rwkv6_wkv", "swiglu")
+SOURCES = ("checksum", "flash_attention", "mamba2_ssd", "rwkv6_wkv",
+           "swiglu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

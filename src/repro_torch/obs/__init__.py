@@ -1,4 +1,5 @@
-"""Telemetry of the port: the metrics registry (a copy of the reference's)."""
-from repro_torch.obs import metrics  # noqa: F401
+"""Telemetry of the port: copies of the reference's metrics registry,
+trace spans and structured logger."""
+from repro_torch.obs import logging, metrics, trace  # noqa: F401
 
-__all__ = ["metrics"]
+__all__ = ["logging", "metrics", "trace"]

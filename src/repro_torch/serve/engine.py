@@ -215,16 +215,19 @@ class ServeEngine(_SlotPool):
     ``device=None`` runs on the card (``cuda``); without CUDA it raises.
     Tests pass ``device="cpu"``.  ``params`` may live anywhere and in the
     param dtype: the engine moves them to its device and casts weights to
-    the compute dtype once, here (``models.compute_params``)."""
+    the compute dtype once, here (``models.compute_params``).
+    ``classifier`` (a ``core.fault.FaultClassifier``) sends each
+    ``observe_fault`` through probation."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
-                 device=None):
+                 device=None, classifier=None):
         if scfg.failover not in (RECOMPILE, RESIDENT):
             raise ValueError(f"unknown failover mode {scfg.failover!r}; "
                              f"expected {RECOMPILE!r} or {RESIDENT!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
+        self.classifier = classifier   # core.fault.FaultClassifier | None
         self._shape_model = build_model(cfg)   # route-free: cache shapes
         self.params = compute_params(params, self._shape_model.compute_dtype,
                                      device=self.device)
@@ -278,14 +281,26 @@ class ServeEngine(_SlotPool):
         self.fault_state.mark(stage, 0, kind="injected")
 
     def observe_fault(self, stage: str, *, step: int = 0) -> bool:
-        """Record one detection: the stage is marked and the ladder walks
-        as an ``inject_fault`` would.  Returns True when the fault was
-        transient, which takes the probation classifier (not ported yet),
-        so always False here."""
+        """Route one detection through the probation classifier (when the
+        engine has one).  The stage is marked first — probation must not
+        race new work onto the suspect path — then its canary re-executes
+        under the classifier's backoff budget.  A transient verdict
+        (canary went clean) clears the mark within this call, so the next
+        ``plan()`` (and the resident health mask) keeps the HW route with
+        no rebuild; persistent keeps the mark and the degradation ladder
+        walks exactly as an ``inject_fault`` would.  Returns True when
+        transient."""
         if stage not in self.stage_names:
             raise ValueError(f"unknown stage {stage!r}; this model's stages:"
                              f" {self.stage_names}")
         self.fault_state.mark(stage, 0, kind="detected", step=step)
+        if self.classifier is None:
+            return False
+        res = self.classifier.classify(stage, replica=0, step=step,
+                                       state=self.fault_state)
+        if res.transient:
+            self.fault_state.clear(stage, 0, step=step)
+            return True
         return False
 
     # ------------------------------------------------------------ builds

@@ -29,7 +29,8 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.viscosity.lang import (DEGRADED_REDUCED, DEGRADED_REMAP,
-                                        DEGRADED_TARGETS, HW, INTERPRET, SW)
+                                        DEGRADED_TARGETS, HW, INTERPRET, SW,
+                                        tree_map)
 
 # Fault kinds (the value-level defects a LaneFault can describe).
 STUCK = "stuck"                # lane pinned to ``value``
@@ -39,15 +40,6 @@ KINDS = (STUCK, DROPPED_MAC, GAIN)
 
 # The degradation ladder: fault k on a lane-mapped stage lands on rung k.
 RUNGS = (DEGRADED_REMAP, DEGRADED_REDUCED, SW)
-
-
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (tuple, list)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 def _lane_tensor(x) -> bool:
@@ -117,7 +109,7 @@ class LaneFault:
                                                   device=x.device), x)
 
     def corrupt_tree(self, out):
-        return _tree_map(self.apply, out)
+        return tree_map(self.apply, out)
 
 
 # ---------------------------------------------------------------- registry
@@ -243,7 +235,7 @@ def lower_degraded(spec, target: str) -> Callable:
         return h
 
     def remap(*args, **kw):
-        return _tree_map(_heal, hw_fn(*args, **kw), ref_fn(*args, **kw))
+        return tree_map(_heal, hw_fn(*args, **kw), ref_fn(*args, **kw))
 
     if target == DEGRADED_REMAP or getattr(spec, "lane_slicer", None) is None:
         return remap
@@ -263,6 +255,6 @@ def lower_degraded(spec, target: str) -> Callable:
                 out[..., list(keep)] = n.to(r.dtype)
                 return out
             return n
-        return _tree_map(leaf, narrow, ref_out)
+        return tree_map(leaf, narrow, ref_out)
 
     return reduced

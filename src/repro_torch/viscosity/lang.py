@@ -100,13 +100,28 @@ def defop(name: str, *, ref, kernel=None, interpret=None, valid=None,
                                     lane_slicer=lane_slicer))
 
 
-def tree_leaves(out):
-    """Leaves of a nested tuple/list/dict of tensors (the port's pytrees)."""
-    if isinstance(out, dict):
-        return [x for v in out.values() for x in tree_leaves(v)]
-    if isinstance(out, (tuple, list)):
-        return [x for v in out for x in tree_leaves(v)]
-    return [out]
+def tree_leaves(tree):
+    """Leaves of a nested tuple/list/dict of tensors (the port's pytrees) in
+    ``jax.tree_util.tree_leaves`` order: dict keys sorted, tuples and lists
+    in order, ``None`` skipped.  The checksum's fold over leaves depends on
+    that order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure, keeping it."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (tuple, list)):
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
 
 
 def finite_valid(out) -> torch.Tensor:

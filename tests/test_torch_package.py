@@ -13,11 +13,14 @@ import pytest
 import torch
 
 import repro.configs as ref_configs
+import repro.obs.logging as ref_logging
 import repro.obs.metrics as ref_metrics
+import repro.obs.trace as ref_trace
 import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
-from repro_torch.obs import metrics
+from repro_torch.obs import logging as obs_logging
+from repro_torch.obs import metrics, trace
 from repro_torch.viscosity.lanefault import LaneFault
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -98,6 +101,28 @@ def test_unported_arch_names_its_roadmap_item(arch):
 def test_metrics_copy_matches_reference():
     assert metrics.SCHEMA == ref_metrics.SCHEMA
     assert metrics.DEFAULT_BUCKETS == ref_metrics.DEFAULT_BUCKETS
+    # the trace copy: the same emissions serialize, merge and pair alike
+    logs = []
+    for tr in (ref_trace, trace):
+        hosts = [tr.Tracer(origin=0), tr.Tracer(origin=1)]
+        for step, host in ((3, 1), (1, 0), (1, 1), (2, 0)):
+            hosts[host].span_start(step, "req", rid=step)
+            hosts[host].annotate(step, "probation", verdict="persistent",
+                                 stage="swiglu_mlp", x=1.5)
+            hosts[host].span_end(step + 1, "req", rid=step)
+        merged = tr.merge(hosts[1].events, hosts[0].events,
+                          hosts[1].events[:2])
+        logs.append((tr.to_jsonl(merged),
+                     [(sp.name, sp.steps) for sp in tr.spans_of(merged)]))
+    assert logs[0] == logs[1]
+    assert trace.from_jsonl(logs[1][0]) == trace.merge(
+        trace.from_jsonl(logs[1][0]))
+    # the logger copy renders records alike (under its own namespace)
+    fields = dict(stage="swiglu_mlp", detail="a b", stamp=(4, "h0", 2))
+    assert obs_logging.get_logger("core.fault", host_id=1).render(
+        "canary", fields) == ref_logging.get_logger(
+        "core.fault", host_id=1).render("canary", fields)
+    assert obs_logging.get_logger("x")._log.name == "repro_torch.x"
 
 
 def test_build_rejects_unknown_source_and_keys_by_sources():
