@@ -6,7 +6,11 @@
 Phases (any failed check exits non-zero; nothing falls back to the CPU):
 
 1. build   — compile the Hopper kernels from ``src/repro_torch/csrc`` with
-             nvcc (all sources at once) into ``build/repro_torch/``;
+             nvcc (all sources at once) into ``build/repro_torch/``; print
+             each SwiGLU kernel's registers, static shared memory, stack and
+             spills from ``-Xptxas -v`` (and whether ptxas serialized its
+             wgmma), and hold each SwiGLU ring's dynamic shared memory
+             against the Python plan's;
 2. parity  — each kernel against its plain PyTorch version on the card.
              First the Fig. 4 checksum, bit for bit against the chunked
              plain ``checksum_ref``: bool, uint8, int32, int64, float16,
@@ -32,7 +36,11 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              P = 40 under a gain fault.  Then flash attention (qwen1.5-4b:
              P in {128, 200}, H = 20, D = 128; zamba2-1.2b: P = 384, H = 32,
              D = 64) and SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
-             zamba2-1.2b 2048 -> 8192: M in {4, 384});
+             zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
+             sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
+             x (64, 128) x (128, 64)), then SwiGLU's bits: each row of an
+             M = 4 row-independent call equals that row alone, and two
+             runs agree, at decode and at prefill;
 3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
              complex64 (512 MiB), the 8x8 DCT over (2^20, 8, 8) float32
              (256 MiB), AES-128 in 11 and 3 stages over 64 MiB of
@@ -82,9 +90,12 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              function (a yardstick the port never calls), the bound from
              this run's shapes (attention also at zamba2-1.2b's prefill
              shape; the checksum over 1 GiB of bf16 and over the 64-byte
-             AES canary), per model the prefill ms, decode-tick ms and
-             tokens/s, and a torch.profiler trace of one prefill and one
-             decode tick (device time by kernel, the device's idle share).
+             AES canary; SwiGLU also the profiler's device time a call,
+             kernel by kernel, beside the event time), per model the
+             prefill ms, decode-tick ms and tokens/s, and a torch.profiler
+             trace of one prefill and one decode tick (device time by
+             kernel, the device's idle share; for the models with a gated
+             MLP, one SwiGLU phase-A kernel a layer in each).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
@@ -97,6 +108,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,6 +175,42 @@ def bound(nbytes: int, ops: int):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def ptxas_kernels(log: str):
+    """Per kernel of an ``nvcc -Xptxas -v`` log: registers, static shared
+    memory, stack, spills, and whether ptxas serialized its wgmma (C7515).
+    Template arguments are read back from the mangled name."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = mangled = m.group(1)
+            t = re.search(r"(swiglu_[a-z_]+)I((?:L[ib]\d+E)+)E", name)
+            if t:
+                args = [a if k == "i" else ("true" if a == "1" else "false")
+                        for k, a in re.findall(r"L([ib])(\d+)E", t.group(2))]
+                name = f"{t.group(1)}<{', '.join(args)}>"
+            cur = {"kernel": name, "mangled": mangled,
+                   "serialized_wgmma": False}
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(m.group(1)),
+                       static_smem=int(sm.group(1)) if sm else 0)
+    for ln in log.splitlines():
+        if "C7515" in ln:
+            for r in rows:
+                if f"'{r['mangled']}'" in ln:
+                    r["serialized_wgmma"] = True
+    return rows
+
+
 def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                     max_len, dev):
     """torch.profiler over one prefill and one decode tick with 4 active
@@ -203,6 +251,12 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                         "idle_share": (1.0 - busy_ms / wall_ms
                                        if busy_ms else None),
                         "kernels": sum(r[2] for r in rows),
+                        # SwiGLU's phase-A kernel: one a gated-MLP call
+                        "swiglu_calls": sum(
+                            n for k, _, n in rows
+                            if re.search(r"swiglu_gemm<\d, 0,", k)),
+                        "swiglu_ms": sum(ms for k, ms, _ in rows
+                                         if "swiglu_" in k),
                         "top": rows[:8]}
         out(f"[profile] {cfg.name} {name}: wall {wall_ms:.2f} ms, device "
             f"busy {busy_ms:.3f} ms, {result[name]['kernels']} device "
@@ -250,6 +304,9 @@ def main() -> int:
                                                 wkv6_scan_ref)
     from repro_torch.kernels.swiglu import (swiglu_flops, swiglu_fused,
                                             swiglu_ref_blocked)
+    from repro_torch.kernels.swiglu.kernel import ring_bytes
+    from repro_torch.kernels.swiglu.kernel import \
+        smem_bytes as swiglu_smem_bytes
     from repro_torch.kernels.swiglu.ops import default_tiles
     from repro_torch.models import build_model, compute_params
     from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig,
@@ -277,10 +334,30 @@ def main() -> int:
         f"-> {_build.build_dir()}")
     for name in _build.SOURCES:
         log = (_build.build_dir() / f"{name}.log")
-        if log.exists():
-            for ln in log.read_text().splitlines():
-                if "registers" in ln or "spill" in ln:
-                    out(f"[build] {name}: {ln.strip()}")
+        if not log.exists() or name == "swiglu":
+            continue
+        for ln in log.read_text().splitlines():
+            if "registers" in ln or "spill" in ln:
+                out(f"[build] {name}: {ln.strip()}")
+    # SwiGLU kernel by kernel, and its rings against the Python plan
+    log = _build.build_dir() / "swiglu.log"
+    report["swiglu_ptxas"] = ptxas_kernels(log.read_text()) \
+        if log.exists() else []
+    for k in report["swiglu_ptxas"]:
+        out(f"[build] swiglu: {k['kernel']}: {k.get('registers')} registers, "
+            f"{k.get('static_smem')} B static smem, {k.get('stack')} B stack, "
+            f"spills {k.get('spill_stores')}/{k.get('spill_loads')} B"
+            + (", wgmma SERIALIZED" if k["serialized_wgmma"] else ""))
+    rings = {}
+    for nwg, nsub in ((1, 0), (1, 1), (2, 0), (2, 1), (2, 2), (3, 0), (3, 1),
+                      (3, 2)):
+        rings[f"nwg={nwg} nsub={nsub}"] = got = swiglu_smem_bytes(nwg, nsub)
+        check(got == ring_bytes(nwg, nsub) and got <= 232448,
+              f"swiglu ring nwg={nwg} nsub={nsub}: compiled {got} B, plan "
+              f"{ring_bytes(nwg, nsub)} B")
+    report["swiglu_rings"] = rings
+    out(f"[build] swiglu dynamic shared memory by ring (nsub 0: phase A), "
+        f"as the plan computes it: {rings}")
 
     # --------------------------------------------------------- 2. parity
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -458,28 +535,56 @@ def main() -> int:
                 randn(Dm, Ff, scale=Dm ** -0.5),
                 randn(Ff, Dm, scale=Ff ** -0.5))
 
-    def swiglu_parity(Dm, Ff, rows):
+    def swiglu_parity(Dm, Ff, rows, Do=None, tag=""):
         w1, w3, w2 = swiglu_weights(Dm, Ff)
+        w2 = w2[:, :Do or Dm]           # a narrow w2 is a strided view
+        Do = w2.shape[1]
         for M in rows:
             x = randn(M, Dm)
             bm, bf, bs = default_tiles(M, Ff)
             for kind in (None,) + KINDS:
-                fault = None if kind is None else LaneFault(kind, (5, Dm - 60),
-                                                            Dm)
+                fault = None if kind is None else LaneFault(
+                    kind, (5, max(0, Do - 60)), Do)
                 got = swiglu_fused(x, w1, w3, w2, lane_fault=fault)
                 torch.cuda.synchronize()
                 want = swiglu_ref_blocked(x, w1, w3, w2, bm=bm, bf=bf, bs=bs,
                                           lane_fault=fault)
                 max_err["swiglu_mlp"] = max(
                     max_err["swiglu_mlp"],
-                    compare(f"swiglu {Dm}->{Ff} M={M} fault={kind}", got,
-                            want, SWIGLU_TOL))
+                    compare(f"swiglu {Dm}->{Ff}->{Do}{tag} M={M} "
+                            f"fault={kind}", got, want, SWIGLU_TOL))
+
+    def swiglu_bits(cfg, prefill_rows):
+        """Row independence: each row of an M=4 ``row_independent`` call
+        equals that row run alone; and the same call twice gives the same
+        bits, at decode and at prefill."""
+        w1, w3, w2 = swiglu_weights(cfg.d_model, cfg.d_ff)
+        x = randn(4, cfg.d_model)
+        y = swiglu_fused(x, w1, w3, w2, row_independent=True)
+        rows_ok = all(torch.equal(y[i:i + 1], swiglu_fused(
+            x[i:i + 1], w1, w3, w2, row_independent=True)) for i in range(4))
+        runs_ok = torch.equal(y, swiglu_fused(x, w1, w3, w2,
+                                              row_independent=True))
+        xp = randn(prefill_rows, cfg.d_model)
+        runs_ok &= torch.equal(swiglu_fused(xp, w1, w3, w2),
+                               swiglu_fused(xp, w1, w3, w2))
+        out(f"[parity] swiglu {cfg.name}: rows of an M=4 row-independent "
+            f"call equal M=1 calls bit for bit: {rows_ok}; run to run (M=4 "
+            f"and M={prefill_rows}) bit for bit: {runs_ok}")
+        check(rows_ok, f"swiglu {cfg.name}: a row depends on the batch")
+        check(runs_ok, f"swiglu {cfg.name}: two runs gave other bits")
 
     qwen, zamba = get_config("qwen1.5-4b"), get_config("zamba2-1.2b")
     attention_parity(qwen.num_heads, qwen.resolved_head_dim, (128, 200))
     attention_parity(zamba.num_heads, zamba.resolved_head_dim, (384,))
     swiglu_parity(qwen.d_model, qwen.d_ff, (1, 4, 200))
     swiglu_parity(zamba.d_model, zamba.d_ff, (4, 384))
+    # a narrow w2 (61 lanes, as DEGRADED_REDUCED slices it) and the canary
+    # stage's (64, 64) x (64, 128) x (128, 64)
+    swiglu_parity(qwen.d_model, qwen.d_ff, (4, 200), Do=61, tag=" (narrow)")
+    swiglu_parity(64, 128, (64,), tag=" (canary)")
+    swiglu_bits(qwen, 200)
+    swiglu_bits(zamba, 384)
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -825,6 +930,14 @@ def main() -> int:
             "slots": 4, "requests": len(reqs)}
         entry["profile"] = profile_serving(torch, cfg, hw_model, params,
                                            toks, cache, reqs, max_len, dev)
+        if "swiglu_mlp" in per_prefill:
+            calls = [ph["swiglu_calls"] for ph in entry["profile"].values()]
+            check(calls == [per_prefill["swiglu_mlp"],
+                            per_tick["swiglu_mlp"]],
+                  f"{cfg.name}: the profiler saw {calls} SwiGLU kernel "
+                  "calls in a prefill and a decode tick, want "
+                  f"{per_prefill['swiglu_mlp']} and "
+                  f"{per_tick['swiglu_mlp']}")
         out(f"[times] {cfg.name} serve: {json.dumps(entry['serve'])}")
         return entry
 
@@ -935,7 +1048,46 @@ def main() -> int:
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:33",
         "B=1 H=20 P=128 D=128 causal", **attn["B=1 H=20 P=128 D=128 causal"]))
-    shapes = {}
+
+    def swiglu_device_ms(fn, reps=10):
+        """Device time a call: each kernel's mean duration over the
+        launches torch.profiler recorded in ``reps`` calls (it has dropped
+        some), summed over the call's kernels; and the CUDA-event time a
+        call with the calls queued behind a 5e6-cycle ``torch.cuda._sleep``
+        (the host has enqueued them all before the device reaches the
+        start event, so that time holds the kernels and the gaps between
+        them, not the host's enqueue)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key.replace("void (anonymous namespace)::", "")
+              .split("(")[0]: e.self_device_time_total / 1e3 / e.count
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0}
+        check(all("swiglu_" in k for k in by),
+              f"swiglu: the profiler saw other kernels: {sorted(by)}")
+        if not by:
+            out("[times] swiglu: the profiler recorded no device events "
+                "(device time not measured)")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return {"device_ms": sum(by.values()) if by else None,
+                "queued_ms": start.elapsed_time(end) / reps}, by
+
+    shapes, swiglu_kernels = {}, {}
     for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384)):
         Dm, Ff = cfg.d_model, cfg.d_ff
         w1, w3, w2 = swiglu_weights(Dm, Ff)
@@ -951,10 +1103,20 @@ def main() -> int:
             "library_ms": time_ms(torch, lambda: (
                 F.silu(x @ w1) * (x @ w3)) @ w2, 20),
             "bound_ms": ms, "bound_by": by}
+        # the kernels' own device time a call (torch.profiler), beside the
+        # event time above, which also holds the wrapper's host time
+        device_times, names = swiglu_device_ms(
+            lambda: swiglu_fused(x, w1, w3, w2))
+        shapes[key].update(device_times)
+        shapes[key]["share_of_bound"] = shapes[key]["bound_ms"] / \
+            shapes[key]["ms"]
+        swiglu_kernels[key] = names
         out(f"[times] swiglu {key}: " + " ".join(
             f"{k_}={v_:.4f}" if isinstance(v_, float) else f"{k_}={v_}"
-            for k_, v_ in shapes[key].items()))
+            for k_, v_ in shapes[key].items()) + "; device ms by kernel "
+            + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in names.items()))
     report["swiglu_shapes"] = shapes
+    report["swiglu_device_kernels"] = swiglu_kernels
     kernels.append(kernel_entry(
         "swiglu_mlp", "src/repro_torch/csrc/swiglu.cu",
         "src/repro/kernels/swiglu/kernel.py:32",

@@ -25,7 +25,8 @@ def default_tiles(M: int, F: int):
 def _hw(x, w1, w3, w2, *, act: str = "silu", interpret: bool = False,
         bm=None, bf=None, bs=None, row_independent: bool = False):
     # ``row_independent`` is a promise the kernel keeps by construction:
-    # each output row depends only on its own input row.
+    # each output row depends only on its own input row.  The CUDA plan
+    # also pins the block shape for such calls.
     dbm, dbf, dbs = default_tiles(x.shape[0], w1.shape[1])
     bm, bf, bs = bm or dbm, bf or dbf, bs or dbs
     fault = lanefault.injection("swiglu_mlp")
@@ -37,7 +38,7 @@ def _hw(x, w1, w3, w2, *, act: str = "silu", interpret: bool = False,
         return _ref.swiglu_ref_blocked(x, w1, w3, w2, act=act, bm=bm, bf=bf,
                                        bs=bs, lane_fault=fault)
     return swiglu_fused(x, w1, w3, w2, act=act, bm=bm, bf=bf, bs=bs,
-                        lane_fault=fault)
+                        lane_fault=fault, row_independent=row_independent)
 
 
 def _lane_slicer(args, kw, keep):
