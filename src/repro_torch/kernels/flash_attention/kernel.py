@@ -1,15 +1,29 @@
 """Flash-attention forward on Hopper: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the Pallas kernel ``flash_attention_bhsd``
-(src/repro/kernels/flash_attention/kernel.py).  On a CUDA tensor the
-wrapper checks its inputs and launches the CUDA kernel, or raises; on a
-CPU tensor it runs the plain version, ``attention_ref_blocked`` (the
-kernel's blocked algorithm in PyTorch).  ``flash_attention_bhsd.launches``
-counts CUDA launches and nothing else.
+(src/repro/kernels/flash_attention/kernel.py).  The CUDA kernel is
+warp-specialized: a producer warp fills a ring of K/V stages with TMA,
+and one or two consumer warpgroups run ``wgmma`` for Q K^T and P V with
+the online softmax in registers.
+
+``plan`` is the launch plan in plain Python, the same on every device:
+rows a block, ring depth, shared memory and the persistent grid, from the
+shapes alone.  On a CUDA tensor the wrapper reads q, k and v through their
+strides (any 4-D view whose head dim is contiguous and whose other strides
+are multiples of 16 bytes; ``tma_operand`` pads the head dim of anything
+else), allocates the output in the model's (B, S, H, Dv) order, returns
+it as a (B, H, S, Dv) view, and launches, or raises; on a CPU tensor it
+runs the plain version, ``attention_ref_blocked`` (the kernel's blocked
+algorithm in PyTorch).  ``flash_attention_bhsd.launches`` counts CUDA
+launches and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import struct
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,59 +32,200 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref_blocked
 
 _NAME = "flash_attention"
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I = ctypes.c_int
 _PROTOTYPES = {
-    "flash_attention_fwd": (
-        _P, _P, _P, _P,                      # q, k, v, o
-        _I, _I, _I, _I, _I, _I, _I, _I,      # B, H, Hkv, Sq, Skv, D, Dv, kv_len
-        _F, _I, _I, _F,                      # scale, causal, window, softcap
-        _I, _P, _F, _F,                      # fault kind, mask, value, gain
-        _P),                                 # stream
+    "flash_attention_fwd": (ctypes.c_char_p,),       # _HEAD + _TAIL
+    "flash_attention_smem_bytes": (_I, _I, _I, _I),  # nwg, kd, vb, stages
 }
-DMAX = 128   # the CUDA kernel's widest head dim
+# ``Params`` in csrc/flash_attention.cu, field for field, in two parts:
+# the q, k, v, o, fault-mask and stream pointers; then the (b, h, s)
+# element strides of q, k and v; B, H, Hkv, Sq, Skv, D, Dv, lanes, kv_len,
+# causal, window, nwg, stages, grid, fault kind and the struct's size;
+# scale, softcap, fault value and gain.  One packed argument costs
+# the host a fraction of what forty ctypes arguments do.
+_HEAD = struct.Struct("<6Q")
+_TAIL = struct.Struct("<9q16i4f")
+# per call signature (layout, shapes, strides, dtypes, devices, options)
+# whose operands the kernel reads in place: the checked call's packed tail,
+# output shape, real width and fault-mask pointer, so that a repeated call
+# (every layer of a prefill) skips the checks and the packing
+_CALLS: Dict[tuple, tuple] = {}
+_CALLS_KEEP = 1024
+DMAX = 128                # the CUDA kernel's widest head dim
+TILE = 64                 # query rows a warpgroup; head dims a box; keys a
+                          # K/V stage
+SM_COUNT = 132            # H100 SXM
+SMEM_LIMIT = 232_448      # a Hopper block's dynamic shared memory
+SMEM_SM = 233_472         # an SM's shared memory, 1 KB of it kept a block
+MAX_STAGES = 4
 
 
-def _pad_last(x, m):
-    r = x.shape[-1] % m
-    return x if r == 0 else F.pad(x, (0, m - r))
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def _launch(q, k, v, *, causal, window, softcap, scale, kv_len, lane_fault):
-    req = _build.require
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        req(t.dtype == torch.bfloat16,
-            f"flash_attention: {name} must be bfloat16, got {t.dtype}")
-        req(t.device == q.device,
-            f"flash_attention: {name} is on {t.device}, q on {q.device}")
-        req(t.dim() == 4, f"flash_attention: {name} must be (B, H, S, D)")
-    B, H, Sq, D = q.shape
-    _, Hkv, Skv, Dv = v.shape
-    req(k.shape == (B, Hkv, Skv, D) and v.shape[:3] == (B, Hkv, Skv),
-        f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-        f"v {tuple(v.shape)} do not agree")
-    req(Hkv >= 1 and H % Hkv == 0, f"flash_attention: H={H} % Hkv={Hkv}")
-    req(D <= DMAX and Dv <= DMAX,
-        f"flash_attention: head dims {D}, {Dv} exceed {DMAX}")
-    # the kernel takes head dims in multiples of 16: zero lanes add nothing
-    # to q.k and produce output lanes that are sliced away
-    qp, kp, vp = (_pad_last(t, 16).contiguous() for t in (q, k, v))
-    for t in (qp, kp, vp):
-        req(t.data_ptr() % 16 == 0, "flash_attention: inputs must be "
-            "16-byte aligned")
-    Dp, Dvp = qp.shape[-1], vp.shape[-1]
-    out = torch.empty((B, H, Sq, Dvp), dtype=torch.bfloat16, device=q.device)
-    kind, mask, value, gain = _build.lane_fault_args(lane_fault, Dv, q.device)
+def ring_bytes(nwg: int, kd: int, vb: int, stages: int) -> int:
+    """Dynamic shared memory of a block (``smem_bytes`` in
+    csrc/flash_attention.cu): two Q tiles of ``nwg * kd`` boxes of 64 rows
+    x 64 head dims; ``stages`` K/V stages of ``kd + vb`` boxes of 64 keys;
+    two mbarriers a Q tile and two a stage; 1024 bytes to align the
+    swizzled boxes."""
+    return (2 * nwg * kd * TILE * 128 + stages * (kd + vb) * TILE * 128
+            + 8 * (4 + 2 * stages) + 1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    nwg: int                       # consumer warpgroups (64 query rows each)
+    kd: int                        # 64-column boxes of a q / k row
+    vb: int                        # 64-column boxes of a v row
+    stages: int                    # K/V stages in the ring
+    smem: int                      # dynamic shared memory a block
+    blocks_per_sm: int             # what the ring was sized for
+    items: int                     # (h, query tile, b) work items
+    grid: int                      # persistent blocks, each dealt items
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
+         Dv: int) -> Plan:
+    """The launch plan of one call, from its shapes alone.  An item is 64
+    query rows of one (b, h) for each consumer warpgroup: two warpgroups
+    (128 rows: K and V cross shared memory once for twice the rows) where
+    such items still outnumber the SMs, else one (two blocks a SM where
+    the items outnumber the SMs).  The grid is persistent: one block per
+    SM slot, dealt the items in turn.  64 keys a K/V stage, and as many
+    stages as fit, 2 to 4."""
+    if min(B, H, Hkv, Sq, Skv, D, Dv) < 1:
+        raise ValueError(f"flash_attention: empty shape "
+                         f"{(B, H, Hkv, Sq, Skv, D, Dv)}")
+    if H % Hkv:
+        raise ValueError(f"flash_attention: H={H} % Hkv={Hkv}")
+    if D > DMAX or Dv > DMAX:
+        raise ValueError(f"flash_attention: head dims {D}, {Dv} exceed "
+                         f"{DMAX}")
+    kd, vb = _ceil(D, TILE), _ceil(Dv, TILE)
+    nwg = 2 if B * H * _ceil(Sq, 2 * TILE) >= SM_COUNT else 1
+    items = B * H * _ceil(Sq, TILE * nwg)
+    # two one-warpgroup blocks a SM where the items outnumber the SMs
+    per_sm = 2 if nwg == 1 and items > SM_COUNT else 1
+    budget = min(SMEM_LIMIT, SMEM_SM // per_sm - 1024)
+    stages = max(s for s in range(2, MAX_STAGES + 1)
+                 if s == 2 or ring_bytes(nwg, kd, vb, s) <= budget)
+    return Plan(nwg=nwg, kd=kd, vb=vb, stages=stages,
+                smem=ring_bytes(nwg, kd, vb, stages), blocks_per_sm=per_sm,
+                items=items, grid=min(items, SM_COUNT * per_sm))
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the kernel reads the 4-D ``t`` in place: the head dim
+    contiguous, every other stride a multiple of 16 bytes (or its extent
+    1), and the start 16-byte aligned.  Written out: it runs three times a
+    call."""
+    s0, s1, s2, s3 = t.stride()
+    n0, n1, n2, n3 = t.shape
+    return ((s3 == 1 or n3 == 1) and not t.data_ptr() % 16
+            and (n0 == 1 or (s0 > 0 and not s0 % 8))
+            and (n1 == 1 or (s1 > 0 and not s1 % 8))
+            and (n2 == 1 or (s2 > 0 and not s2 % 8)))
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    r = t.shape[-1] % 8
+    return (t if r == 0 else F.pad(t, (0, 8 - r))).contiguous()
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when ``tma_ready``, else a contiguous copy with the head
+    dim zero-padded to a multiple of 8 (16 bytes; a narrow Dv under
+    DEGRADED_REDUCED, such as 126): zero lanes add nothing to q.k, and the
+    output lanes they make are sliced away."""
+    return t if tma_ready(t) else _padded(t)
+
+
+def _launch(q, k, v, *, causal, window, softcap, scale, kv_len,
+            lane_fault):
+    """The kernel on q, k, v in (B, H, S, D) order, any strides; the
+    output in (B, S, H, Dv) memory, returned as a (B, H, S, Dv) view."""
+    key = (q.shape, k.shape, v.shape, q.stride(), k.stride(),
+           v.stride(), q.dtype, k.dtype, v.dtype, q.device, k.device,
+           v.device, causal, window, softcap, scale, kv_len, lane_fault)
+    call = _CALLS.get(key)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if call is None or (qp | kp | vp) % 16:
+        return _launch_checked(q, k, v, key, causal=causal, window=window,
+                               softcap=softcap, scale=scale, kv_len=kv_len,
+                               lane_fault=lane_fault)
+    tail, shape, Dv, mask = call
+    out = torch.empty(shape, dtype=torch.bfloat16, device=q.device)
     lib = _build.load(_NAME, _PROTOTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        B, H, Hkv, Sq, Skv, Dp, Dvp, kv_len or Skv,
-        scale or 1.0 / D ** 0.5, int(causal), int(window or 0),
-        float(softcap or 0.0), kind,
-        mask.data_ptr() if mask is not None else None, value, gain, stream)
+    rc = lib.flash_attention_fwd(_HEAD.pack(
+        qp, kp, vp, out.data_ptr(), mask,
+        torch._C._cuda_getCurrentRawStream(q.device.index)) + tail)
     _build.check(lib, _NAME, rc)
     flash_attention_bhsd.launches += 1
-    return out if Dvp == Dv else out[..., :Dv]
+    o = out.transpose(1, 2)
+    return o if shape[3] == Dv else o[..., :Dv]
+
+
+def _launch_checked(q, k, v, key, *, causal, window, softcap, scale, kv_len,
+                    lane_fault):
+    # checks first, messages only on failure
+    bf = torch.bfloat16
+    if not (q.dtype == bf and k.dtype == bf and v.dtype == bf
+            and q.dim() == 4 and k.dim() == 4 and v.dim() == 4
+            and k.device == q.device and v.device == q.device):
+        raise ValueError(
+            "flash_attention: q, k, v must be 4-D bfloat16 on one device; "
+            "got " + ", ".join(f"{t.dtype} {t.dim()}-D on {t.device}"
+                               for t in (q, k, v)))
+    B, H, Sq, D = q.shape
+    _, Hkv, Skv, Dv = v.shape
+    kshape = (B, Hkv, Skv, D)
+    if k.shape != kshape or v.shape[:3] != kshape[:3]:
+        raise ValueError(
+            f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} do not agree")
+    # q and k share one head-dim width: both are copied if either must be
+    if tma_ready(q) and tma_ready(k):
+        qk, kk = q, k
+    else:
+        qk, kk = _padded(q), _padded(k)
+    vk = tma_operand(v)
+    Dp, Dvp = qk.shape[3], vk.shape[3]
+    p = plan(B, H, Hkv, Sq, Skv, Dp, Dvp)
+    # the output in the model's (B, S, H, Dv) order, its rows whole pairs
+    # (``dvo`` in csrc/flash_attention.cu)
+    shape = (B, Sq, H, Dvp + Dvp % 2)
+    kind, mask, value, gain = _build.lane_fault_args(lane_fault, Dv, q.device)
+    mask = mask.data_ptr() if mask is not None else 0
+    qs, ks, vs = qk.stride(), kk.stride(), vk.stride()
+    tail = _TAIL.pack(
+        *qs[:3], *ks[:3], *vs[:3],
+        B, H, Hkv, Sq, Skv, Dp, Dvp, Dv, min(kv_len or Skv, Skv),
+        int(causal), int(window or 0), p.nwg, p.stages, p.grid, kind,
+        _HEAD.size + _TAIL.size, scale or 1.0 / D ** 0.5,
+        float(softcap or 0.0), value, gain)
+    if qk is q and kk is k and vk is v:
+        if len(_CALLS) >= _CALLS_KEEP:
+            _CALLS.clear()
+        _CALLS[key] = (tail, shape, Dv, mask)
+    out = torch.empty(shape, dtype=bf, device=q.device)
+    lib = _build.load(_NAME, _PROTOTYPES)
+    rc = lib.flash_attention_fwd(_HEAD.pack(
+        qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), out.data_ptr(), mask,
+        torch._C._cuda_getCurrentRawStream(q.device.index)) + tail)
+    _build.check(lib, _NAME, rc)
+    flash_attention_bhsd.launches += 1
+    o = out.transpose(1, 2)
+    return o if shape[3] == Dv else o[..., :Dv]
+
+
+def smem_bytes(nwg: int, kd: int, vb: int, stages: int) -> int:
+    """The compiled kernel's own shared-memory size (needs the CUDA build),
+    to hold ``ring_bytes`` against."""
+    return _build.load(_NAME, _PROTOTYPES).flash_attention_smem_bytes(
+        nwg, kd, vb, stages)
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -80,9 +235,10 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, H, Sq, D); k (B, Hkv, Skv, D); v (B, Hkv, Skv, Dv).  The output
     width is ``v.shape[3]`` (narrow under DEGRADED_REDUCED).
 
-    CUDA tensors: the Hopper kernel, bf16 only, with its own 64x64 tiles
-    (``bq``/``bk`` shape only the plain version); any Sq, Skv.  CPU
-    tensors: the plain blocked version, Sq % bq == Skv % bk == 0."""
+    CUDA tensors: the Hopper kernel, bf16 only, any Sq and Skv, any strides
+    (``bq``/``bk`` shape only the plain version); the output is a (B, H,
+    Sq, Dv) view of a (B, Sq, H, Dv) tensor.  CPU tensors: the plain
+    blocked version, Sq % bq == Skv % bk == 0."""
     if q.device.type == "cuda":
         return _launch(q, k, v, causal=causal, window=window,
                        softcap=softcap, scale=scale, kv_len=kv_len,

@@ -2,7 +2,9 @@
 
 Port of the reference's ``kernels/flash_attention/ops.py``.  ``attention``
 is the stage entry point the models call; the route selects the lowering:
-  * HW        -> the Hopper flash kernel (its plain version on CPU tensors)
+  * HW        -> the Hopper flash kernel on the model's (B, S, H, D)
+                 tensors as they are (its plain version, on tensors padded
+                 to the tiles, on CPU tensors)
   * INTERPRET -> the kernel's blocked algorithm in PyTorch, CPU only
   * SW        -> the chunked online-softmax oracle
 There is no tuning cache yet: the tiles are the reference's defaults.
@@ -40,6 +42,13 @@ def _kernel_path(q, k, v, *, causal=True, window=0, softcap=0.0, scale=0.0,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
         return fault.corrupt_tree(out) if fault is not None else out
+    if q.device.type == "cuda" and not interpret:
+        # the Hopper kernel reads the model's (B, S, H, D) tensors through
+        # their strides and writes a (B, S, H, Dv) output: no copy, no pad
+        return flash_attention_bhsd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, softcap=softcap, scale=scale,
+            lane_fault=fault).transpose(1, 2)
     Sq, Skv = q.shape[1], k.shape[1]
     bq = min(bq or 128, max(8, Sq))
     bk = min(bk or 128, max(8, Skv))
