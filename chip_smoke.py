@@ -7,11 +7,14 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 
 1. build   — compile the Hopper kernels from ``src/repro_torch/csrc`` with
              nvcc (all sources at once) into ``build/repro_torch/``; print
-             each SwiGLU and attention kernel's registers, static shared
-             memory, stack and spills from ``-Xptxas -v`` (and whether
-             ptxas serialized its wgmma: C7510-C7520), and hold each SwiGLU
-             ring's and each attention plan's dynamic shared memory (every
-             shape this run launches) against the Python plan's;
+             each SwiGLU, attention, SSD and WKV kernel's registers, static
+             shared memory, stack and spills from ``-Xptxas -v`` (and
+             whether ptxas serialized its wgmma: C7510-C7520), and hold each
+             SwiGLU ring's and each attention plan's dynamic shared memory
+             (every shape this run launches) against the Python plan's, and
+             each WKV and SSD launch plan (grids, group size, scratch,
+             shared memory; the parity cases and every serving prompt
+             length) against the compiled library's;
 2. parity  — each kernel against its plain PyTorch version on the card.
              First the Fig. 4 checksum, bit for bit against the chunked
              plain ``checksum_ref``: bool, uint8, int32, int64, float16,
@@ -25,16 +28,24 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              them.  The RWKV-6 WKV (against its blocked
              plain version and the token-by-token scan, o and the final
              state, healthy and under each lane-fault kind): 32 chunks of
-             16 at rwkv6-1.6b's (H, K, V) = (32, 64, 64), a ragged S = 100
-             padded to 112, B = 2 with S = 200, a short S = 7 (one chunk
-             of L = 7), the smoke width
+             16 at rwkv6-1.6b's (H, K, V) = (32, 64, 64), 256 chunks
+             (S = 4096, groups of 16 chunks), B = 4 with S = 512, a ragged
+             S = 100 padded to 112, B = 2 with S = 200, a short S = 7 (one
+             chunk of L = 7), the smoke width
              K = V = 32, a narrow V = 40, and lw = -4 on every token (the
-             clamp bound, where the factorization's e^64 factors appear).
+             clamp bound, where the factorization's e^64 factors appear);
+             and two calls give the same bits.
              Then the Mamba2 SSD (against its blocked plain version and
-             the token-by-token scan): three chunks of
-             128 at zamba2-1.2b's (H, P, N) = (64, 64, 64), one unpadded
+             the token-by-token scan, healthy and under each lane-fault
+             kind): three chunks of
+             128 at zamba2-1.2b's (H, P, N) = (64, 64, 64), 16 chunks
+             (S = 2048), B = 4 with S = 384, one unpadded
              chunk of 100, B = 2 with padding (S = 200), and a narrow
-             P = 40 under a gain fault.  Then flash attention on strided
+             P = 40 (also under a gain of 2); two calls give the same
+             bits; and on x, B and C cut as strided views from one xbc
+             tensor, as ``models/mamba2.py`` passes them, it reads them in
+             place and equals its run on contiguous copies bit for bit.
+             Then flash attention on strided
              (B, S, H, D) views, as the model passes them, against
              ``attention_ref_blocked`` on padded contiguous copies, healthy
              and under each lane-fault kind (``ATTN_CASES``): qwen1.5-4b
@@ -101,16 +112,19 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              function (a yardstick the port never calls), the bound from
              this run's shapes (attention also at zamba2-1.2b's prefill
              shape and at qwen1.5-4b P = 2048; the checksum over 1 GiB of
-             bf16 and over the 64-byte AES canary; attention and SwiGLU
-             also the profiler's device time a call, kernel by kernel, and
-             the time of calls queued behind a sleep, beside the event
-             time), per model the prefill ms, decode-tick ms and tokens/s,
-             and a torch.profiler trace of one prefill and one decode tick
-             (device time by kernel, the device's idle share, copy kernels;
-             attention's device time and launches, which must be 40 and 6
-             a qwen1.5-4b and zamba2-1.2b prefill and 0 a tick; for the
-             models with a gated MLP, one SwiGLU phase-A kernel a layer in
-             each).
+             bf16 and over the 64-byte AES canary; attention, SwiGLU, the
+             SSD (also on the model's strided views, where the profiler
+             must see no kernel but the SSD's: no copy) and the WKV also
+             the profiler's device time a call, kernel by kernel, the
+             kernels a call, and the time of calls queued behind a sleep,
+             beside the event time), per model the prefill ms, decode-tick
+             ms and tokens/s, and a torch.profiler trace of one prefill and
+             one decode tick (device time by kernel, the device's idle
+             share, copy kernels; attention's device time and launches,
+             which must be 40 and 6 a qwen1.5-4b and zamba2-1.2b prefill
+             and 0 a tick; the SSD's and the WKV's device time, kernels
+             and calls; for the models with a gated MLP, one SwiGLU
+             phase-A kernel a layer in each).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
@@ -172,6 +186,21 @@ SSD_TOL = (2e-2, 1e-2)
 # activations (|o| near 40, one ulp 0.25) are held by the HW-vs-SW logits
 # check below, not by this bound.
 WKV_TOL = (2e-2, 1e-2)
+# (B, S, H, K, V, lw = -4 throughout): 32 chunks at rwkv6-1.6b's prefill,
+# 256 chunks (groups of 16), B = 4, a ragged S padded to 112, B = 2 with
+# padding, a short prompt (L = S = 7), the smoke width, a narrow V
+# (DEGRADED_REDUCED), the clamp bound (e^64 factors)
+WKV_CASES = ((1, 512, 32, 64, 64, False), (1, 4096, 32, 64, 64, False),
+             (4, 512, 32, 64, 64, False), (1, 100, 32, 64, 64, False),
+             (2, 200, 32, 64, 64, False), (1, 7, 32, 64, 64, False),
+             (1, 128, 4, 32, 32, False), (1, 128, 32, 64, 40, False),
+             (1, 128, 32, 64, 64, True))
+# (B, S, H, P, N): three chunks at zamba2-1.2b's prefill, 16 chunks, B = 4,
+# one unpadded chunk of 100, B = 2 padded to 256 (dt = 0), a narrow P
+# (also under a gain of 2)
+SSD_CASES = ((1, 384, 64, 64, 64), (1, 2048, 64, 64, 64),
+             (4, 384, 64, 64, 64), (1, 100, 64, 64, 64),
+             (2, 200, 64, 64, 64), (1, 384, 64, 40, 64))
 # HW against SW logits after every bf16 layer: each route rounds its
 # activations to bf16 at other points, so the logits drift apart by a few
 # bf16 ulps per layer; 5% of the largest logit bounds that drift.
@@ -221,11 +250,14 @@ def ptxas_kernels(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = mangled = m.group(1)
-            t = re.search(r"\d([a-z_]+)I((?:L[ib]\d+E)+)E", name)
+            t = (re.search(r"\d+((?:rwkv6_wkv|mamba2_ssd)_[a-z_]+?)"
+                           r"(?:I((?:L[ib]\d+E)+)E)?[Ev]", name)
+                 or re.search(r"\d([a-z_]+)I((?:L[ib]\d+E)+)E", name))
             if t:
                 args = [a if k == "i" else ("true" if a == "1" else "false")
-                        for k, a in re.findall(r"L([ib])(\d+)E", t.group(2))]
-                name = f"{t.group(1)}<{', '.join(args)}>"
+                        for k, a in re.findall(r"L([ib])(\d+)E",
+                                               t.group(2) or "")]
+                name = t.group(1) + (f"<{', '.join(args)}>" if args else "")
             cur = {"kernel": name, "mangled": mangled,
                    "serialized_wgmma": False}
             rows.append(cur)
@@ -298,6 +330,18 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                             n for k, _, n in rows if "flash_attn_fwd" in k),
                         "attention_ms": sum(ms for k, ms, _ in rows
                                             if "flash_attn_fwd" in k),
+                        # the scans: three kernels a call, one chunk scan
+                        **{f"{op}_{what}": fn_(op_key)
+                           for op, op_key in (("wkv", "rwkv6_wkv_"),
+                                              ("ssd", "mamba2_ssd_"))
+                           for what, fn_ in (
+                               ("ms", lambda key: sum(
+                                   ms for k, ms, _ in rows if key in k)),
+                               ("kernels", lambda key: sum(
+                                   n for k, _, n in rows if key in k)),
+                               ("calls", lambda key: sum(
+                                   n for k, _, n in rows
+                                   if key + "chunk_scan" in k)))},
                         "copy_kernels": sum(n for k, _, n in rows
                                             if "copy" in k.lower()),
                         "top": rows[:8]}
@@ -305,7 +349,11 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
             f"busy {busy_ms:.3f} ms, {result[name]['kernels']} device "
             f"events; attention {result[name]['attention_ms']:.4f} ms in "
             f"{result[name]['attention_launches']} launches; "
-            f"{result[name]['copy_kernels']} copy kernels"
+            + "".join(f"{op.upper()} {result[name][op + '_ms']:.4f} ms in "
+                      f"{result[name][op + '_calls']} calls "
+                      f"({result[name][op + '_kernels']} kernels); "
+                      for op in ("wkv", "ssd") if result[name][op + "_calls"])
+            + f"{result[name]['copy_kernels']} copy kernels"
             + "".join(f"\n[profile]   {ms:.3f} ms x{n} {k[:70]}"
                       for k, ms, n in rows[:8]))
     sess.close()
@@ -353,9 +401,15 @@ def main() -> int:
     from repro_torch.kernels.mamba2_scan import (ssd_chunked_cuda, ssd_flops,
                                                  ssd_ref_blocked,
                                                  ssd_scan_ref)
+    from repro_torch.kernels.mamba2_scan.kernel import c_plan as ssd_c_plan
+    from repro_torch.kernels.mamba2_scan.kernel import plan as ssd_plan
+    from repro_torch.kernels.mamba2_scan.kernel import strided_ready
     from repro_torch.kernels.rwkv6_scan import (wkv6_chunked_cuda,
                                                 wkv6_flops, wkv6_ref_blocked,
                                                 wkv6_scan_ref)
+    from repro_torch.kernels.rwkv6_scan.kernel import c_plan as wkv_c_plan
+    from repro_torch.kernels.rwkv6_scan.kernel import plan as wkv_plan
+    from repro_torch.models.mamba2 import dims as mamba2_dims
     from repro_torch.kernels.swiglu import (swiglu_flops, swiglu_fused,
                                             swiglu_ref_blocked)
     from repro_torch.kernels.swiglu.kernel import ring_bytes
@@ -386,7 +440,8 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     out(f"[build] {report['build_s']:.1f} s for {sorted(built)} "
         f"-> {_build.build_dir()}")
-    by_kernel = ("swiglu", "flash_attention")   # TMA + wgmma kernels
+    # kernel by kernel: the TMA + wgmma kernels and the scans' phases
+    by_kernel = ("swiglu", "flash_attention", "mamba2_ssd", "rwkv6_wkv")
     for name in _build.SOURCES:
         log = (_build.build_dir() / f"{name}.log")
         if not log.exists() or name in by_kernel:
@@ -436,6 +491,34 @@ def main() -> int:
     report["attention_smem"] = plans
     out(f"[build] flash_attention dynamic shared memory by plan, as the "
         f"plan computes it ({len(attn_shapes)} shapes): {plans}")
+    # the scans: every plan this run launches (the parity cases below and
+    # every serving prompt length, padded as the ops pad it) against the
+    # compiled library's
+    rwkv = get_config("rwkv6-1.6b")
+    zh_ssd = mamba2_dims(zamba)[1]
+    wkv_shapes = {(Bt_, -(-S_ // min(16, S_)) * min(16, S_), H_, min(16, S_))
+                  for Bt_, S_, H_, *_ in WKV_CASES}
+    wkv_shapes |= {(1, S_, rwkv.num_heads, 16) for S_ in range(16, 513, 16)}
+    ssd_shapes = {(Bt_, -(-S_ // min(128, S_)) * min(128, S_), H_,
+                   min(128, S_)) for Bt_, S_, H_, *_ in SSD_CASES}
+    ssd_shapes |= {(1, S_, zh_ssd, S_) for S_ in range(96, 128)}
+    ssd_shapes |= {(1, 128 * k, zh_ssd, 128) for k in (1, 2, 3)}
+    scan_plans = {}
+    for label, plan_fn, c_plan_fn, shapes in (
+            ("rwkv6_wkv", wkv_plan, wkv_c_plan, wkv_shapes),
+            ("mamba2_ssd", ssd_plan, ssd_c_plan, ssd_shapes)):
+        for shp in sorted(shapes):
+            pl, cpl = plan_fn(*shp), c_plan_fn(*shp)
+            check(pl == cpl, f"{label} plan {shp}: Python {pl}, compiled "
+                  f"{cpl}")
+        scan_plans[label] = {str(shp): dataclasses.asdict(plan_fn(*shp))
+                             for shp in sorted(shapes)
+                             if shp[0] > 1 or shp[1] in (512, 4096, 384,
+                                                         2048)}
+        out(f"[build] {label}: {len(shapes)} launch plans equal the "
+            f"compiled library's; " + "; ".join(
+                f"{k}: {v}" for k, v in scan_plans[label].items()))
+    report["scan_plans"] = scan_plans
 
     # --------------------------------------------------------- 2. parity
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -517,26 +600,21 @@ def main() -> int:
                 randn(Bt, S, H, V, scale=0.5), lw.to(torch.bfloat16),
                 randn(H, K, scale=0.5, dtype=torch.float32))
 
-    # (B, S, H, K, V, lw = -4 throughout): chunk L = min(16, S), S padded
-    # to a multiple of L with zero tokens as the op pads
-    for Bt, S, H, K, V, clamp in (
-            (1, 512, 32, 64, 64, False),     # 32 chunks
-            (1, 100, 32, 64, 64, False),     # ragged, padded to 112
-            (2, 200, 32, 64, 64, False),     # B = 2, padded to 208
-            (1, 7, 32, 64, 64, False),       # a short prompt: L = S = 7
-            (1, 128, 4, 32, 32, False),      # the smoke width
-            (1, 128, 32, 64, 40, False),     # narrow V (DEGRADED_REDUCED)
-            (1, 128, 32, 64, 64, True)):     # the clamp bound, e^64 factors
+    # chunk L = min(16, S), S padded to a multiple of L with zero tokens as
+    # the op pads
+    for Bt, S, H, K, V, clamp in WKV_CASES:
         r, k, v, lw, u = wkv_inputs(Bt, S, H, K, V, clamp)
         L = min(16, S)
         pad = (L - S % L) % L
         rp, kp, vp, lwp = (F.pad(t, (0, 0, 0, 0, 0, pad))
                            for t in (r, k, v, lw))
+        p_ = wkv_plan(Bt, S + pad, H, L)
         for kind in (None,) + KINDS:
             fault = None if kind is None else LaneFault(kind, (3, 17, V - 1),
                                                         V)
             tag = (f"rwkv6_wkv B={Bt} S={S} H={H} K={K} V={V}"
-                   f"{' lw=-4' if clamp else ''} fault={kind}")
+                   f"{' lw=-4' if clamp else ''} fault={kind} (G={p_.group}"
+                   f", {p_.grids} blocks)")
             o, state = wkv6_chunked_cuda(rp, kp, vp, lwp, u, chunk=16,
                                          lane_fault=fault, with_state=True)
             torch.cuda.synchronize()
@@ -553,6 +631,12 @@ def main() -> int:
                 scan_o, scan_state = wkv6_scan_ref(r, k, v, lw, u)
                 compare(f"{tag} o vs scan", o, scan_o, WKV_TOL)
                 compare(f"{tag} state vs scan", state, scan_state, WKV_TOL)
+                o2, state2 = wkv6_chunked_cuda(rp, kp, vp, lwp, u, chunk=16,
+                                               with_state=True)
+                same = torch.equal(o, o2[:, :S]) and torch.equal(state,
+                                                                 state2)
+                out(f"[parity] {tag} two calls bit-identical: {same}")
+                check(same, f"{tag}: two calls differ")
 
     def ssd_inputs(Bt, S, H, P, N):
         # in the scan's domain: dt = softplus(.) > 0, A < 0 (zamba2's
@@ -562,34 +646,86 @@ def main() -> int:
                 -torch.linspace(1.0, 16.0, H, device=dev),
                 randn(Bt, S, N, scale=0.1), randn(Bt, S, N, scale=0.1))
 
-    # (B, S, H, P, N, lane fault): chunk 128 throughout
-    for Bt, S, H, P, N, fault in (
-            (1, 384, 64, 64, 64, None),      # three chunks
-            (1, 100, 64, 64, 64, None),      # L = S: one unpadded chunk
-            (2, 200, 64, 64, 64, None),      # padded to 256 (dt = 0)
-            (1, 384, 64, 40, 64, LaneFault("gain", (3, 17, 39), 40,
-                                           gain=2.0))):   # narrow P
+    # chunk 128 throughout; S padded to a multiple of L with dt = 0 as the
+    # op pads
+    for Bt, S, H, P, N in SSD_CASES:
         x, dt, A, Bm, C = ssd_inputs(Bt, S, H, P, N)
         L = min(128, S)
         pad = (L - S % L) % L
         xp = F.pad(x, (0, 0, 0, 0, 0, pad))
         dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, C))
-        tag = f"mamba2_ssd B={Bt} S={S} P={P} fault={fault and fault.kind}"
-        y, state = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
+        p_ = ssd_plan(Bt, S + pad, H, L)
+        faults = [None] + [LaneFault(kind, (3, 17, P - 1), P)
+                           for kind in KINDS]
+        if P < 64:
+            faults.append(LaneFault("gain", (3, 17, 39), P, gain=2.0))
+        for fault in faults:
+            tag = (f"mamba2_ssd B={Bt} S={S} P={P} fault="
+                   f"{fault and (fault.kind, fault.gain)} ({p_.grids} "
+                   "blocks)")
+            y, state = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
+                                        lane_fault=fault, with_state=True)
+            torch.cuda.synchronize()
+            y = y[:, :S]
+            check(not bool(torch.isnan(y.float()).any()), f"{tag}: NaN in y")
+            want_y, want_state = ssd_ref_blocked(xp, dtp, A, Bp, Cp,
+                                                 chunk=128, lane_fault=fault)
+            max_err["mamba2_ssd"] = max(
+                max_err["mamba2_ssd"],
+                compare(f"{tag} y", y, want_y[:, :S], SSD_TOL),
+                compare(f"{tag} state", state, want_state, SSD_TOL))
+            if fault is None:   # the token-by-token oracle, unpadded
+                scan_y, scan_state = ssd_scan_ref(x, dt, A, Bm, C)
+                compare(f"{tag} y vs scan", y, scan_y, SSD_TOL)
+                compare(f"{tag} state vs scan", state, scan_state, SSD_TOL)
+                y2, state2 = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
+                                              with_state=True)
+                same = torch.equal(y, y2[:, :S]) and torch.equal(state,
+                                                                 state2)
+                out(f"[parity] {tag} two calls bit-identical: {same}")
+                check(same, f"{tag}: two calls differ")
+
+    def ssd_views(Bt, S):
+        """x, B and C as ``models/mamba2.py`` passes them: views cut from
+        one (B, S, d_inner + 2N) xbc tensor (row stride 4224 at
+        zamba2-1.2b), with dt and A as the model makes them."""
+        H, P, N = mamba2_dims(zamba)[1], zamba.ssm.head_dim, \
+            zamba.ssm.state_dim
+        xbc = randn(Bt, S, H * P + 2 * N)
+        xbc[..., H * P:] *= 0.1        # B and C as ``ssd_inputs`` draws
+        xs, Bv, Cv = torch.split(xbc, [H * P, N, N], dim=-1)
+        return (xs.reshape(Bt, S, H, P),
+                F.softplus(randn(Bt, S, H, dtype=torch.float32) - 1.0),
+                -torch.linspace(1.0, 16.0, H, device=dev), Bv, Cv)
+
+    # the strided views, read in place, against contiguous copies
+    for Bt, S in ((1, 384), (2, 256)):
+        xs, dt, A, Bv, Cv = ssd_views(Bt, S)
+        check(all(strided_ready(t) for t in (xs, Bv, Cv))
+              and not xs.is_contiguous(),
+              f"mamba2_ssd views B={Bt} S={S}: not read in place")
+        P = xs.shape[-1]
+        for fault in [None] + [LaneFault(kind, (3, 17, P - 1), P)
+                               for kind in KINDS]:
+            tag = (f"mamba2_ssd strided views B={Bt} S={S} "
+                   f"fault={fault and fault.kind}")
+            got = ssd_chunked_cuda(xs, dt, A, Bv, Cv, chunk=128,
+                                   lane_fault=fault, with_state=True)
+            want = ssd_chunked_cuda(xs.contiguous(), dt, A, Bv.contiguous(),
+                                    Cv.contiguous(), chunk=128,
                                     lane_fault=fault, with_state=True)
-        torch.cuda.synchronize()
-        y = y[:, :S]
-        check(not bool(torch.isnan(y.float()).any()), f"{tag}: NaN in y")
-        want_y, want_state = ssd_ref_blocked(xp, dtp, A, Bp, Cp, chunk=128,
-                                             lane_fault=fault)
-        max_err["mamba2_ssd"] = max(
-            max_err["mamba2_ssd"],
-            compare(f"{tag} y", y, want_y[:, :S], SSD_TOL),
-            compare(f"{tag} state", state, want_state, SSD_TOL))
-        if fault is None:   # the token-by-token oracle, unpadded
-            scan_y, scan_state = ssd_scan_ref(x, dt, A, Bm, C)
-            compare(f"{tag} y vs scan", y, scan_y, SSD_TOL)
-            compare(f"{tag} state vs scan", state, scan_state, SSD_TOL)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+            out(f"[parity] {tag}: bit-identical to contiguous copies: "
+                f"{same}")
+            check(same, f"{tag}: differs from contiguous copies")
+            if fault is None:
+                ref_y, ref_state = ssd_ref_blocked(
+                    xs, dt, A, Bv, Cv, chunk=128)
+                max_err["mamba2_ssd"] = max(
+                    max_err["mamba2_ssd"],
+                    compare(f"{tag} y", got[0], ref_y, SSD_TOL),
+                    compare(f"{tag} state", got[1], ref_state, SSD_TOL))
 
     def attention_parity(B_, Sq, Skv, H, Hkv, D, Dv, kw):
         """The kernel on strided (B, S, H, D) views, as the model's
@@ -1110,7 +1246,6 @@ def main() -> int:
         per_tick={"flash_attention": 0, "swiglu_mlp": G, "mamba2_ssd": 0},
         prefill_len=384)
     torch.cuda.empty_cache()
-    rwkv = get_config("rwkv6-1.6b")
     report["rwkv6-1.6b"] = serve_path(
         rwkv, dict(min_prompt=64, max_prompt=512, min_new=8, max_new=16,
                    arrival_every=2, per_arrival=2), "rwkv6_wkv",
@@ -1148,6 +1283,7 @@ def main() -> int:
                     fn()
                 torch.cuda.synchronize()
             by = {e.key.replace("void (anonymous namespace)::", "")
+                  .replace("(anonymous namespace)::", "")
                   .split("(")[0]: e.self_device_time_total / 1e3 / e.count
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -1251,21 +1387,56 @@ def main() -> int:
         "src/repro/kernels/swiglu/kernel.py:32",
         "qwen1.5-4b decode M=4 2560->6912->2560", **shapes["qwen1.5-4b M=4"]))
     # the SSD at zamba2-1.2b's prefill shape, with the final state (as the
-    # prefill calls it): B=1 S=384 H=64 P=N=64, chunk 128
-    H, Pd, N, S = 64, zamba.ssm.head_dim, zamba.ssm.state_dim, 384
+    # prefill calls it): B=1 S=384 H=64 P=N=64, chunk 128; on contiguous
+    # tensors, and on the model's strided views of one xbc tensor, where the
+    # profiler must see the SSD's kernels only (the wrapper copies nothing)
+    H, Pd, N, S = mamba2_dims(zamba)[1], zamba.ssm.head_dim, \
+        zamba.ssm.state_dim, 384
     x, dt, A, Bm, C = ssd_inputs(1, S, H, Pd, N)
     ssd_bytes = (x.numel() * 2 * 2 + dt.numel() * 4 + A.numel() * 4
                  + 2 * Bm.numel() * 2 + H * N * Pd * 4)
     ms, by = bound(ssd_bytes, ssd_flops(1, S, H, Pd, N, chunk=128))
+
+    def scan_row(fn, plain_fn, prefix, views_fn=None):
+        row = {"ms": time_ms(torch, fn, 50),
+               "plain_ms": time_ms(torch, plain_fn, 10),
+               "bound_ms": ms, "bound_by": by, "library_ms": None}
+        device_times, names = device_ms(fn, prefix)
+        row.update(device_times)
+        row["kernels_per_call"] = len(names)
+        row["device_ms_by_kernel"] = names
+        row["share_of_bound"] = ms / row["ms"]
+        if row["device_ms"]:
+            row["share_of_bound_device"] = ms / row["device_ms"]
+        if views_fn is not None:
+            row["views_ms"] = time_ms(torch, views_fn, 50)
+            view_times, view_names = device_ms(views_fn, prefix)
+            row["views_device_ms"] = view_times["device_ms"]
+            row["views_queued_ms"] = view_times["queued_ms"]
+            row["views_kernels_per_call"] = len(view_names)
+        out(f"[times] {prefix}: " + " ".join(
+            f"{k_}={v_:.5f}" if isinstance(v_, float) else f"{k_}={v_}"
+            for k_, v_ in row.items() if k_ != "device_ms_by_kernel")
+            + "; device ms by kernel " + ", ".join(
+                f"{k_} {v_:.4f}" for k_, v_ in names.items()))
+        check(row["kernels_per_call"] == 3,
+              f"{prefix}: {len(names)} kernels a call, want 3: {names}")
+        return row
+
+    xs, dtv, Av, Bv, Cv = ssd_views(1, S)
+    ssd_row = scan_row(
+        lambda: ssd_chunked_cuda(x, dt, A, Bm, C, chunk=128,
+                                 with_state=True),
+        lambda: ssd_ref_blocked(x, dt, A, Bm, C, chunk=128), "mamba2_ssd",
+        views_fn=lambda: ssd_chunked_cuda(xs, dtv, Av, Bv, Cv, chunk=128,
+                                          with_state=True))
+    report["mamba2_ssd_times"] = ssd_row
     kernels.append(kernel_entry(
         "mamba2_ssd", "src/repro_torch/csrc/mamba2_ssd.cu",
         "src/repro/kernels/mamba2_scan/kernel.py:28",
         f"B=1 S={S} H={H} P={Pd} N={N} chunk=128, final state",
-        ms=time_ms(torch, lambda: ssd_chunked_cuda(
-            x, dt, A, Bm, C, chunk=128, with_state=True), 50),
-        plain_ms=time_ms(torch, lambda: ssd_ref_blocked(
-            x, dt, A, Bm, C, chunk=128), 10),
-        bound_ms=ms, bound_by=by, library_ms=None))
+        **{k_: ssd_row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}))
     # the WKV at rwkv6-1.6b's prefill shape, with the final state (as the
     # prefill calls it): B=1 S=512 H=32 K=V=64, chunk 16
     H, K, S = rwkv.num_heads, rwkv.ssm.rwkv_head_dim, 512
@@ -1273,15 +1444,16 @@ def main() -> int:
     wkv_bytes = (4 * r.numel() * 2 + u.numel() * 4 + r.numel() * 2
                  + H * K * K * 4)
     ms, by = bound(wkv_bytes, wkv6_flops(1, S, H, K, K, chunk=16))
+    wkv_row = scan_row(
+        lambda: wkv6_chunked_cuda(r, k, v, lw, u, chunk=16, with_state=True),
+        lambda: wkv6_ref_blocked(r, k, v, lw, u, chunk=16), "rwkv6_wkv")
+    report["rwkv6_wkv_times"] = wkv_row
     kernels.append(kernel_entry(
         "rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
         "src/repro/kernels/rwkv6_scan/kernel.py:27",
         f"B=1 S={S} H={H} K=V={K} chunk=16, final state",
-        ms=time_ms(torch, lambda: wkv6_chunked_cuda(
-            r, k, v, lw, u, chunk=16, with_state=True), 50),
-        plain_ms=time_ms(torch, lambda: wkv6_ref_blocked(
-            r, k, v, lw, u, chunk=16), 10),
-        bound_ms=ms, bound_by=by, library_ms=None))
+        **{k_: wkv_row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}))
     # the checksum over 1 GiB of bf16 and over the 64-byte AES canary
     canary = cs.aes_accelerator(aes_key, 11, device=dev).stages[5] \
         .canary_inputs(0)[0]

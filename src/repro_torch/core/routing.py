@@ -165,7 +165,7 @@ class ResidentRoute:
 def state_from_lowering(route) -> bool:
     """True when the lowering a call under ``route`` runs returns the final
     state of its own scan (the scan stages' ``with_state``): HW (the
-    kernel's last chunk) and SW (the oracle's scan), as a target or as a
+    kernel's state pass) and SW (the oracle's scan), as a target or as a
     resident handle whose healthy target is HW or SW."""
     target = route.hw if hasattr(route, "select") else route
     return target in (HW, SW)

@@ -5,7 +5,7 @@ tuning cache yet (Hopper tuning spaces are ROADMAP queue 1 item 13): the
 chunk is the reference's default, 128.
 
 Both full lowerings take ``with_state``: the HW lowering then also returns
-the final state from the kernel's last chunk, the SW lowering the one its
+the final state from the kernel's state pass, the SW lowering the one its
 ``ssd_chunked`` scan ends with.
 """
 from __future__ import annotations
@@ -41,10 +41,10 @@ def _hw(x, dt, A, B_, C, *, chunk=None, interpret: bool = False,
     if interpret:
         if x.device.type != "cpu":
             raise ValueError("the INTERPRET route replays the kernel's "
-                             "blocked algorithm on the CPU; got a "
+                             "three phases on the CPU; got a "
                              f"{x.device} tensor")
-        y, state = _ref.ssd_ref_blocked(x, dt, A, B_, C, chunk=L,
-                                        lane_fault=fault)
+        y, state = _ref.ssd_ref_state_passing(x, dt, A, B_, C, chunk=L,
+                                              lane_fault=fault)
     else:
         y, state = ssd_chunked_cuda(x, dt, A, B_, C, chunk=L,
                                     lane_fault=fault, with_state=with_state)

@@ -95,9 +95,8 @@ def ssd_chunked(x, dt, A, B_, C, *, chunk: int = 128):
 
 
 def ssd_ref_blocked(x, dt, A, B_, C, *, chunk: int = 128, lane_fault=None):
-    """PyTorch replica of the Hopper kernel's blocked algorithm
-    (``csrc/mamba2_ssd.cu``), the plain version of
-    ``kernel.ssd_chunked_cuda``: chunks of ``L = min(chunk, S)`` walked in
+    """The blocked form of the chunked SSD, a reference for the kernel and
+    ``ssd_ref_state_passing``: chunks of ``L = min(chunk, S)`` walked in
     order, one f32 (N, P) state per (b, h), the pre-scale ``xdt = x * dt``,
     ``da = dt * A`` done per chunk, the lower-triangle select before the
     exponent, and the lane fault on y's P axis before the cast.  P is
@@ -125,6 +124,55 @@ def ssd_ref_blocked(x, dt, A, B_, C, *, chunk: int = 128, lane_fault=None):
                ).transpose(2, 3) @ xdt                              # (B,H,N,P)
         state = state * torch.exp(tot)[..., None] + upd
     return torch.cat(ys, dim=2).permute(0, 2, 1, 3), state
+
+
+def ssd_ref_state_passing(x, dt, A, B_, C, *, chunk: int = 128,
+                          lane_fault=None):
+    """PyTorch replica of the Hopper kernel's three phases
+    (``csrc/mamba2_ssd.cu``), the plain version of
+    ``kernel.ssd_chunked_cuda``, over chunks of ``L = min(chunk, S)``:
+
+    1. chunk state: ``CB = C B^T`` once per (b, chunk); each chunk's own
+       update ``U = B^T (xdt e^{tot - cum})`` and decay ``d = e^{tot}``;
+    2. state pass: ``S_in[c] = d[c-1] S_in[c-1] + U[c-1]``, ``S_in[0] = 0``;
+    3. chunk scan: ``W = CB e^{cum_i - cum_j}`` with the lower triangle
+       selected before the exponent, ``y = W xdt + e^{cum} (C S_in)``, the
+       lane fault on y's P axis before the cast.
+
+    P is ``x.shape[3]`` (narrow under DEGRADED_REDUCED).  S must be a
+    multiple of L (the op pads).  Returns (y in x's dtype, final state
+    f32)."""
+    Bt, S, H, P = x.shape
+    N = B_.shape[-1]
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"state-passing SSD needs S % L == 0; got S={S}, "
+                         f"L={L}")
+    nc = S // L
+    dtc = dt.float().reshape(Bt, nc, L, H).permute(0, 3, 1, 2)  # (B,H,nc,L)
+    xdt = x.float().reshape(Bt, nc, L, H, P).permute(0, 3, 1, 2, 4) * \
+        dtc[..., None]                                          # (B,H,nc,L,P)
+    bc = B_.float().reshape(Bt, nc, L, N)                       # (B,nc,L,N)
+    cc = C.float().reshape(Bt, nc, L, N)
+    cum = torch.cumsum(dtc * A.float()[None, :, None, None], dim=-1)
+    tot = cum[..., -1:]
+    # phase 1
+    cb = cc @ bc.transpose(-1, -2)                              # (B,nc,L,L)
+    U = bc[:, None].transpose(-1, -2) @ \
+        (xdt * torch.exp(tot - cum)[..., None])                 # (B,H,nc,N,P)
+    dec = torch.exp(tot)[..., None]                             # (B,H,nc,1,1)
+    # phase 2
+    s = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = dec[:, :, c] * s + U[:, :, c]
+    # phase 3
+    w = cb[:, None] * _tril_exp(cum)                            # (B,H,nc,L,L)
+    y = w @ xdt + (cc[:, None] @ torch.stack(s_in, dim=2)) * \
+        torch.exp(cum)[..., None]
+    y = apply_fault(y, lane_fault).to(x.dtype)
+    return y.reshape(Bt, H, S, P).transpose(1, 2), s
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):

@@ -5,7 +5,7 @@ tuning cache yet (Hopper tuning spaces are ROADMAP queue 1 item 13): the
 chunk is the reference's default, 16.
 
 Both full lowerings take ``with_state``: the HW lowering then also returns
-the final state from the kernel's last chunk, the SW lowering the one its
+the final state from the kernel's state pass, the SW lowering the one its
 ``wkv6_chunked`` scan ends with.
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch import viscosity
 from repro_torch.kernels.rwkv6_scan import ref as _ref
-from repro_torch.kernels.rwkv6_scan.kernel import wkv6_chunked_cuda
+from repro_torch.kernels.rwkv6_scan.kernel import plan, wkv6_chunked_cuda
 from repro_torch.viscosity import lanefault
 
 CHUNK = 16
@@ -40,10 +40,12 @@ def _hw(r, k, v, lw, u, *, chunk=None, interpret: bool = False,
     if interpret:
         if r.device.type != "cpu":
             raise ValueError("the INTERPRET route replays the kernel's "
-                             "blocked algorithm on the CPU; got a "
+                             "three phases on the CPU; got a "
                              f"{r.device} tensor")
-        o, state = _ref.wkv6_ref_blocked(r, k, v, lw, u, chunk=L,
-                                         lane_fault=fault)
+        o, state = _ref.wkv6_ref_state_passing(
+            r, k, v, lw, u, chunk=L,
+            group=plan(r.shape[0], r.shape[1], r.shape[2], L).group,
+            lane_fault=fault)
     else:
         o, state = wkv6_chunked_cuda(r, k, v, lw, u, chunk=L,
                                      lane_fault=fault, with_state=with_state)

@@ -5,7 +5,7 @@ the Viscosity ``mamba2_ssd`` stage.  Decode state per layer: conv tail
 (B, K-1, conv_dim) + SSM state (B, H, N, P) f32, written in place.
 
 The prefill's final SSM state follows the route.  On the HW target it is
-the one the kernel's last chunk leaves (the reference recomputes it with
+the one the kernel's state pass ends with (the reference recomputes it with
 the plain ``ssd_chunked``; the port does not run the plain version on the
 card's main path); on SW it is the one the oracle's scan ends with; every
 other target (INTERPRET, the DEGRADED rungs, whose lanes are partly the

@@ -12,7 +12,7 @@ the compute dtype, so the chunked factorized WKV stays inside f32 range at
 chunk 16 (see ``kernels/rwkv6_scan``).
 
 The prefill's final WKV state follows the route, as for Mamba2.  On the HW
-target it is the one the kernel's last chunk leaves (the reference
+target it is the one the kernel's state pass ends with (the reference
 recomputes it with the plain ``wkv6_chunked``; the port does not run the
 plain version on the card's main path); on SW it is the one the oracle's
 scan ends with; every other target (INTERPRET, the DEGRADED rungs, whose
