@@ -107,7 +107,28 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              by layer (each time-mix on HW and SW from the same input),
              and end to end the HW logits must lie within 1.25 times the
              bf16 SW route's distance from the f32 SW model;
-6. times   — per-kernel ms (CUDA events) beside the plain version's and a
+6. fleet   — qwen1.5-4b at full width in ``FleetServeEngine``: 3 logical
+             devices of 4 slots (device 2 the hot spare), every pool on the
+             one card, HW route, 16 requests of 16-128 prompt tokens and
+             8-16 new, two arriving a step.  ``memory_allocated`` after
+             building the fleet against one engine's, on f32 weights that
+             each engine would cast: the fleet may add the two extra pools'
+             caches and 5%, not a second copy of the weights.  Scenario A
+             (a ``swiglu_mlp`` fault on device 0 at step 3, its recovery at
+             step 12), in RECOMPILE and RESIDENT mode: every completion
+             equals the healthy single-device HW engine's tokens, work was
+             requeued and finished on the spare, the spare is back in the
+             pool at close, RESIDENT builds one decode model.  Scenario B
+             (the reference's "spares_exhausted"): both modes agree, and
+             per device and stage the launch counters show the kernel
+             launched on every healthy call and on no faulted one (device
+             1 runs both stages off the kernel after steps 4 and 6; the
+             spare runs them on it).  Then the admission ``Frontend`` over
+             the fleet (RECOMPILE, scenario A's events): Poisson arrivals
+             with deadlines, one engine step = this run's median decode
+             tick; no request that did not expire is dropped; goodput,
+             expired count and virtual TTFT p50/p99 printed;
+7. times   — per-kernel ms (CUDA events) beside the plain version's and a
              library call's where one PyTorch call computes the same
              function (a yardstick the port never calls), the bound from
              this run's shapes (attention also at zamba2-1.2b's prefill
@@ -128,8 +149,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
-set to 0 just before that path: each model's serve, probes included, and
-the case studies); the last line is ``{"ok": true, "device": {...}}``.  Details also go to
+set to 0 just before that path: each model's serve, probes included, the
+case studies and the fleet runs); the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -358,6 +379,273 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                       for k, ms, n in rows[:8]))
     sess.close()
     return result
+
+
+# The fleet phase: qwen1.5-4b, 3 logical devices (device 2 the hot spare),
+# 4 slots each, all pools on the one card.  Scenario A: the spare absorbs
+# a fault on device 0, which recovers at step 12: late enough that
+# requests re-admitted on the spare at step 3 finish there (8 tokens or
+# more take until step 10), so the spare's own tokens are checked too.
+# Scenario B: the reference's "spares_exhausted"
+# (tests/test_fleet_scenarios.py).
+FLEET_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
+                      arrival_every=1, per_arrival=2)
+FLEET_A = {3: [("stage", 0, "swiglu_mlp")], 12: [("recover", 0)]}
+FLEET_B = {2: [("stage", 0, "flash_attention")],
+           4: [("stage", 1, "flash_attention")],
+           6: [("stage", 1, "swiglu_mlp")]}
+# Memory of the fleet beyond one engine: the two extra pools' caches, plus
+# this share of them for the allocator's rounding and small buffers.
+FLEET_MEM_SLACK = 0.05
+
+
+def fleet_phase(cfg, dev, wrappers, *, n_requests: int = 16,
+                workload=FLEET_WORKLOAD):
+    """Phase 6 for one dense model: ``FleetServeEngine`` on the HW route in
+    both failover modes.  Returns (report entry, kernel launches of the
+    fleet runs, counted from 0).  ``wrappers`` maps each stage to its
+    kernel wrapper (whose ``launches`` counts CUDA launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.serve import (RECOMPILE, RESIDENT, FleetConfig,
+                                   FleetServeEngine, Frontend,
+                                   FrontendConfig, LengthModel, Poisson,
+                                   ServeConfig, ServeEngine, percentile,
+                                   synthetic_workload, with_deadlines)
+    from repro_torch.train.runner import model_stage_names
+    from repro_torch.viscosity import HW
+    from repro_torch.viscosity.lang import tree_leaves
+
+    stages = model_stage_names(cfg)
+    L = cfg.num_layers
+    per_prefill = {"flash_attention": L, "swiglu_mlp": L}
+    per_tick = {"flash_attention": 0, "swiglu_mlp": L}
+    max_len = workload["max_prompt"] + workload["max_new"]
+    reqs = synthetic_workload(cfg.vocab_size, n_requests,
+                              np.random.default_rng(1), **workload)
+    scfg = {m: ServeConfig(max_len=max_len, max_slots=4, hw_route=HW,
+                           failover=m) for m in (RECOMPILE, RESIDENT)}
+    fcfg = FleetConfig(n_devices=3, n_spares=1)
+    entry = {"requests": n_requests, "slots": 4, "n_devices": 3,
+             "n_spares": 1, "max_len": max_len}
+
+    # weights once: f32 params, which each engine would cast to bf16
+    params32 = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+    base = allocated()
+    single = ServeEngine(cfg, params32, scfg[RECOMPILE], device=dev)
+    single_bytes = allocated() - base
+    fleets = {RECOMPILE: FleetServeEngine(cfg, params32, scfg[RECOMPILE],
+                                          fcfg, device=dev)}
+    fleet_bytes = allocated() - base - single_bytes
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(single._caches) + [single._toks])
+    entry["memory"] = {"single_engine_bytes": single_bytes,
+                       "fleet_bytes": fleet_bytes, "pool_bytes": pool_bytes,
+                       "limit_bytes": single_bytes + 2 * pool_bytes * (
+                           1 + FLEET_MEM_SLACK)}
+    out(f"[fleet] {cfg.name} memory_allocated: one engine "
+        f"{single_bytes / 2**30:.3f} GiB, the 3-device fleet "
+        f"{fleet_bytes / 2**30:.3f} GiB (one pool's cache "
+        f"{pool_bytes / 2**20:.1f} MiB; limit: one engine + 2 pools + "
+        f"{FLEET_MEM_SLACK:.0%})")
+    check(single_bytes > 2 * pool_bytes * (1 + FLEET_MEM_SLACK),
+          "fleet: one engine holds no more than two pools (the weights' "
+          "copy is missing, so the check below would be blind)")
+    check(fleet_bytes - single_bytes
+          <= 2 * pool_bytes * (1 + FLEET_MEM_SLACK),
+          f"fleet: {fleet_bytes} bytes against one engine's "
+          f"{single_bytes}: the weights are held more than once")
+    check(all(w.params is fleets[RECOMPILE].params
+              for w in fleets[RECOMPILE].workers),
+          "fleet: a worker holds its own weights")
+    params = single.params           # bf16 on the card
+    del params32
+    torch.cuda.empty_cache()
+
+    # the oracle: a healthy single-device engine on the HW route
+    t0 = time.perf_counter()
+    ref_done, ref_stats = single.serve(reqs)
+    ref_wall = time.perf_counter() - t0
+    ref_tokens = {r.rid: ref_done[r.rid].tokens.tolist() for r in reqs}
+    tick_s = percentile(ref_stats["step_times"], 0.5)
+    n_ref = sum(map(len, ref_tokens.values()))
+    entry["single_engine"] = {"wall_s": ref_wall, "tokens": n_ref,
+                              "tokens_per_s": n_ref / ref_wall,
+                              "decode_tick_ms_median": 1e3 * tick_s}
+    out(f"[fleet] {cfg.name} single engine (oracle): {len(ref_done)} "
+        f"requests, {n_ref} tokens in {ref_wall:.2f} s, median tick "
+        f"{1e3 * tick_s:.2f} ms")
+    for w in wrappers.values():      # the fleet runs' own counts
+        w.launches = 0
+
+    def instrument(fleet):
+        """Per device and stage: kernel launches while the stage was
+        healthy there (``got``) against its calls' due (``want``), launches
+        while it was faulty there (``off``, must stay 0) and the calls that
+        ran while it was faulty (``faulted_calls``)."""
+        acct = {k: [dict.fromkeys(stages, 0) for _ in fleet.workers]
+                for k in ("got", "want", "off", "faulted_calls")}
+        for d, w in enumerate(fleet.workers):
+            for name in ("admit", "decode_tick"):
+                def wrapped(*a, _f=getattr(w, name), _d=d, _w=w,
+                            _per=per_prefill if name == "admit" else per_tick,
+                            **kw):
+                    faulty = {s: _w.fault_state.is_faulty(s) for s in stages}
+                    n0 = {s: wrappers[s].launches for s in stages}
+                    res = _f(*a, **kw)
+                    ran = isinstance(res, int) or res["active"] > 0
+                    for s in stages:
+                        n = wrappers[s].launches - n0[s]
+                        if faulty[s]:
+                            acct["off"][_d][s] += n
+                            acct["faulted_calls"][_d][s] += int(
+                                ran and _per[s] > 0)
+                        else:
+                            acct["got"][_d][s] += n
+                            acct["want"][_d][s] += _per[s] if ran else 0
+                    return res
+                setattr(w, name, wrapped)
+        return acct
+
+    def run(fleet, events, label):
+        """Drive ``reqs`` through a fleet session (as ``serve`` does),
+        timing each step; returns (completions, stats, accounting)."""
+        acct = instrument(fleet)
+        ev = {k: list(v) for k, v in events.items()}
+        sess = fleet.session()
+        for r in reqs:
+            sess.submit(r)
+        steps_s = []
+        t0 = time.perf_counter()
+        while sess.pending():
+            t1 = time.perf_counter()
+            sess.step(ev.pop(sess.step_count, ()))
+            steps_s.append(time.perf_counter() - t1)
+        stats = sess.close(late_events=ev)
+        wall = time.perf_counter() - t0
+        done = {c.rid: c for c in sess.poll()}
+        n_tok = sum(len(c.tokens) for c in done.values())
+        row = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+               "steps": stats["steps"], "step_ms_median":
+               1e3 * percentile(steps_s, 0.5),
+               "per_device_tokens": stats["per_device_tokens"],
+               "requeued": stats["requeued"],
+               "decode_builds": stats["decode_compiles"],
+               "prefill_builds": stats["prefill_compiles"],
+               "quarantined": stats["quarantined"],
+               "spares_in_service": stats["spares_in_service"],
+               "launches_by_device": acct["got"]}
+        out(f"[fleet] {cfg.name} {label}: {len(done)}/{len(reqs)} done, "
+            f"{n_tok} tokens in {stats['steps']} steps, {wall:.2f} s, "
+            f"{row['tokens_per_s']:.2f} tok/s, median step "
+            f"{row['step_ms_median']:.2f} ms; per-device tokens "
+            f"{stats['per_device_tokens']}, requeued {stats['requeued']}, "
+            f"builds {stats['decode_compiles']} decode / "
+            f"{stats['prefill_compiles']} prefill; launches by device "
+            f"{acct['got']}, while faulty {acct['off']} over "
+            f"{acct['faulted_calls']} calls")
+        check(sorted(done) == sorted(r.rid for r in reqs)
+              and all(len(done[r.rid].tokens) == r.max_new_tokens
+                      for r in reqs),
+              f"fleet {label}: a request was dropped or cut short")
+        check(acct["got"] == acct["want"], f"fleet {label}: launches "
+              f"{acct['got']} while healthy, want {acct['want']}")
+        check(all(n == 0 for dev_ in acct["off"] for n in dev_.values()),
+              f"fleet {label}: a faulted stage launched its kernel: "
+              f"{acct['off']}")
+        return done, row, acct
+
+    tokens = {}
+    for mode in (RECOMPILE, RESIDENT):
+        fleet = fleets.get(mode) or FleetServeEngine(cfg, params, scfg[mode],
+                                                     fcfg, device=dev)
+        done, row, _ = run(fleet, FLEET_A, f"A {mode}")
+        entry[f"A_{mode}"] = row
+        check(all(done[r.rid].tokens.tolist() == ref_tokens[r.rid]
+                  for r in reqs), f"fleet A {mode}: a completion differs "
+              "from the healthy single-device engine's")
+        check(row["requeued"] > 0 and any(c.device == 2
+                                          for c in done.values()),
+              f"fleet A {mode}: device 0's work was not re-admitted on the "
+              "spare")
+        check(row["spares_in_service"] == [] and row["quarantined"] == [],
+              f"fleet A {mode}: the spare stayed in service after the "
+              "recovery")
+        if mode == RESIDENT:
+            check(row["decode_builds"] == 1, f"fleet A {mode}: "
+                  f"{row['decode_builds']} decode builds, want 1")
+        tokens[("A", mode)] = {r: c.tokens.tolist() for r, c in done.items()}
+        fleets.pop(mode, None)
+        del fleet
+        torch.cuda.empty_cache()
+    for mode in (RECOMPILE, RESIDENT):
+        fleet = FleetServeEngine(cfg, params, scfg[mode], fcfg, device=dev)
+        done, row, acct = run(fleet, FLEET_B, f"B {mode}")
+        entry[f"B_{mode}"] = row
+        check(row["quarantined"] == [0] and fleet.fleet.serving() == (1, 2)
+              and all(fleet.fleet.plans[1].target_for(s) == "sw"
+                      for s in stages),
+              f"fleet B {mode}: the spares were not exhausted as planned "
+              f"({fleet.fleet})")
+        check(all(acct["faulted_calls"][1][s] > 0 for s in stages),
+              f"fleet B {mode}: device 1 ran no call while faulted "
+              f"({acct['faulted_calls']}): the off-kernel check is blind")
+        check(all(acct["got"][2][s] > 0 for s in stages),
+              f"fleet B {mode}: the healthy spare launched no kernel")
+        tokens[("B", mode)] = {r: c.tokens.tolist() for r, c in done.items()}
+        del fleet
+    check(tokens[("A", RECOMPILE)] == tokens[("A", RESIDENT)]
+          and tokens[("B", RECOMPILE)] == tokens[("B", RESIDENT)],
+          "fleet: RECOMPILE and RESIDENT served different tokens")
+
+    # the admission front end over the fleet: open-loop Poisson arrivals
+    # with deadlines, one engine step = this run's median decode tick
+    fleet = FleetServeEngine(cfg, params, scfg[RECOMPILE], fcfg, device=dev)
+    lm = LengthModel(vocab_size=cfg.vocab_size,
+                     min_prompt=workload["min_prompt"],
+                     max_prompt=workload["max_prompt"],
+                     min_new=workload["min_new"], max_new=workload["max_new"])
+    fe_reqs = with_deadlines(
+        Poisson(n_requests=n_requests, rate=1.0 / tick_s, lengths=lm)
+        .build(2), slack_s=12 * tick_s, slack_per_token_s=2 * tick_s)
+    t0 = time.perf_counter()
+    comps, fstats = Frontend(fleet, FrontendConfig(step_time_s=tick_s)).run(
+        fe_reqs, events=FLEET_A)
+    fe_wall = time.perf_counter() - t0
+    kept = [r for r in fe_reqs if not comps[r.rid].expired]
+    check(sorted(comps) == sorted(r.rid for r in fe_reqs)
+          and fstats["shed"] == []
+          and all(len(comps[r.rid].tokens) == r.max_new_tokens
+                  for r in kept),
+          "fleet front end: a request that did not expire was dropped")
+    entry["frontend"] = {
+        "step_time_s": tick_s, "wall_s": fe_wall, "requests": n_requests,
+        "requeued": fstats["engine"]["requeued"],
+        **{k: fstats[k] for k in ("completed", "deadline_met", "expired",
+                                  "goodput_tokens", "goodput_tok_s",
+                                  "throughput_tok_s", "p50_ttft_s",
+                                  "p99_ttft_s", "p50_latency_s",
+                                  "p99_latency_s", "virtual_time_s",
+                                  "steps")}}
+    out(f"[fleet] {cfg.name} front end (Poisson, deadlines, step "
+        f"{1e3 * tick_s:.2f} ms virtual): goodput "
+        f"{fstats['goodput_tok_s']:.2f} tok/s ({fstats['goodput_tokens']} "
+        f"tokens), expired {fstats['expired']}, virtual TTFT p50 "
+        f"{fstats['p50_ttft_s']:.3f} s p99 {fstats['p99_ttft_s']:.3f} s, "
+        f"{fstats['steps']} steps in {fe_wall:.2f} s wall")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    out(f"[fleet] {cfg.name} kernel launches of the fleet runs: {launches}")
+    check(all(launches[s] > 0 for s in stages),
+          f"fleet: a kernel of the path never launched: {launches}")
+    entry["launches"] = launches
+    return entry, launches
 
 
 def main() -> int:
@@ -1254,9 +1542,17 @@ def main() -> int:
         logits_check=rwkv_logits)
     check(all(sum(n.values()) > 0 for n in launches.values()),
           f"a kernel of the paths never launched: {launches}")
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 6. fleet
+    report["fleet"], fleet_launches = fleet_phase(qwen, dev, wrappers)
+    for name, n in fleet_launches.items():
+        launches[name]["fleet"] = n
+    check(launches["checksum"]["fleet"] == 0, "the fleet launched the "
+          "checksum (its stages compare with tol > 0)")
     report["launches"] = launches
 
-    # ---------------------------------------------------------- 5. times
+    # ---------------------------------------------------------- 7. times
     def kernel_entry(name, source, replaces, shape, **numbers):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

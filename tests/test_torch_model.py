@@ -29,6 +29,7 @@ from repro.models import build_model as ref_build_model
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import build_model
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "qwen1.5-4b-smoke"
 STAGES = ["flash_attention", "swiglu_mlp"]

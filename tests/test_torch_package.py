@@ -40,6 +40,11 @@ def test_import_leaves_no_jax_or_reference_module():
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "new = ['repro_torch.core.datacenter', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.launch.sharding', 'repro_torch.launch.serve',\n"
+        "       'repro_torch.launch.distributed', 'repro_torch.serve.traffic',\n"
+        "       'repro_torch.serve.frontend']\n"
+        "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -70,7 +75,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         pytest.skip("this machine has CUDA: the default device is valid")
     from repro_torch.convert import params_from_jax
     from repro_torch.models import build_model
-    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import (FleetConfig, FleetServeEngine, Frontend,
+                                   ServeConfig, ServeEngine)
     cfg = get_config("qwen1.5-4b-smoke")
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.resolve_device()
@@ -80,6 +87,13 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         ServeEngine(cfg, {}, ServeConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetServeEngine(cfg, {}, ServeConfig(), FleetConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):     # a Frontend's
+        Frontend(FleetServeEngine(cfg, {}, ServeConfig(),  # engine
+                                  FleetConfig(n_devices=1)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_cli.main(["--requests", "1"])
     assert repro_torch.resolve_device("cpu").type == "cpu"
 
 

@@ -51,6 +51,7 @@ from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig, ServeEngine,
                                reference_decode, synthetic_workload)
 from repro_torch.viscosity import DEGRADED_REDUCED, DEGRADED_REMAP, HW, SW
 from repro_torch.viscosity import lanefault as pt_lf
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "rwkv6-1.6b-smoke"
 STAGES = ["rwkv6_wkv"]

@@ -47,6 +47,7 @@ from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig, ServeEngine,
                                reference_decode, synthetic_workload)
 from repro_torch.train.runner import canary_stages
 from repro_torch.viscosity import HW, SW
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "qwen1.5-4b-smoke"
 LOGITS_TOL = 2e-5

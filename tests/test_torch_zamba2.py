@@ -34,6 +34,7 @@ from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig, ServeEngine,
                                reference_decode, synthetic_workload)
 from repro_torch.viscosity import DEGRADED_REDUCED, DEGRADED_REMAP, HW, SW
 from repro_torch.viscosity import lanefault as pt_lf
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "zamba2-1.2b-smoke"
 STAGES = ["flash_attention", "swiglu_mlp", "mamba2_ssd"]
