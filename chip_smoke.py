@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -147,6 +148,33 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              and calls; for the models with a gated MLP, one SwiGLU
              phase-A kernel a layer in each).
 
+8. train   — qwen1.5-4b at full width through the port's TrainRunner on
+             the SW route (the kernels are forward-only, as in the
+             reference), SyntheticLM batches of 4 x 128 tokens, AdamW in
+             place.  T1: full depth (40 layers, 3.95 B params, remat
+             "full"), 8 steps: every loss finite and the last three's mean
+             below the first; median step ms after the first, tokens/s,
+             ``max_memory_allocated`` against 16 bytes a param (f32 params,
+             grads and moments), and the device idle share of one step
+             under torch.profiler.  T2: on route hw the first step raises
+             the forward-only error, at attention and (attention
+             quarantined to SW) at SwiGLU.  T3 (2 layers, 0.94 B params):
+             a checkpoint at step 3 (the disk's free space printed first,
+             then each write's seconds and bytes), NaN in the embedding
+             row of the next batch's first token trips the StepGuard,
+             which restores it and continues; a SW reroute of
+             ``swiglu_mlp`` builds nothing; a fresh runner restores the
+             second checkpoint onto the card, equal to the live state bit
+             for bit, and continues.  T4 (2 layers): FleetTrainRunner, 3
+             devices with one spare: poison migrates device 1 to the
+             spare; with probation a transient recovers with no
+             quarantine; on HostTopology(2, 2) a host loss restores the
+             fleet's checkpoint and re-folds onto the surviving host.  T5:
+             the reduced config's first float32 step on the card and on
+             the CPU agree (loss, grad norm, updated params) to 1e-4.  No
+             kernel launches in this phase (rehearsed on the CPU by
+             ``test_torch_chip_smoke.py``).
+
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
@@ -157,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -644,6 +673,384 @@ def fleet_phase(cfg, dev, wrappers, *, n_requests: int = 16,
     out(f"[fleet] {cfg.name} kernel launches of the fleet runs: {launches}")
     check(all(launches[s] > 0 for s in stages),
           f"fleet: a kernel of the path never launched: {launches}")
+    entry["launches"] = launches
+    return entry, launches
+
+
+# The training phase (phase 8): qwen1.5-4b at full width.  T1 at full
+# depth, T2-T4 with the layers cut to TRAIN_CUT_LAYERS (the embedding and
+# the head, 0.78 B of its 0.94 B params, keep their size); SyntheticLM
+# batches of B x S tokens; AdamW at TRAIN_LR after 2 warmup steps.
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 128
+TRAIN_CUT_LAYERS = 2
+TRAIN_LR = 1e-3
+# T5: the same first step on the card and on the CPU, in float32
+TRAIN_CPU_REL = 1e-4
+
+
+def train_phase(cfg, dev, wrappers, *, steps: int = TRAIN_STEPS,
+                cut_layers: int = TRAIN_CUT_LAYERS, workdir=None):
+    """Phase 8 for one dense model: the port's TrainRunner and
+    FleetTrainRunner on the SW route (the kernels are forward-only).
+    Returns (report entry, kernel launches of the phase, counted from 0:
+    training on SW launches none).  ``workdir`` holds the checkpoints
+    (default: ``build/`` of the checkout)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.distributed import HostTopology
+    from repro_torch.models import build_model
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train import TrainConfig, TrainRunner
+    from repro_torch.checkpoint.manager import _leaf_paths as leaf_paths
+    from repro_torch.train.runner import (FleetTrainConfig, FleetTrainRunner,
+                                          value_and_grad)
+    from repro_torch.viscosity import HW, SW
+    from repro_torch.viscosity.lang import tree_leaves, tree_map
+
+    on_card = dev.type == "cuda"
+    for w in wrappers.values():
+        w.launches = 0
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    ocfg = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=100)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=B,
+                                  seq_len=S))
+    cut = dataclasses.replace(cfg, num_layers=cut_layers)
+    entry = {"batch": B, "seq": S, "steps": steps, "lr": TRAIN_LR,
+             "cut_layers": cut_layers}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def finite(xs):
+        return all(np.isfinite(x) for x in xs)
+
+    def n_params(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    def gib(n):
+        return n / 2 ** 30
+
+    # ------------------------------------------- T1: the full model
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        entry["held_at_start_bytes"] = held
+        live = sorted(((t.numel() * t.element_size(), tuple(t.shape),
+                        str(t.dtype)) for t in gc.get_objects()
+                       if issubclass(type(t), torch.Tensor) and t.is_cuda),
+                      reverse=True)[:5]
+        out(f"[train] held on the card at the start: {gib(held):.3f} GiB; "
+            f"largest live tensors {live}")
+    runner = TrainRunner(cfg, ocfg, TrainConfig(steps=steps, hw_route=SW),
+                         data, device=dev)
+    params, opt, err = runner.init_state(0)
+    N = n_params(params)
+    params, opt, err = runner.run(params, opt, err)
+    losses = [h["loss"] for h in runner.history]
+    dts = [h["dt"] for h in runner.history]
+    step_s = float(np.median(dts[1:]))
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    t1 = {"layers": cfg.num_layers, "params": N, "losses": losses,
+          "grad_norms": [h["grad_norm"] for h in runner.history],
+          "step_ms": [1e3 * d for d in dts],
+          "median_step_ms": 1e3 * step_s,
+          "tokens_per_s": B * S / step_s,
+          "peak_bytes": peak,
+          # params, grads, mu, nu in f32, then the issue's bf16 copies
+          "reckoned_f32_state_bytes": 16 * N,
+          "reckoned_bytes": 18 * N}
+    check(finite(losses), f"train T1: a loss is not finite: {losses}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"train T1: the last three losses {losses[-3:]} do not fall below "
+          f"the first {losses[0]}")
+    # one more step under torch.profiler: the device's busy share of it
+    if on_card:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn = runner.dispatcher.get(runner.plan())
+        batch = data.device_batch(steps, device=dev)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(params, opt, err, batch)
+            sync()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        t1["traced_step"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            # the profiler slows the host; against an untraced step
+            "idle_share_of_median_step": (1.0 - busy / t1["median_step_ms"]
+                                          if busy else None),
+            "device_events": sum(r[2] for r in rows), "top": rows[:10]}
+        out(f"[train] T1 traced step: wall {wall_ms:.2f} ms, device busy "
+            f"{busy:.2f} ms, idle share "
+            + (f"{t1['traced_step']['idle_share']:.3f} (of the median "
+               f"untraced step: "
+               f"{t1['traced_step']['idle_share_of_median_step']:.3f})"
+               if busy else "not measured (no device events)")
+            + f", {t1['traced_step']['device_events']} device events"
+            + "".join(f"\n[train]   {ms:.3f} ms x{n} {k[:70]}"
+                      for k, ms, n in rows[:10]))
+    out(f"[train] T1 {cfg.name} full width and depth ({cfg.num_layers} "
+        f"layers, {N / 1e9:.3f} B params), B={B} S={S}, SW route, "
+        f"{steps} steps: losses {[round(x, 4) for x in losses]}; median "
+        f"step {t1['median_step_ms']:.2f} ms after the first "
+        f"({t1['step_ms'][0]:.2f} ms), {t1['tokens_per_s']:.1f} tok/s; peak "
+        + (f"{gib(peak):.2f} GiB" if peak is not None else "not measured")
+        + f" against {gib(16 * N):.2f} GiB of f32 params, grads and moments"
+        f" ({gib(18 * N):.2f} GiB with bf16 copies)")
+    entry["T1"] = t1
+    del runner, params, opt, err
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------- T2: the forward-only guard
+    runner = TrainRunner(cut, ocfg, TrainConfig(steps=1, hw_route=HW), data,
+                         device=dev)
+    state = runner.init_state(0)
+    refused = {}
+    for stage in ("flash_attention", "swiglu_mlp"):
+        try:
+            runner.run(*state, steps=1)
+        except RuntimeError as e:
+            refused[stage] = str(e)
+        check(stage in refused and f"'{stage}'" in refused[stage]
+              and "forward-only" in refused[stage],
+              f"train T2: route hw did not refuse autograd at {stage}: "
+              f"{refused.get(stage)}")
+        runner.inject_fault(stage)          # SW from here: the next stage
+    check(runner.history == [], "train T2: a step ran on route hw")
+    out(f"[train] T2 route hw under autograd: {refused}")
+    entry["T2"] = refused
+    del runner, state
+
+    # ------------------------- T3: recovery at full width, cut depth
+    root = Path(workdir) if workdir is not None else ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    du = shutil.disk_usage(root)
+    out(f"[train] T3 disk at {root}: total {gib(du.total):.1f} GiB, free "
+        f"{gib(du.free):.1f} GiB")
+    tmp = tempfile.mkdtemp(dir=root, prefix="train_ckpt_")
+    saves = []
+
+    def timed(runner):
+        """Record each checkpoint write (seconds, bytes) of ``runner``."""
+        write = runner.ckpt._write
+
+        def timed_write(step, host, extra):
+            t0 = time.perf_counter()
+            write(step, host, extra)
+            d = Path(runner.ckpt.dir) / f"step_{step:08d}"
+            saves.append({"step": step,
+                          "write_s": time.perf_counter() - t0,
+                          "bytes": sum(f.stat().st_size
+                                       for f in d.iterdir())})
+        runner.ckpt._write = timed_write
+        return runner
+
+    try:
+        reg = obs_metrics.Registry()
+        with obs_metrics.use(reg):
+            tcfg = TrainConfig(steps=3, ckpt_every=3, ckpt_dir=tmp,
+                               hw_route=SW)
+            runner = timed(TrainRunner(cut, ocfg, tcfg, data, device=dev))
+            params, opt, err = runner.run(*runner.init_state(0))  # saves 3
+            # silent corruption: NaN in the embedding row of the next
+            # batch's first token trips the StepGuard
+            tok = int(data.batch_at(3)["tokens"][0, 0])
+            params["embed"]["table"][tok, 0] = float("nan")
+            params, opt, err = runner.run(params, opt, err, start_step=3,
+                                          steps=2)
+            check(runner.guard_trips == 1
+                  and [h["step"] for h in runner.history] == [0, 1, 2, 3, 4]
+                  and finite(h["loss"] for h in runner.history),
+                  f"train T3: the NaN guard did not restore and continue: "
+                  f"trips {runner.guard_trips}, steps "
+                  f"{[h['step'] for h in runner.history]}")
+            runner.inject_fault("swiglu_mlp")
+            params, opt, err = runner.run(params, opt, err, start_step=5,
+                                          steps=1)          # saves 6
+            check(runner.dispatcher.compiles == 1,
+                  f"train T3: a SW reroute built a new step "
+                  f"({runner.dispatcher.compiles} builds)")
+            # a fresh runner restores the card's checkpoint and continues
+            fresh = TrainRunner(cut, ocfg, TrainConfig(
+                steps=1, ckpt_every=100, ckpt_dir=tmp, hw_route=SW), data,
+                device=dev)
+            p2, o2, e2 = fresh.init_state(1)
+            last = fresh.ckpt.latest_step()
+            r0 = time.perf_counter()
+            got = fresh.ckpt.restore(last, {"params": p2, "opt": o2})
+            restore_s = time.perf_counter() - r0
+            p2, o2 = got["params"], got["opt"]
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves((params, opt)), tree_leaves((p2, o2))))
+            check(last == 6 and same and all(
+                t.device.type == dev.type for t in tree_leaves((p2, o2))),
+                f"train T3: checkpoint {last} did not restore the live state "
+                f"onto {dev}")
+            del params, opt, err
+            fresh.run(p2, o2, e2, start_step=last, steps=1)
+            check(finite(h["loss"] for h in fresh.history),
+                  "train T3: the restored run's loss is not finite")
+        snap = {f["name"]: f["samples"] for f in reg.snapshot()["families"]}
+        hist = {k: [(s["count"], s["sum"]) for s in snap.get(k, [])]
+                for k in ("ckpt_save_seconds", "ckpt_restore_seconds")}
+        t3 = {"params": n_params(p2), "saves": saves,
+              "snapshot_seconds": hist["ckpt_save_seconds"],
+              "guard_restore_seconds": hist["ckpt_restore_seconds"],
+              "fresh_restore_s": restore_s,
+              "losses": [h["loss"] for h in runner.history],
+              "restored_losses": [h["loss"] for h in fresh.history],
+              "guard_trips": runner.guard_trips,
+              "compiles": runner.dispatcher.compiles}
+        check(len(saves) == 2, f"train T3: {len(saves)} checkpoints written")
+        out(f"[train] T3 {cut_layers} layers ({t3['params'] / 1e9:.3f} B "
+            f"params): checkpoints "
+            + ", ".join(f"step {s['step']}: {gib(s['bytes']):.2f} GiB "
+                        f"written in {s['write_s']:.2f} s" for s in saves)
+            + f"; snapshot to host (count, s) {hist['ckpt_save_seconds']}; "
+            f"NaN guard restore (count, s) {hist['ckpt_restore_seconds']}; "
+            f"fresh runner restore {restore_s:.2f} s; losses "
+            f"{[round(x, 4) for x in t3['losses']]} then "
+            f"{[round(x, 4) for x in t3['restored_losses']]}; builds "
+            f"{t3['compiles']} after the swiglu_mlp reroute")
+        entry["T3"] = t3
+        del runner, fresh, p2, o2, e2, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------- T4: the fleet, at the same depth
+    def fleet(tcfg, fcfg):
+        return FleetTrainRunner(cut, ocfg, tcfg, data, fcfg, device=dev)
+    t4 = {}
+    r = fleet(TrainConfig(steps=4, hw_route=SW),
+              FleetTrainConfig(n_devices=3, n_spares=1))
+    p, o = r.run(*r.init_state(0), steps=4, poison={2: 1})
+    check(r.guard_trips == 1 and 1 in r.fleet.quarantined
+          and 2 in r.fleet.serving() and r.dispatcher.compiles == 1
+          and finite(h["loss"] for h in r.history),
+          f"train T4: poison did not migrate device 1 to the spare: "
+          f"quarantined {r.fleet.quarantined}, serving {r.fleet.serving()}")
+    t4["poison"] = {"losses": [h["loss"] for h in r.history],
+                    "step_ms": [1e3 * h["dt"] for h in r.history],
+                    "serving": list(r.fleet.serving())}
+    del r, p, o
+    r = fleet(TrainConfig(steps=3, hw_route=SW, probation_retries=2),
+              FleetTrainConfig(n_devices=3, n_spares=1))
+    p, o = r.run(*r.init_state(0), steps=3, transient={1: 0})
+    kinds = [e["kind"] for e in r.fault_state.log]
+    check(r.guard_trips == 1 and r.fleet.quarantined == ()
+          and "transient_recovered" in kinds
+          and finite(h["loss"] for h in r.history),
+          f"train T4: the transient was not recovered: {kinds}")
+    t4["transient"] = {"losses": [h["loss"] for h in r.history],
+                       "log": kinds}
+    del r, p, o
+    tmp = tempfile.mkdtemp(dir=root, prefix="train_ckpt_")
+    try:
+        r = fleet(TrainConfig(steps=3, ckpt_every=2, ckpt_dir=tmp,
+                              hw_route=SW),
+                  FleetTrainConfig(n_devices=4, n_spares=1,
+                                   topology=HostTopology(2, 2)))
+        p, o = r.run(*r.init_state(0), steps=3, host_loss={2: 0})
+        kinds = [e["kind"] for e in r.fault_state.log]
+        check([h["step"] for h in r.history] == [0, 1, 2]
+              and "checkpoint_restored" in kinds
+              and set(r.fleet.quarantined) == {0, 1}
+              and r.history[-1]["hosts_serving"] == 1
+              and r.history[-1]["n_serving"] == 2
+              and finite(h["loss"] for h in r.history),
+              f"train T4: the host loss did not restore and re-fold: "
+              f"{kinds}, quarantined {r.fleet.quarantined}")
+        t4["host_loss"] = {
+            "losses": [h["loss"] for h in r.history],
+            "n_serving": [h["n_serving"] for h in r.history],
+            "hosts_serving": [h["hosts_serving"] for h in r.history],
+            "fingerprint": r.ckpt.extra(2)["fingerprint"]}
+        del r, p, o
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out(f"[train] T4 fleet ({cut_layers} layers): poison at step 2 -> "
+        f"serving {t4['poison']['serving']}, losses "
+        f"{[round(x, 4) for x in t4['poison']['losses']]}; transient -> "
+        f"{t4['transient']['log']}; host loss at step 2 -> restored, "
+        f"serving {t4['host_loss']['n_serving']} devices on "
+        f"{t4['host_loss']['hosts_serving']} hosts, losses "
+        f"{[round(x, 4) for x in t4['host_loss']['losses']]}")
+    entry["T4"] = t4
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------- T5: the card and the CPU agree
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    small_data = SyntheticLM(DataConfig(vocab_size=small.vocab_size,
+                                        batch=B, seq_len=64))
+    init = build_model(small).init(0, device="cpu")
+    batch = small_data.batch_at(0)
+    first = {}
+    model = build_model(small)              # the SW route, as a step's
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d, copy=True), init)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(model.forward, p, b)
+        host = {k: t.to("cpu", copy=True)        # update consumes grads
+                for k, t in leaf_paths(grads).items()}
+        p, _, m = optim.update(ocfg, grads, optim.init(p), p)
+        first[d.type] = (float(loss), float(m["grad_norm"]), host,
+                         {k: t.cpu() for k, t in leaf_paths(p).items()})
+    (l_dev, n_dev, g_dev, p_dev) = first[dev.type]
+    (l_cpu, n_cpu, g_cpu, p_cpu) = first["cpu"]
+
+    def worst(got, want, scale):
+        return max(((float((got[k] - want[k]).abs().max()) / scale(k), k)
+                    for k in want), key=lambda e: e[0])
+    p_max = max(float(t.abs().max()) for t in p_cpu.values())
+    t5 = {"loss": (l_dev, l_cpu), "grad_norm": (n_dev, n_cpu),
+          "loss_rel": abs(l_dev - l_cpu) / abs(l_cpu),
+          "grad_norm_rel": abs(n_dev - n_cpu) / abs(n_cpu),
+          # each grad leaf against its own largest magnitude
+          "grads_worst_rel": worst(g_dev, g_cpu, lambda k: max(
+              float(g_cpu[k].abs().max()), 1e-30)),
+          # the updated params as one vector, against its largest entry
+          "params_rel": worst(p_dev, p_cpu, lambda k: p_max),
+          # and leaf by leaf: Adam's first step moves each element by ~lr
+          # whatever the size of its grad, so elements whose grads are at
+          # rounding level may step differently
+          "params_worst_leaf_rel": worst(p_dev, p_cpu, lambda k: max(
+              float(p_cpu[k].abs().max()), 1e-30))}
+    out(f"[train] T5 {small.name} float32, first step on {dev.type} vs "
+        f"cpu: loss {l_dev:.6f} vs {l_cpu:.6f} (rel {t5['loss_rel']:.2e}), "
+        f"grad_norm {n_dev:.6f} vs {n_cpu:.6f} (rel "
+        f"{t5['grad_norm_rel']:.2e}), "
+        f"grads worst leaf rel {t5['grads_worst_rel']}, updated params rel "
+        f"{t5['params_rel']} (per leaf {t5['params_worst_leaf_rel']}); tol "
+        f"{TRAIN_CPU_REL:g}")
+    check(max(t5["loss_rel"], t5["grad_norm_rel"], t5["grads_worst_rel"][0],
+              t5["params_rel"][0]) <= TRAIN_CPU_REL,
+          "train T5: the card's first step disagrees with the CPU's")
+    entry["T5"] = t5
+
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check(not any(launches.values()),
+          f"train: a kernel launched on the SW route: {launches}")
     entry["launches"] = launches
     return entry, launches
 
@@ -1774,6 +2181,14 @@ def main() -> int:
         "src/repro/kernels/checksum/kernel.py:17", "1 GiB bf16",
         **{k_: v_ for k_, v_ in ck["1 GiB bf16"].items() if k_ != "bytes"}))
     report["kernels"] = kernels
+
+    # ---------------------------------------------------------- 8. train
+    gc.collect()          # closures of the serve paths hold their weights
+    torch.cuda.empty_cache()
+    report["train"], train_launches = train_phase(qwen, dev, wrappers)
+    for name, n in train_launches.items():
+        launches[name]["train"] = n      # 0: training runs the SW route
+    report["train"]["nvidia_smi"] = smi
     for kn in kernels:
         out(f"[times] {kn['name']} {kn['shape']}: ms {kn['ms']:.4f} plain "
             f"{kn['plain_ms']:.4f} bound {kn['bound_ms']:.5f} "

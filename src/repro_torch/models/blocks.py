@@ -19,6 +19,35 @@ from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
 
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None)
+
+# the op remat_policy="collectives" saves (models/transformer.py _remat)
+CHECKPOINT_NAME = torch.ops.repro_torch.checkpoint_name.default
+
+
+def checkpoint_name(x: torch.Tensor, name: str, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """The reference's ``ad_checkpoint.checkpoint_name``: tags ``x`` (a
+    copy, under autograd with the ``collectives`` remat policy only) so
+    that the policy saves it."""
+    if (cfg.remat and cfg.remat_policy == "collectives"
+            and torch.is_grad_enabled() and x.requires_grad):
+        return _checkpoint_name(x, name)
+    return x
+
+
 @dataclass(frozen=True)
 class LayerMeta:
     kind: int
@@ -65,13 +94,15 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
             attn_mod.cache_write_prefill(cache, layer, k, v)
         else:
             attn_out = res
-    x = x + attn_out
+    # tagged so remat_policy="collectives" keeps the block's output
+    x = x + checkpoint_name(attn_out, "attn_out", cfg)
     if step:
         h = L.per_row(lambda r: L.norm(p["ln2"], r, eps=cfg.norm_eps), x)
     else:
         h = L.norm(p["ln2"], x, eps=cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
-                     row_independent=step)
+    ffn_out = L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
+                    row_independent=step)
+    return x + checkpoint_name(ffn_out, "ffn_out", cfg)
 
 
 def _per_slot(block, x, state):

@@ -13,9 +13,12 @@ LayerNorm, qk-norm) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN_GLOBAL, MAMBA2, RWKV6, ModelConfig
 from repro_torch.core.routing import as_routes
@@ -65,6 +68,43 @@ def _tree_map(fn, tree):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked (L, ...) param tree (views, no copies)."""
     return _tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked (L, ...) param tree, as views.  One
+    ``unbind`` a leaf: its backward stacks the layers' grads once, where
+    indexing each layer would scatter each layer's grad into a zero
+    tensor of the whole stack (L times the stack's bytes a step)."""
+    per = _tree_map(lambda a: a.unbind(0), tree)
+    return [_tree_map(lambda t: t[i], per) for i in range(n)]
+
+
+def _remat(cfg: ModelConfig, body, x: torch.Tensor):
+    """Activation checkpointing of a layer (group) body, the reference's
+    ``remat_wrap``, when autograd records ``x`` (serving, whose params
+    never require grad, runs the body as it is).  ``full`` recomputes
+    everything in the backward; ``dots`` saves the matmul outputs without
+    batch dims (``mm``/``addmm``, as JAX's
+    ``dots_with_no_batch_dims_saveable``); ``collectives`` saves the
+    attention and MLP block outputs (``blocks.checkpoint_name``)."""
+    if not (cfg.remat and cfg.remat_policy != "none"
+            and torch.is_grad_enabled() and x.requires_grad):
+        return body
+    saved = {"dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+             "collectives": (B.CHECKPOINT_NAME,)}.get(cfg.remat_policy)
+    kw = {}
+    if saved is not None:
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def wrapped(*args):
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def compute_params(params: PyTree, dtype: torch.dtype,
@@ -205,19 +245,26 @@ class LMModel:
 
     def _run_layers(self, params, x, rope, cache=None, t=None, tpos=None,
                     step=False):
-        if self.cfg.family == "hybrid":
+        """Every layer over ``x``; under autograd each layer is one remat
+        body (``_remat``), as each pattern group is in the reference."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
             return self._run_hybrid(params, x, rope, cache, t, tpos, step)
-        if self.cfg.family == "ssm":
-            for i in range(self.cfg.num_layers):
+        layers = _unstack(params["layers"], cfg.num_layers)
+        for i, p in enumerate(layers):
+            if cfg.family == "ssm":
                 state = (None if cache is None else
                          {k: v[i] for k, v in cache.items()})
-                x = B.rwkv_block(_layer(params["layers"], i), x, self.cfg,
-                                 self.routes, state=state, step=step)
-            return x
-        for i in range(self.cfg.num_layers):
-            x = B.attn_block(_layer(params["layers"], i), x, self.cfg,
-                             self.meta, rope, self.routes, cache=cache,
-                             layer=i, t=t, tpos=tpos, step=step)
+
+                def body(x, p=p, state=state):
+                    return B.rwkv_block(p, x, cfg, self.routes, state=state,
+                                        step=step)
+            else:
+                def body(x, p=p, i=i):
+                    return B.attn_block(p, x, cfg, self.meta, rope,
+                                        self.routes, cache=cache, layer=i,
+                                        t=t, tpos=tpos, step=step)
+            x = _remat(cfg, body, x)(x)
         return x
 
     def _run_hybrid(self, params, x, rope, cache, t, tpos, step):
@@ -226,27 +273,32 @@ class LMModel:
         the tail of ``num_layers % shared_attn_every`` Mamba2 layers."""
         cfg = self.cfg
         per = cfg.shared_attn_every
+        layers = _unstack(params["layers"], cfg.num_layers)
 
         def mamba(li, x):
             state = (None if cache is None else
                      {k: v[li] for k, v in cache["mamba"].items()})
-            return B.mamba_block(_layer(params["layers"], li), x, cfg,
-                                 self.routes, state=state, step=step)
-        for g in range(self.n_groups):
+            return B.mamba_block(layers[li], x, cfg, self.routes,
+                                 state=state, step=step)
+
+        def group(x, g):
             for j in range(per):
                 x = mamba(g * per + j, x)
-            x = B.attn_block(params["shared"], x, cfg, self.meta, rope,
-                             self.routes,
-                             cache=None if cache is None else cache["attn"],
-                             layer=g, t=t, tpos=tpos, step=step)
-        for j in range(self.n_tail):
+            return B.attn_block(params["shared"], x, cfg, self.meta, rope,
+                                self.routes,
+                                cache=None if cache is None else cache["attn"],
+                                layer=g, t=t, tpos=tpos, step=step)
+        for g in range(self.n_groups):      # the reference's remat'd scan
+            x = _remat(cfg, functools.partial(group, g=g), x)(x)
+        for j in range(self.n_tail):        # its unrolled tail: no remat
             x = mamba(self.n_groups * per + j, x)
         return x
 
     # ----------------------------------------------------------- modes
     def forward(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Training forward: returns (loss, metrics).  Forward only: the
-        kernels have no backward, as in the reference."""
+        """Training forward: returns (loss, metrics).  Differentiable on
+        the SW route only: every other lowering refuses to run under
+        autograd (the kernels have no backward, as in the reference)."""
         cfg = self.cfg
         x = self._embed_in(params, batch["tokens"])
         Bt, S = x.shape[:2]

@@ -1,2 +1,3 @@
-"""Training of the port: only ``model_stage_names`` so far (the trainer
-is ROADMAP queue 1 item 6)."""
+from repro_torch.train.runner import TrainConfig, TrainRunner, canary_stages, model_stage_names
+
+__all__ = ["TrainConfig", "TrainRunner", "canary_stages", "model_stage_names"]

@@ -49,6 +49,8 @@ class OpSpec:
     lane_slicer: Optional[Callable[..., Any]] = None
 
     def lower(self, target) -> Callable[..., Any]:
+        """The lowering for ``target``.  Every lowering but SW is forward
+        only (see ``_forward_only``)."""
         if hasattr(target, "target_for"):   # RoutingPlan: my stage's entry
             target = target.target_for(self.name)
         if hasattr(target, "select"):       # ResidentRoute: per-call pick
@@ -56,16 +58,37 @@ class OpSpec:
         if target == SW or self.kernel is None:
             return self.ref
         if target == HW:
-            return self.kernel
+            return _forward_only(self.name, target, self.kernel)
         if target == INTERPRET:
-            return self.interpret or self.kernel
+            return _forward_only(self.name, target,
+                                 self.interpret or self.kernel)
         if target in DEGRADED_TARGETS:      # lane-mapped partial degradation
             from repro_torch.viscosity import lanefault
-            return lanefault.lower_degraded(self, target)
+            return _forward_only(self.name, target,
+                                 lanefault.lower_degraded(self, target))
         raise ValueError(f"unknown lowering target {target!r} for op {self.name}")
 
     def __call__(self, *args, route=SW, **kw):
         return self.lower(route)(*args, **kw)
+
+
+def _forward_only(stage: str, target: str, fn: Callable) -> Callable:
+    """``fn`` refusing to run under autograd.  The kernels have no
+    backward (nor do the reference's: ``jax.grad`` through a Pallas call
+    fails), and a kernel's output carries no ``grad_fn``, so a trainer
+    would silently drop the gradients of every weight before it; the
+    INTERPRET replicas would differentiate where the reference cannot.
+    Serving never sets ``requires_grad`` and is unaffected."""
+    def call(*args, **kw):
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in (*args, *kw.values())):
+            raise RuntimeError(
+                f"stage {stage!r}: route {target!r} is forward-only (its "
+                f"kernels have no backward, as in the reference); training "
+                f"uses route {SW!r}")
+        return fn(*args, **kw)
+    return call
 
 
 class Registry:

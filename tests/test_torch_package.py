@@ -43,7 +43,10 @@ def test_import_leaves_no_jax_or_reference_module():
         "new = ['repro_torch.core.datacenter', 'repro_torch.launch.mesh',\n"
         "       'repro_torch.launch.sharding', 'repro_torch.launch.serve',\n"
         "       'repro_torch.launch.distributed', 'repro_torch.serve.traffic',\n"
-        "       'repro_torch.serve.frontend']\n"
+        "       'repro_torch.serve.frontend', 'repro_torch.optim.adamw',\n"
+        "       'repro_torch.optim.compression', 'repro_torch.data.pipeline',\n"
+        "       'repro_torch.checkpoint.manager', 'repro_torch.train.runner',\n"
+        "       'repro_torch.launch.train']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -94,6 +97,25 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                                   FleetConfig(n_devices=1)))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_cli.main(["--requests", "1"])
+    from repro_torch import optim
+    from repro_torch.convert import opt_state_from_jax
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import TrainConfig, TrainRunner
+    from repro_torch.train.runner import FleetTrainConfig, FleetTrainRunner
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                  seq_len=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        data.device_batch(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainRunner(cfg, optim.AdamWConfig(), TrainConfig(), data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetTrainRunner(cfg, optim.AdamWConfig(), TrainConfig(), data,
+                         FleetTrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt_state_from_jax(optim.AdamWState(np.zeros((), np.int32), {}, {}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--steps", "1"])
     assert repro_torch.resolve_device("cpu").type == "cpu"
 
 
