@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training, multi-process fleet and
+chaos paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -174,12 +174,50 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              the CPU agree (loss, grad norm, updated params) to 1e-4.  No
              kernel launches in this phase (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
+9. multihost — the reference's two-process fleet test on the card:
+             qwen1.5-4b at full width and depth in ``FleetServeEngine``, 4
+             logical devices of 2 slots (device 3 the hot spare), 6
+             requests of 16-128 prompt tokens and 8-16 new, HW route.
+             First this process serves them with both hosts' devices local
+             (``HostTopology(2, 2)``), a device fault on device 0 at step
+             3.  Then two worker processes (``multihost_worker``, started
+             after every kernel is built) join one process group through
+             ``initialize_runtime`` with backend gloo, printed: both ranks
+             share the one card, which NCCL refuses.  Each builds the same
+             seeded weights, checksums them on the card (the Fig. 4 kernel)
+             and exchanges the sum through ``KVCoordinator`` over the
+             group's TCPStore, then serves its half (host 0: devices 0-1;
+             host 1: device 2 and the spare), shadowing the other half;
+             only rank 0 sees the fault.  Checks: equal checksums, one
+             fingerprint, device 0 quarantined onto spare 3, work requeued
+             and decoded on device 3, equal schedules, no late event, a
+             gloo all-gather of the ranks gives [0, 1], the merged
+             completions equal the emulated fleet's tokens, and the ranks'
+             attention and SwiGLU launches sum to the emulated fleet's (no
+             shadow pool launches).  Per rank: wall, fleet steps, median
+             step, tokens/s, exchanges and their p50 and max ms;
+10. chaos  — ``chaos.run_campaign`` (seed 1, the reference's smoke
+             sizing) with the serve campaigns (RECOMPILE and RESIDENT: a
+             lane fault, a transient and a coordinator stall under 30
+             Poisson requests, 4 devices with 2 spares, 3 slots, MAX_LEN
+             48) and the closure scenario (24 requests, a device loss on 2
+             devices) on qwen1.5-4b at full width and depth, route hw; the
+             train campaign (a device loss, then a host loss with a
+             checkpoint restore) on the reduced config on the card, SW
+             route; one coordinator stall.  Every invariant must hold and
+             the closure stay within 15%; each campaign's schedule, MTTR,
+             traffic and kernel launches print; the campaign's telemetry
+             snapshot, written to a file, is rendered by ``python -m
+             repro_torch.obs.report``, whose MTTR and goodput must equal
+             the campaigns' own summaries (rehearsed on the CPU by
+             ``test_torch_chip_smoke.py``).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
-case studies and the fleet runs); the last line is ``{"ok": true, "device": {...}}``.  Details also go to
-``chiprun_out/chip_smoke.json``.
+case studies, the fleet runs, the two ranks of phase 9 and the chaos
+campaigns); the last line is ``{"ok": true, "device": {...}}``.  Details
+also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -428,6 +466,24 @@ FLEET_B = {2: [("stage", 0, "flash_attention")],
 FLEET_MEM_SLACK = 0.05
 
 
+def _drive_session(eng, reqs, events):
+    """Serve ``reqs`` through a fleet session, timing each step; returns
+    (completions, stats, step seconds, wall seconds)."""
+    ev = {k: list(v) for k, v in events.items()}
+    sess = eng.session()
+    for r in reqs:
+        sess.submit(r)
+    steps_s = []
+    t0 = time.perf_counter()
+    while sess.pending():
+        t1 = time.perf_counter()
+        sess.step(ev.pop(sess.step_count, ()))
+        steps_s.append(time.perf_counter() - t1)
+    stats = sess.close(late_events=ev)
+    wall = time.perf_counter() - t0
+    return {c.rid: c for c in sess.poll()}, stats, steps_s, wall
+
+
 def fleet_phase(cfg, dev, wrappers, *, n_requests: int = 16,
                 workload=FLEET_WORKLOAD):
     """Phase 6 for one dense model: ``FleetServeEngine`` on the HW route in
@@ -547,19 +603,7 @@ def fleet_phase(cfg, dev, wrappers, *, n_requests: int = 16,
         """Drive ``reqs`` through a fleet session (as ``serve`` does),
         timing each step; returns (completions, stats, accounting)."""
         acct = instrument(fleet)
-        ev = {k: list(v) for k, v in events.items()}
-        sess = fleet.session()
-        for r in reqs:
-            sess.submit(r)
-        steps_s = []
-        t0 = time.perf_counter()
-        while sess.pending():
-            t1 = time.perf_counter()
-            sess.step(ev.pop(sess.step_count, ()))
-            steps_s.append(time.perf_counter() - t1)
-        stats = sess.close(late_events=ev)
-        wall = time.perf_counter() - t0
-        done = {c.rid: c for c in sess.poll()}
+        done, stats, steps_s, wall = _drive_session(fleet, reqs, events)
         n_tok = sum(len(c.tokens) for c in done.values())
         row = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
                "steps": stats["steps"], "step_ms_median":
@@ -1052,6 +1096,467 @@ def train_phase(cfg, dev, wrappers, *, steps: int = TRAIN_STEPS,
     check(not any(launches.values()),
           f"train: a kernel launched on the SW route: {launches}")
     entry["launches"] = launches
+    return entry, launches
+
+
+# The two-process fleet (phase 9): the reference's two-process acceptance
+# test (tests/test_distributed_fleet.py) on the card.  Two ranks join one
+# process group over a TCPStore; each owns half of a 4-device fleet (host
+# 0: devices 0 and 1; host 1: device 2 and the hot spare 3), with 2 slots a
+# device and the serve phases' prompts of 16-128 tokens and 8-16 new.
+# Only rank 0 sees the device fault at step 3.  Both ranks share the one
+# card, which NCCL refuses, so the backend is gloo on CPU tensors.
+MH_BACKEND = "gloo"
+MH_REQUESTS = 6
+MH_SLOTS = 2
+MH_SEED = 0
+MH_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
+                   arrival_every=1, per_arrival=2)
+MH_EVENTS = {3: [("device", 0)]}
+MH_TIMEOUT_S = 600
+MH_WORKER = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "sys.exit(chip_smoke.multihost_worker(sys.argv[2:]))")
+
+
+class _TimedCoordinator:
+    """A coordinator that records each exchange's wall milliseconds."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.num_hosts = inner.num_hosts
+        self.host_id = inner.host_id
+        self.ms = []
+
+    def exchange(self, payload):
+        t0 = time.perf_counter()
+        res = self.inner.exchange(payload)
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    def mark_dead(self, host):
+        self.inner.mark_dead(host)
+
+
+def _mh_fleet(cfg, params, dev, topology, coordinator):
+    """The phase's fleet on ``topology`` and its requests."""
+    import numpy as np
+
+    from repro_torch.serve import (FleetConfig, FleetServeEngine,
+                                   ServeConfig, synthetic_workload)
+    from repro_torch.viscosity import HW
+
+    reqs = synthetic_workload(cfg.vocab_size, MH_REQUESTS,
+                              np.random.default_rng(MH_SEED), **MH_WORKLOAD)
+    max_len = MH_WORKLOAD["max_prompt"] + MH_WORKLOAD["max_new"]
+    eng = FleetServeEngine(
+        cfg, params, ServeConfig(max_len=max_len, max_slots=MH_SLOTS,
+                                 hw_route=HW),
+        FleetConfig(n_devices=4, n_spares=1, topology=topology),
+        coordinator=coordinator, device=dev)
+    return eng, reqs
+
+
+def multihost_worker(argv) -> int:
+    """One rank of phase 9 (``argv``: rank, port, arch, device).  Prints
+    one ``RESULT {json}`` line; any failure raises (a non-zero exit)."""
+    pid, port, arch, device = int(argv[0]), argv[1], argv[2], argv[3]
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.checksum import checksum_popcount, checksum_tree
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.mamba2_scan import ssd_chunked_cuda
+    from repro_torch.kernels.rwkv6_scan import wkv6_chunked_cuda
+    from repro_torch.kernels.swiglu import swiglu_fused
+    from repro_torch.launch.distributed import (HostTopology, KVCoordinator,
+                                                fleet_fingerprint,
+                                                initialize_runtime,
+                                                shutdown_runtime)
+    from repro_torch.models import build_model
+    from repro_torch.serve import percentile
+
+    wrappers = {"checksum": checksum_popcount,
+                "flash_attention": flash_attention_bhsd,
+                "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda,
+                "rwkv6_wkv": wkv6_chunked_cuda}
+    t_start = time.perf_counter()
+    rt = initialize_runtime(f"127.0.0.1:{port}", 2, pid, backend=MH_BACKEND,
+                            timeout_s=MH_TIMEOUT_S)
+    coord = _TimedCoordinator(KVCoordinator())
+    cfg = get_config(arch)
+    params32 = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(MH_SEED), device=dev)
+    eng, reqs = _mh_fleet(cfg, params32, dev,
+                          HostTopology(2, 2, host_id=rt.process_id), coord)
+    del params32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for w in wrappers.values():
+        w.launches = 0
+    # the ranks agree on the weights they serve before serving them
+    weights = checksum_tree(eng.params)
+    sums = coord.exchange(str(weights))
+    done, stats, steps_s, wall = _drive_session(
+        eng, reqs, MH_EVENTS if rt.process_id == 0 else {})
+    launches = {name: w.launches for name, w in wrappers.items()}
+    gathered = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
+    tdist.all_gather(gathered, torch.tensor([rt.process_id]))
+    fingerprints = coord.exchange(fleet_fingerprint(eng.fleet))
+    owned = HostTopology(2, 2, host_id=rt.process_id).devices_of()
+    local_tokens = sum(stats["per_device_tokens"][d] for d in owned)
+    exchange_ms = list(coord.ms)
+    out = {
+        "pid": rt.process_id, "world": tdist.get_world_size(),
+        "backend": rt.backend, "checksums": sums,
+        "fingerprints": fingerprints,
+        "fleet_fingerprint": stats["fleet_fingerprint"],
+        "quarantined": list(eng.fleet.quarantined),
+        "spare_for_0": eng.fleet.pool.spare_for(0),
+        "completed": sorted(done),
+        "devices_by_rid": {str(r): done[r].device for r in sorted(done)},
+        "tokens": {str(r): done[r].tokens.tolist() for r in sorted(done)},
+        "requeued": stats["requeued"], "late_events": stats["late_events"],
+        "per_device_tokens": stats["per_device_tokens"],
+        "steps": stats["steps"], "allgather": [int(t) for t in gathered],
+        "launches": launches, "wall_s": wall,
+        "process_s": time.perf_counter() - t_start,
+        "step_ms_median": 1e3 * percentile(steps_s, 0.5),
+        "local_tokens": local_tokens, "tokens_per_s": local_tokens / wall,
+        "exchanges": len(exchange_ms),
+        "exchange_ms_p50": percentile(exchange_ms, 0.5),
+        "exchange_ms_max": max(exchange_ms),
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                     if dev.type == "cuda" else None),
+    }
+    # one last exchange: rank 0 serves the store, so neither rank leaves
+    # while the other still reads it
+    coord.exchange("done")
+    shutdown_runtime()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(cfg, dev, wrappers, *, timeout: float = MH_TIMEOUT_S):
+    """Phase 9: the fleet emulated in this process (both hosts' devices
+    local), then the same fleet split across two worker processes on the
+    same card and weights.  Returns (report entry, kernel launches of the
+    two workers, the emulated fleet's bf16 weights on ``dev``)."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels.checksum import checksum_tree
+    from repro_torch.launch.distributed import (HostTopology,
+                                                fleet_fingerprint)
+    from repro_torch.models import build_model
+    from repro_torch.serve import percentile
+
+    out(f"[multihost] backend {MH_BACKEND} (explicit): both ranks share the "
+        "one card, which NCCL refuses; the collectives carry CPU tensors")
+    params32 = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(MH_SEED), device=dev)
+    emu, reqs = _mh_fleet(cfg, params32, dev, HostTopology(2, 2), None)
+    del params32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for w in wrappers.values():
+        w.launches = 0
+    done, stats, steps_s, wall = _drive_session(emu, reqs, MH_EVENTS)
+    emu_launches = {name: w.launches for name, w in wrappers.items()}
+    emu_tokens = {str(r): c.tokens.tolist() for r, c in sorted(done.items())}
+    n_tok = sum(map(len, emu_tokens.values()))
+    entry = {"requests": MH_REQUESTS, "slots": MH_SLOTS, "n_devices": 4,
+             "n_spares": 1, "backend": MH_BACKEND, "emulated": {
+                 "wall_s": wall, "steps": stats["steps"],
+                 "step_ms_median": 1e3 * percentile(steps_s, 0.5),
+                 "tokens_per_s": n_tok / wall,
+                 "requeued": stats["requeued"],
+                 "per_device_tokens": stats["per_device_tokens"],
+                 "launches": emu_launches}}
+    out(f"[multihost] {cfg.name} emulated in one process: {len(done)} "
+        f"requests, {n_tok} tokens in {stats['steps']} steps, {wall:.2f} s, "
+        f"median step {entry['emulated']['step_ms_median']:.2f} ms, "
+        f"{n_tok / wall:.2f} tok/s; requeued {stats['requeued']}, "
+        f"per-device tokens {stats['per_device_tokens']}; launches "
+        f"{emu_launches}")
+    check(sorted(done) == sorted(r.rid for r in reqs) and stats["requeued"]
+          > 0 and emu.fleet.quarantined == (0,),
+          "multihost: the emulated fleet did not migrate device 0's work")
+    weights = checksum_tree(emu.params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        entry["parent_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+        out(f"[multihost] this process holds "
+            f"{entry['parent_allocated_gib']:.3f} GiB on the card while the "
+            "ranks run")
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_WORKER, str(ROOT), str(pid), str(port),
+         cfg.name, dev.type], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
+    results, failures = [], []
+    try:
+        for pid, p in enumerate(procs):
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                failures.append(f"rank {pid} timed out after {timeout} s")
+                continue
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not lines:
+                failures.append(f"rank {pid} exited {p.returncode}:\n"
+                                f"{stderr[-3000:]}")
+                continue
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not failures, "multihost: " + "\n".join(failures))
+    r0, r1 = sorted(results, key=lambda r: r["pid"])
+    for r in (r0, r1):
+        out(f"[multihost] rank {r['pid']}: {r['wall_s']:.2f} s fleet wall "
+            f"({r['process_s']:.2f} s from init), {r['steps']} fleet steps, "
+            f"median step {r['step_ms_median']:.2f} ms, "
+            f"{r['tokens_per_s']:.2f} tok/s ({r['local_tokens']} tokens on "
+            f"its devices), {r['exchanges']} exchanges, p50 "
+            f"{r['exchange_ms_p50']:.3f} ms, max {r['exchange_ms_max']:.3f} "
+            f"ms; peak memory {r['peak_gib']} GiB; launches "
+            f"{r['launches']}")
+    check(r0["world"] == r1["world"] == 2 and r0["backend"] == r1["backend"]
+          == MH_BACKEND, "multihost: the ranks are not one gloo group")
+    check(r0["allgather"] == r1["allgather"] == [0, 1],
+          f"multihost: all-gather gave {r0['allgather']}, {r1['allgather']}")
+    check(r0["checksums"] == r1["checksums"]
+          == [str(weights), str(weights)],
+          f"multihost: the ranks' weights differ: {r0['checksums']} "
+          f"(this process: {weights})")
+    check(r0["fleet_fingerprint"] == r1["fleet_fingerprint"]
+          == fleet_fingerprint(emu.fleet)
+          and r0["fingerprints"] == r1["fingerprints"]
+          and len(set(r0["fingerprints"])) == 1,
+          "multihost: the ranks folded different plans")
+    for r in (r0, r1):
+        check(r["quarantined"] == [0] and r["spare_for_0"] == 3
+              and r["late_events"] == 0,
+              f"multihost: rank {r['pid']} did not migrate device 0 to "
+              f"spare 3: {r['quarantined']}, {r['spare_for_0']}")
+    check(r0["devices_by_rid"] == r1["devices_by_rid"]
+          and r0["requeued"] == r1["requeued"] == stats["requeued"] > 0
+          and r0["per_device_tokens"][3] > 0
+          and 3 in set(r0["devices_by_rid"].values())
+          and r0["per_device_tokens"] == stats["per_device_tokens"]
+          and r0["steps"] == r1["steps"] == stats["steps"],
+          "multihost: the ranks' schedules differ from each other or from "
+          "the emulated fleet's")
+    check(r0["completed"] == r1["completed"] == sorted(done)
+          and r0["tokens"] == r1["tokens"] == emu_tokens,
+          "multihost: the merged completions differ from the emulated "
+          "fleet's tokens")
+    paths = ("flash_attention", "swiglu_mlp")
+    launches = {name: r0["launches"].get(name, 0)
+                + r1["launches"].get(name, 0) for name in wrappers}
+    check(all(r["launches"][s] > 0 for r in (r0, r1) for s in paths)
+          and all(launches[s] == emu_launches[s] for s in paths),
+          f"multihost: the ranks launched {r0['launches']} and "
+          f"{r1['launches']}, the emulated fleet {emu_launches}: a shadow "
+          "pool launched, or an owned one did not")
+    check(all(r["launches"]["checksum"] > 0 for r in (r0, r1)),
+          "multihost: a rank's weight checksum launched no kernel")
+    entry["ranks"] = [{k: r[k] for k in (
+        "wall_s", "process_s", "steps", "step_ms_median", "tokens_per_s",
+        "local_tokens", "exchanges", "exchange_ms_p50", "exchange_ms_max",
+        "peak_gib", "launches", "requeued", "per_device_tokens")}
+        for r in (r0, r1)]
+    entry["weights_checksum"] = weights
+    entry["launches"] = launches
+    out(f"[multihost] both ranks: fingerprint {r0['fleet_fingerprint']}, "
+        f"device 0 quarantined onto spare 3, requeued {r0['requeued']}, "
+        f"all-gather {r0['allgather']}, weights checksum {weights}; merged "
+        f"completions equal the emulated fleet's; launches {launches}")
+    return entry, launches, emu.params
+
+
+# The chaos phase (phase 10): ``run_campaign`` at the reference's smoke
+# sizing (serve: 3 events, 30 requests, 4 devices with 2 spares, 3 slots,
+# MAX_LEN 48, in RECOMPILE and RESIDENT; the closure at 24 requests; the
+# train campaign on the reduced config; one coordinator stall) with the
+# serve and closure campaigns at full width on route hw.  Seed 1 draws a
+# lane fault, a transient and a coordinator stall for serving, a device
+# loss and a host loss for training.
+CHAOS_SEED = 1
+
+
+def chaos_phase(cfg, dev, wrappers, params, *, seed: int = CHAOS_SEED,
+                workdir=None):
+    """Phase 10: ``chaos.run_campaign`` with ``cfg`` and ``params`` served
+    on ``dev`` on route hw, its telemetry rendered by ``python -m
+    repro_torch.obs.report``.  Returns (report entry, kernel launches of
+    the campaign, counted from 0)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.chaos import campaign
+    from repro_torch.serve import RECOMPILE, RESIDENT
+    from repro_torch.viscosity import HW, lanefault
+
+    names = ("serve_campaign", "closure_scenario", "train_campaign",
+             "coordinator_campaign")
+    originals = {n: getattr(campaign, n) for n in names}
+    sections = {}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            label = (f"serve_{kw['failover']}" if name == "serve_campaign"
+                     else name.split("_")[0])
+            n0 = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sections[label] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: w.launches - n0[k]
+                             for k, w in wrappers.items()}}
+            return res
+        return call
+
+    for w in wrappers.values():
+        w.launches = 0
+    base = Path(workdir) if workdir is not None else ROOT / "build"
+    base.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chaos_", dir=base))
+    try:
+        for n in names:
+            setattr(campaign, n, counted(n, originals[n]))
+        t0 = time.perf_counter()
+        res = campaign.run_campaign(seed, smoke=True,
+                                    ckpt_dir=str(tmp / "ckpt"), cfg=cfg,
+                                    params=params, device=dev, hw_route=HW)
+        wall = time.perf_counter() - t0
+        for n in names:
+            setattr(campaign, n, originals[n])
+        check(all(lanefault.injection(s) is None for s in
+                  campaign.CANARY_WIDTHS)
+              and all(lanefault.fault_map(s) is None for s in
+                      campaign.CANARY_WIDTHS),
+              "chaos: a lane fault outlived its campaign")
+        launches = {name: w.launches for name, w in wrappers.items()}
+        entry = {"seed": seed, "wall_s": wall, "sections": sections,
+                 "events_total": res["events_total"],
+                 "invariants": res["invariants"]}
+        for mode in (RECOMPILE, RESIDENT):
+            s = res["serve"][mode]
+            sec = sections[f"serve_{mode}"]
+            entry[f"serve_{mode}"] = {k: s[k] for k in (
+                "schedule", "mttr", "mttr_summary", "traffic",
+                "quarantined")}
+            entry[f"serve_{mode}"]["invariants"] = {
+                r["invariant"]: r["ok"] for r in s["invariants"]["reports"]}
+            out(f"[chaos] serve {mode}: {sec['wall_s']:.2f} s; schedule "
+                + ", ".join(f"{e['step']}:{e['kind']}"
+                            f"({e['stage'] or e['device']})"
+                            for e in s["schedule"])
+                + f"; MTTR {s['mttr_summary']} (per event "
+                f"{[m['mttr_s'] for m in s['mttr']]}); traffic "
+                f"{s['traffic']}; quarantined {s['quarantined']}; "
+                f"invariants {entry[f'serve_{mode}']['invariants']}; "
+                f"launches {sec['launches']}")
+            check(s["invariants"]["ok"], f"chaos serve {mode}: "
+                  f"{s['invariants']['failed']}")
+            check(s["traffic"]["completed"] == s["traffic"]["requests"],
+                  f"chaos serve {mode}: a request was dropped")
+            check(all(sec["launches"][k] > 0
+                      for k in ("flash_attention", "swiglu_mlp")),
+                  f"chaos serve {mode}: a kernel of the path never "
+                  f"launched: {sec['launches']}")
+        cl, tr, co = res["closure"], res["train"], res["coordinator"]
+        entry["closure"] = cl
+        entry["train"] = {k: tr[k] for k in (
+            "schedule", "mttr", "mttr_summary", "guard_trips",
+            "quarantined", "steps")}
+        entry["coordinator"] = {k: co[k] for k in ("mttr", "mttr_summary")}
+        out(f"[chaos] closure: measured {cl['measured_ratio']} analytic "
+            f"{cl['analytic_ratio']} rel_err {cl['rel_err']} (tol "
+            f"{cl['tol']}), dropped {cl['dropped']}; "
+            f"{sections['closure']['wall_s']:.2f} s, launches "
+            f"{sections['closure']['launches']}")
+        out(f"[chaos] train ({tr['steps']} steps, reduced config, SW): "
+            + ", ".join(f"{e['step']}:{e['kind']}" for e in tr["schedule"])
+            + f"; guard trips {tr['guard_trips']}, quarantined "
+            f"{tr['quarantined']}, MTTR {tr['mttr_summary']}; "
+            f"{sections['train']['wall_s']:.2f} s, launches "
+            f"{sections['train']['launches']}")
+        out(f"[chaos] coordinator: MTTR {co['mttr_summary']}")
+        check(cl["ok"], f"chaos closure: {cl}")
+        check(tr["invariants"]["ok"] and co["invariants"]["ok"],
+              f"chaos: train {tr['invariants']['failed']}, coordinator "
+              f"{co['invariants']['failed']}")
+        check(res["invariants"] == {"ok": True, "failed": []},
+              f"chaos: {res['invariants']}")
+        check(not any(sections["train"]["launches"].values()),
+              "chaos: the train campaign launched a kernel on the SW route")
+        check(all(sections["closure"]["launches"][k] > 0
+                  for k in ("flash_attention", "swiglu_mlp")),
+              "chaos: the closure launched no kernel")
+
+        # the campaign's one telemetry snapshot, rendered by the CLI
+        snap = tmp / "telemetry.json"
+        snap.write_text(json.dumps(res["telemetry"]))
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        text, health = (subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", str(snap),
+             *flag], env=env, cwd=str(ROOT), capture_output=True, text=True,
+            timeout=300, check=True).stdout for flag in ((), ("--json",)))
+        health = json.loads(health)
+        for ln in text.splitlines():
+            out(f"[chaos] report: {ln}")
+        parts = {f"serve_{m}": res["serve"][m] for m in (RECOMPILE,
+                                                          RESIDENT)}
+        parts.update(train=tr, coordinator=co)
+        for sec, part in parts.items():
+            m = part["mttr_summary"]
+            check(health["mttr"].get(sec) == m and (
+                f"mttr[{sec}]  n={m['n']} mean={m['mean_s']}s "
+                f"max={m['max_s']}s") in text,
+                  f"chaos report: MTTR of {sec} {health['mttr'].get(sec)} "
+                  f"against the campaign's {m}")
+        for mode in (RECOMPILE, RESIDENT):
+            g = health["serve"][f"serve_{mode}"]
+            t = res["serve"][mode]["traffic"]
+            # deadline-free arrivals: goodput is the throughput
+            check(g["goodput_tok_s"] == g["throughput_tok_s"]
+                  and round(g["goodput_tok_s"], 2) == t["throughput_tok_s"]
+                  and f"serve[serve_{mode}]  goodput="
+                  f"{g['goodput_tok_s']:.2f}tok/s" in text,
+                  f"chaos report: goodput of serve_{mode} {g} against the "
+                  f"campaign's {t}")
+        entry["report"] = {"mttr": health["mttr"], "goodput": {
+            k: v["goodput_tok_s"] for k, v in health["serve"].items()}}
+    finally:
+        for n in names:
+            setattr(campaign, n, originals[n])
+        shutil.rmtree(tmp, ignore_errors=True)
+    entry["launches"] = launches
+    out(f"[chaos] {res['events_total']} fault events in {wall:.2f} s; kernel "
+        f"launches of the campaign {launches}")
     return entry, launches
 
 
@@ -2189,6 +2694,33 @@ def main() -> int:
     for name, n in train_launches.items():
         launches[name]["train"] = n      # 0: training runs the SW route
     report["train"]["nvidia_smi"] = smi
+
+    # ------------------------------------------------------ 9. multihost
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["multihost"], mh_launches, fleet_params = multihost_phase(
+        qwen, dev, wrappers)
+    report["multihost"]["phase_s"] = time.perf_counter() - t0
+    out(f"[multihost] phase {report['multihost']['phase_s']:.2f} s")
+    for name, n in mh_launches.items():
+        launches[name]["multihost"] = n
+    report["multihost"]["nvidia_smi"] = smi
+
+    # ---------------------------------------------------------- 10. chaos
+    t0 = time.perf_counter()
+    report["chaos"], chaos_launches = chaos_phase(qwen, dev, wrappers,
+                                                  fleet_params)
+    report["chaos"]["phase_s"] = time.perf_counter() - t0
+    out(f"[chaos] phase {report['chaos']['phase_s']:.2f} s")
+    del fleet_params
+    for name, n in chaos_launches.items():
+        launches[name]["chaos"] = n
+    check(launches["checksum"]["chaos"] == 0, "chaos: the campaign launched "
+          "the checksum (its stages compare with tol > 0)")
+    report["chaos"]["nvidia_smi"] = smi
+    for kn in kernels:                   # the new paths' launches too
+        kn["launches"] = sum(launches[kn["name"]].values())
     for kn in kernels:
         out(f"[times] {kn['name']} {kn['shape']}: ms {kn['ms']:.4f} plain "
             f"{kn['plain_ms']:.4f} bound {kn['bound_ms']:.5f} "

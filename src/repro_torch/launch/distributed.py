@@ -12,31 +12,43 @@ the same log over the same initial ``FleetPlan``:
   * ``EventChannel`` — per-step all-to-all exchange of locally observed
     events through a coordinator; returns the merged, ordered slice every
     host applies identically.
-  * ``LocalCoordinator`` — the trivial single-process transport.
+  * ``KVCoordinator`` — the transport between processes: an all-to-all
+    string exchange over the ``torch.distributed`` ``TCPStore`` that
+    ``initialize_runtime`` opens (through ``StoreClient``), with bounded,
+    jittered retries and a typed ``HostTimeoutError`` for a silent peer;
+    ``LocalCoordinator`` is the trivial single-process instance.
 
 ``HostTopology`` names the device→host partition and ``HostView`` extends
 ``FleetMeshView`` with per-host masks and global→local device index
 translation, so ``launch.sharding.shard_bounds`` can partition a global
 batch while each host executes only its owned slice.
 
-The process runtime waits for the multi-host slice (ROADMAP queue 1 item
-9: ``torch.distributed`` with gloo on the CPU and NCCL on the GPU, a
-``TCPStore`` under the coordinator): ``initialize_runtime``,
-``DistributedRuntime``, ``KVCoordinator``, ``coordination_client_errors``,
-``HostTopology.current`` and ``HostView.local_submesh``.
+``initialize_runtime`` wraps ``torch.distributed.init_process_group`` over
+a ``TCPStore`` served by rank 0, with the collective backend an explicit
+argument: ``gloo`` for CPU tensors (and for several ranks sharing one
+card, which NCCL refuses), ``nccl`` when each rank owns its own card.
 """
-
 from __future__ import annotations
 
 import hashlib
 import json
+import random
+import time
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.core.routing import FleetPlan
-from repro_torch.launch.mesh import FleetMeshView, cuda_devices
+from repro_torch.launch.mesh import FleetMeshView, Mesh, _mesh, cuda_devices
 from repro_torch.launch.sharding import shard_bounds
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.logging import get_logger, set_host
 from repro_torch.viscosity.lang import HW, SW
+
+log = get_logger("launch.distributed")
 
 # Event kinds, mirroring the FleetPlan transitions (plus host loss, which
 # expands to one with_host_fault transition over the host's device block).
@@ -45,6 +57,88 @@ DEVICE = "device"
 RECOVER = "recover"
 HOST = "host"
 EVENT_KINDS = (STAGE, DEVICE, RECOVER, HOST)
+
+
+# --------------------------------------------------------------- runtime
+@dataclass(frozen=True)
+class DistributedRuntime:
+    """What ``initialize_runtime`` established for this process."""
+
+    num_processes: int
+    process_id: int
+    coordinator_address: Optional[str] = None
+    backend: Optional[str] = None
+
+
+#: the store the process group was opened over (``KVCoordinator``'s
+#: default client); set by ``initialize_runtime``, process-wide as the
+#: process group itself is
+_STORE = None
+
+
+def _split_address(address: str) -> Tuple[str, int]:
+    host, sep, port = address.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(f"coordinator address must be 'host:port', got "
+                         f"{address!r}")
+    return host, int(port)
+
+
+def initialize_runtime(
+    coordinator_address: Optional[str] = None,
+    num_processes: int = 1,
+    process_id: int = 0,
+    *,
+    backend: Optional[str] = None,
+    timeout_s: float = 300.0,
+) -> DistributedRuntime:
+    """Wrap ``torch.distributed.init_process_group`` for the fleet runtime.
+
+    Rank 0 serves a ``TCPStore`` at ``coordinator_address`` ("host:port")
+    and every rank joins the process group over it; the same store carries
+    ``KVCoordinator``'s exchanges.  ``backend`` is the collective backend
+    and has no default: ``gloo`` for CPU tensors, ``nccl`` when each rank
+    owns its own card (NCCL refuses a GPU that two ranks share, so ranks
+    on one card use ``gloo`` on CPU tensors).  ``num_processes <= 1`` with
+    no coordinator address is the single-process no-op, so the same entry
+    point serves tests and real launches.  ``timeout_s`` bounds the
+    rendezvous and the store's blocking calls.
+    """
+    global _STORE
+    set_host(process_id)
+    if num_processes <= 1 and coordinator_address is None:
+        return DistributedRuntime(num_processes=1, process_id=0)
+    if backend is None:
+        raise ValueError("initialize_runtime needs an explicit backend: "
+                         "'gloo' (CPU tensors, or ranks sharing one card) "
+                         "or 'nccl' (one card per rank)")
+    if coordinator_address is None:
+        raise ValueError(f"{num_processes} processes need a coordinator "
+                         "address 'host:port'")
+    host, port = _split_address(coordinator_address)
+    timeout = timedelta(seconds=timeout_s)
+    store = dist.TCPStore(host, port, num_processes, process_id == 0,
+                          timeout=timeout)
+    dist.init_process_group(backend, store=store, world_size=num_processes,
+                            rank=process_id, timeout=timeout)
+    _STORE = store
+    return DistributedRuntime(
+        num_processes=dist.get_world_size(),
+        process_id=dist.get_rank(),
+        coordinator_address=coordinator_address,
+        backend=backend,
+    )
+
+
+def shutdown_runtime() -> None:
+    """Leave the process group ``initialize_runtime`` opened (a no-op
+    when none is open).  Rank 0 serves the store, so every rank's last
+    exchange must be done before rank 0 shuts down: end with one
+    ``KVCoordinator.exchange`` on every rank, then call this."""
+    global _STORE
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _STORE = None
 
 
 # -------------------------------------------------------------- topology
@@ -73,6 +167,24 @@ class HostTopology:
                 f"host_id {self.host_id} out of range for "
                 f"{self.num_hosts} host(s)"
             )
+
+    @classmethod
+    def current(cls, devices_per_host: Optional[int] = None) -> "HostTopology":
+        """The topology of the initialized ``torch.distributed`` runtime:
+        one host per rank.  ``devices_per_host`` defaults to the process's
+        CUDA device count; without a card it must be given."""
+        if not dist.is_initialized():
+            raise RuntimeError("torch.distributed is not initialized; call "
+                               "initialize_runtime() first")
+        if devices_per_host is None:
+            devices_per_host = torch.cuda.device_count()
+            if devices_per_host < 1:
+                raise RuntimeError(
+                    "this process sees no CUDA device: pass "
+                    "devices_per_host explicitly")
+        return cls(num_hosts=dist.get_world_size(),
+                   devices_per_host=devices_per_host,
+                   host_id=dist.get_rank())
 
     @property
     def n_devices(self) -> int:
@@ -193,6 +305,16 @@ class HostView(FleetMeshView):
                 f"{len(local)}: short {need + 1 - len(local)} device(s)"
             )
         return [local[self.topology.local_index(d)] for d in serving]
+
+    def local_submesh(self, axes: Sequence[str] = ("data",),
+                      devices=None) -> Mesh:
+        """1-D mesh over this host's serving devices only."""
+        devs = self.local_serving_devices(devices)
+        if not devs:
+            raise RuntimeError(
+                f"host {self.topology.host_id} has no serving devices "
+                f"(quarantined={self.quarantined})")
+        return _mesh((len(devs),), tuple(axes), devices=devs)
 
     def shard_bounds(self, n_items: int) -> Dict[int, Tuple[int, int]]:
         """Global-batch partition over the whole fleet mask, filtered to
@@ -377,6 +499,49 @@ class HostTimeoutError(RuntimeError):
         self.host_id = int(host_id)
 
 
+_CLIENT_ERRORS: Optional[Tuple[type, ...]] = None
+
+
+def coordination_client_errors() -> Tuple[type, ...]:
+    """Error types the store client raises (timeouts, disconnects,
+    missing keys).  Probed lazily because the taxonomy varies across torch
+    versions; ``RuntimeError`` is the floor every known client satisfies
+    (``DistStoreError`` and ``DistNetworkError`` derive from it where they
+    exist).  This is the *only* exception set coordination code may catch
+    broadly — anything outside it is a genuine bug and must propagate."""
+    global _CLIENT_ERRORS
+    if _CLIENT_ERRORS is None:
+        errs: List[type] = [RuntimeError]
+        for name in ("DistStoreError", "DistNetworkError"):
+            err = getattr(dist, name, None)
+            if isinstance(err, type) and issubclass(err, Exception):
+                errs.append(err)
+        _CLIENT_ERRORS = tuple(dict.fromkeys(errs))
+    return _CLIENT_ERRORS
+
+
+class StoreClient:
+    """A ``torch.distributed`` store behind the key-value client interface
+    ``KVCoordinator`` speaks (the reference's coordination-service
+    client): set, a get that blocks at most ``timeout_ms``, delete.  A get
+    first waits on the key with the attempt's budget, because the store's
+    own ``get`` of a missing key blocks for the store's whole timeout."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def key_value_set(self, key: str, value: str) -> None:
+        self.store.set(key, value)
+
+    def blocking_key_value_get(self, key: str, timeout_ms: int) -> str:
+        self.store.wait([key], timedelta(milliseconds=max(int(timeout_ms),
+                                                          1)))
+        return self.store.get(key).decode()
+
+    def key_value_delete(self, key: str) -> None:
+        self.store.delete_key(key)
+
+
 class LocalCoordinator:
     """The trivial single-host transport (exchange = identity)."""
 
@@ -385,6 +550,136 @@ class LocalCoordinator:
 
     def exchange(self, payload: str) -> List[str]:
         return [payload]
+
+
+class KVCoordinator:
+    """All-to-all string exchange over the runtime's key-value store.
+
+    The transport is ``initialize_runtime``'s ``TCPStore`` (through
+    ``StoreClient``), so fleet coordination never depends on device
+    collectives.  Every call advances a round counter shared by
+    construction (hosts make the same deterministic sequence of
+    exchanges), giving each exchange a fresh key under ``namespace``,
+    which keeps them apart from the process group's own keys in the same
+    store.  ``client`` may be any object with ``StoreClient``'s three
+    methods (the chaos layer's ``StallingKVClient``).
+    """
+
+    def __init__(
+        self,
+        num_hosts: Optional[int] = None,
+        host_id: Optional[int] = None,
+        *,
+        client=None,
+        timeout_ms: int = 120_000,
+        attempt_timeout_ms: int = 5_000,
+        max_attempts: int = 6,
+        backoff_base_s: float = 0.05,
+        backoff_factor: float = 2.0,
+        namespace: str = "fleet",
+    ):
+        if (num_hosts is None or host_id is None or client is None) and (
+                _STORE is None or not dist.is_initialized()):
+            raise RuntimeError(
+                "torch.distributed is not initialized; call "
+                "initialize_runtime() first"
+            )
+        self.num_hosts = dist.get_world_size() if num_hosts is None \
+            else num_hosts
+        self.host_id = dist.get_rank() if host_id is None else host_id
+        if client is None:
+            client = StoreClient(_STORE)
+        if max_attempts < 1:
+            raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
+        self._client = client
+        self._timeout_ms = timeout_ms
+        self._attempt_timeout_ms = attempt_timeout_ms
+        self._max_attempts = max_attempts
+        self._backoff_base_s = backoff_base_s
+        self._backoff_factor = backoff_factor
+        self._namespace = namespace
+        self._round = 0
+        self._dead: set = set()
+
+    def mark_dead(self, host: int) -> None:
+        """Stop waiting on ``host``: the fleet layer calls this after it
+        converted the peer's ``HostTimeoutError`` into a host-fault
+        event.  The dead peer's slot in every later exchange is ``None``
+        (consumers skip it) — the survivors keep lockstep rounds without
+        re-paying the retry budget each step."""
+        self._dead.add(int(host))
+
+    def _get_with_retry(self, key: str, peer: int, round_idx: int) -> str:
+        """Bounded retries with jittered exponential backoff under the
+        overall ``timeout_ms`` deadline.  A peer that never publishes
+        surfaces as a typed ``HostTimeoutError(host_id)`` after at most
+        ``max_attempts`` short gets — not one opaque 120 s block."""
+        deadline = time.monotonic() + self._timeout_ms / 1000.0
+        # Deterministically seeded jitter: distinct per (round, peer,
+        # self) so hosts don't thundering-herd the store in sync.
+        rng = random.Random(round_idx * 1009 + peer * 31 + self.host_id)
+        last: Optional[BaseException] = None
+        attempts = 0
+        for attempt in range(self._max_attempts):
+            remaining_ms = int((deadline - time.monotonic()) * 1000)
+            if remaining_ms <= 0:
+                break
+            attempts += 1
+            budget = min(self._attempt_timeout_ms, remaining_ms)
+            try:
+                return self._client.blocking_key_value_get(f"{key}/{peer}", budget)
+            except coordination_client_errors() as e:
+                last = e
+                obs_metrics.inc("kv_retries_total", op="get")
+                obs_metrics.set_gauge("coord_attempt_timeout_seconds",
+                                      budget / 1000.0, host=str(peer))
+                if attempt + 1 >= self._max_attempts:
+                    break
+                backoff = min(
+                    self._backoff_base_s * self._backoff_factor**attempt,
+                    max(0.0, deadline - time.monotonic()),
+                )
+                if backoff > 0:
+                    time.sleep(backoff * (0.5 + rng.random()))
+        obs_metrics.inc("coord_timeouts_total", host=str(peer))
+        log.warning("host_timeout", host=peer, round=round_idx,
+                    attempts=attempts)
+        raise HostTimeoutError(
+            peer,
+            f"host {peer} did not publish round {round_idx} within "
+            f"{attempts} attempt(s) (budget {self._max_attempts} x "
+            f"{self._attempt_timeout_ms} ms, deadline {self._timeout_ms} ms)",
+        ) from last
+
+    def exchange(self, payload: str) -> List[Optional[str]]:
+        r = self._round
+        self._round += 1
+        key = f"{self._namespace}/x{r}"
+        self._client.key_value_set(f"{key}/{self.host_id}", payload)
+        out: List[Optional[str]] = []
+        for h in range(self.num_hosts):
+            if h == self.host_id:
+                out.append(payload)
+            elif h in self._dead:
+                out.append(None)
+            else:
+                out.append(self._get_with_retry(key, h, r))
+        # Garbage-collect this host's key from two rounds back: rounds
+        # are lockstep (every host makes the same exchange sequence), so
+        # a peer still reading round r-1 has finished r-2 entirely —
+        # deleting r-2 can never race a reader.  Without this the
+        # store accumulates one key per host per step
+        # for the life of the runtime.  Cleanup is best-effort, but only
+        # for the *client's* error taxonomy — anything else is a real
+        # bug and propagates.
+        if r >= 2 and hasattr(self._client, "key_value_delete"):
+            try:
+                self._client.key_value_delete(
+                    f"{self._namespace}/x{r - 2}/{self.host_id}"
+                )
+            except coordination_client_errors() as e:
+                log.debug("kv_gc_failed", round=r - 2, error=str(e))
+        return out
 
 
 class EventChannel:

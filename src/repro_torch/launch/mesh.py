@@ -1,17 +1,23 @@
-"""The fleet-health device view (the port's ``launch/mesh.py``).
+"""Device meshes and the fleet-health device view (the port's
+``launch/mesh.py``).
 
 ``FleetMeshView`` is the fleet layer's device view: a ``FleetPlan``'s
 explicit health mask (serving / quarantined / idle-spare) applied to a
 list of ``torch.device``s, so schedulers only ever place work on devices
-that are taking traffic.
+that are taking traffic, and ``submesh`` only ever builds meshes over
+serving hardware.
 
-The reference's mesh builders (``make_mesh``, ``make_production_mesh``,
-``FleetMeshView.submesh``) make ``jax.sharding.Mesh`` objects; their
-counterpart is a ``torch.distributed`` ``DeviceMesh``, which waits for the
-multi-host slice (ROADMAP queue 1 item 9).
+``Mesh`` is the counterpart of the reference's ``jax.sharding.Mesh``: a
+frozen ``(shape, axes, devices)`` grid.  A ``torch.distributed``
+``DeviceMesh`` needs one rank per device, but the port's fleet drives
+several logical devices from one process and runs no SPMD program, so
+the mesh is plain bookkeeping over ``torch.device``s.  The reference's
+``make_production_mesh`` (the TPU pod shapes) belongs with the XLA-only
+tooling (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -22,6 +28,43 @@ def cuda_devices() -> List[torch.device]:
     """Every CUDA device of this process, in index order (empty without
     CUDA)."""
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A named device grid: ``devices`` in row-major order over
+    ``shape``, one axis name per dimension."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"mesh shape {self.shape} has {len(self.shape)} "
+                             f"dim(s), axes {self.axes} name {len(self.axes)}")
+        if math.prod(self.shape) != len(self.devices):
+            raise ValueError(f"mesh {self.shape} holds "
+                             f"{math.prod(self.shape)} device(s), given "
+                             f"{len(self.devices)}")
+
+
+def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+          devices: Optional[Sequence[torch.device]] = None) -> Mesh:
+    n = math.prod(shape)
+    devices = list(cuda_devices() if devices is None else devices)
+    if len(devices) < n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} devices, have {len(devices)}: short "
+            f"{n - len(devices)} device(s)")
+    return Mesh(tuple(shape), tuple(axes), tuple(devices[:n]))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              devices: Optional[Sequence[torch.device]] = None) -> Mesh:
+    """Arbitrary mesh over ``devices`` (default: every CUDA device of this
+    process); the error names the shortfall."""
+    return _mesh(tuple(shape), tuple(axes), devices)
 
 
 @dataclass(frozen=True)
@@ -68,3 +111,21 @@ class FleetMeshView:
                 f"{len(devices)}: short {self.n_devices - len(devices)} "
                 "device(s)")
         return [devices[i] for i in self.serving()]
+
+    def submesh(self, axes: Sequence[str] = ("data",), *, model: int = 1,
+                devices: Optional[Sequence[torch.device]] = None) -> Mesh:
+        """Health-masked mesh over the serving devices only.
+
+        1-D by default (pure data parallel); ``model > 1`` folds the
+        serving devices into a (data, model) grid — serving count must be
+        divisible, and the error names the shortfall."""
+        devs = self.serving_devices(devices)
+        n = len(devs)
+        if model > 1:
+            if n % model:
+                raise RuntimeError(
+                    f"{n} serving device(s) do not fold into model={model} "
+                    f"groups: short {model - n % model} device(s) (or "
+                    f"quarantine {n % model} more)")
+            return _mesh((n // model, model), tuple(axes), devices=devs)
+        return _mesh((n,), tuple(axes), devices=devs)

@@ -2,9 +2,9 @@
 
 Only ``shard_bounds`` is ported: it is plain Python over a fleet's health
 mask.  The reference's logical-axis rules (``axis_rules``, ``resolve``,
-``constrain``, ``named_sharding``) are JAX mesh tooling; they wait for the
-multi-host slice and the XLA-only tooling (ROADMAP queue 1 items 9 and
-14).
+``constrain``, ``named_sharding``) are JAX mesh tooling for SPMD programs,
+which the port's data-parallel fleet does not run; they belong with the
+XLA-only tooling (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 

@@ -115,3 +115,63 @@ def test_train_phase_on_the_cpu(monkeypatch, tmp_path):
     assert entry["T4"]["poison"]["serving"] == [0, 2]
     assert entry["T5"]["loss_rel"] == 0.0
     assert list(tmp_path.iterdir()) == []
+
+
+def test_chaos_phase_on_the_cpu(monkeypatch, tmp_path):
+    """``chaos_phase`` (phase 10: ``run_campaign`` on route hw, its
+    telemetry rendered by ``python -m repro_torch.obs.report``) at the
+    reduced width with the full vocabulary (the campaign's request draws
+    depend on it), so the campaigns take the card's schedule: every check
+    it makes on the card passes, the serve and closure campaigns launch
+    attention and SwiGLU, training and the checksum launch nothing."""
+    counters = {name: types.SimpleNamespace(launches=0)
+                for name in ("checksum", "flash_attention", "swiglu_mlp")}
+
+    def counted(fn, name):
+        def call(*a, **kw):
+            counters[name].launches += 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(attention_ops, "flash_attention_bhsd", counted(
+        attention_ops.flash_attention_bhsd, "flash_attention"))
+    monkeypatch.setattr(swiglu_ops, "swiglu_fused", counted(
+        swiglu_ops.swiglu_fused, "swiglu_mlp"))
+    from repro_torch.models import build_model, compute_params
+    full = get_config("qwen1.5-4b")
+    cfg = dataclasses.replace(get_config("qwen1.5-4b-smoke"),
+                              vocab_size=full.vocab_size)
+    params = compute_params(build_model(cfg).init(0, device="cpu"),
+                            torch.bfloat16)
+    entry, launches = chip_smoke.chaos_phase(cfg, torch.device("cpu"),
+                                             counters, params,
+                                             workdir=tmp_path)
+    assert launches["checksum"] == 0
+    assert launches["flash_attention"] > 0 and launches["swiglu_mlp"] > 0
+    assert entry["sections"]["train"]["launches"] == {
+        "checksum": 0, "flash_attention": 0, "swiglu_mlp": 0}
+    assert entry["invariants"] == {"ok": True, "failed": []}
+    assert entry["events_total"] == 3 + 3 + 2 + 1
+    # the card's schedule and launches (python3 chip_smoke.py on an H100):
+    # a serve mode ran 31 attention prefills of 40 layers plus 2 canary
+    # probes (1,242 launches) and 80 SwiGLU calls plus 3 probes (3,203);
+    # the closure 27 and 66 calls (1,080 and 2,640)
+    L = cfg.num_layers
+    for mode in ("recompile", "resident"):
+        row = entry[f"serve_{mode}"]
+        assert [e["kind"] for e in row["schedule"]] == \
+            ["lane_fault", "transient_stage", "coord_stall"]
+        assert all(row["invariants"].values())
+        assert row["traffic"] == {
+            "requests": 30, "completed": 30, "expired": 0, "requeued": 1,
+            "throughput_tok_s": 112.41, "virtual_time_s": 1.45}
+        assert row["quarantined"] == [1]
+        assert entry["sections"][f"serve_{mode}"]["launches"] == {
+            "checksum": 0, "flash_attention": 31 * L + 2,
+            "swiglu_mlp": 80 * L + 3}
+    assert entry["sections"]["closure"]["launches"] == {
+        "checksum": 0, "flash_attention": 27 * L, "swiglu_mlp": 66 * L}
+    assert (entry["closure"]["measured_ratio"],
+            entry["closure"]["analytic_ratio"]) == (0.4881, 0.5)
+    assert entry["train"]["quarantined"] == [0, 1]
+    assert entry["train"]["guard_trips"] == 1
+    assert list(tmp_path.iterdir()) == []

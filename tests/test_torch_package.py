@@ -46,7 +46,9 @@ def test_import_leaves_no_jax_or_reference_module():
         "       'repro_torch.serve.frontend', 'repro_torch.optim.adamw',\n"
         "       'repro_torch.optim.compression', 'repro_torch.data.pipeline',\n"
         "       'repro_torch.checkpoint.manager', 'repro_torch.train.runner',\n"
-        "       'repro_torch.launch.train']\n"
+        "       'repro_torch.launch.train', 'repro_torch.obs.report',\n"
+        "       'repro_torch.chaos.schedule', 'repro_torch.chaos.invariants',\n"
+        "       'repro_torch.chaos.campaign']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -116,6 +118,15 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         opt_state_from_jax(optim.AdamWState(np.zeros((), np.int32), {}, {}))
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--steps", "1"])
+    from repro_torch.chaos.campaign import (closure_scenario, run_campaign,
+                                            serve_campaign, train_campaign)
+    from repro_torch.launch.mesh import make_mesh
+    for campaign in (serve_campaign, closure_scenario, train_campaign,
+                     run_campaign):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            campaign(0)
+    with pytest.raises(RuntimeError, match="short 1 device"):
+        make_mesh((1,), ("data",))     # the default devices are the cards
     assert repro_torch.resolve_device("cpu").type == "cpu"
 
 
