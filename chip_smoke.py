@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, multi-process fleet and
-chaos paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, multi-process fleet, chaos
+and model-zoo paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -12,7 +12,9 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              shared memory, stack and spills from ``-Xptxas -v`` (and
              whether ptxas serialized its wgmma: C7510-C7520), and hold each
              SwiGLU ring's and each attention plan's dynamic shared memory
-             (every shape this run launches) against the Python plan's, and
+             (every shape this run launches, phase 11's SwiGLU at
+             5120 -> 14336 for M = 1-128 and its attention prompts
+             included) against the Python plan's, and
              each WKV and SSD launch plan (grids, group size, scratch,
              shared memory; the parity cases and every serving prompt
              length) against the compiled library's;
@@ -55,13 +57,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              GQA 8 -> 2), window 40 without a softcap at D = 64 (B = 2,
              GQA 8 -> 2; and H = 32 over P = 1000, two warpgroups), window
              300 over P = 1000, a non-causal cross call
-             (Sq = 64, Skv = 192), GQA 32 -> 8 at D = 128 and a narrow
-             Dv = 126 (the pad path); and its bits: two calls, the
+             (Sq = 64, Skv = 192), GQA 32 -> 8 at D = 128, a narrow
+             Dv = 126 (the pad path), and phase 11's prefills (GQA
+             32 -> 8 at P = 16 and 128, the same under a 4096 window at
+             P = 128 and over mixtral-8x7b's 4200-token ring prompt, GQA
+             40 -> 8 at P = 16 and 128); and its bits: two calls, the
              contiguous (B, H, S, D) copies and ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
              zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
              sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
-             x (64, 128) x (128, 64)), then SwiGLU's bits: each row of an
+             x (64, 128) x (128, 64); mistral-nemo-12b 5120 -> 14336: M in
+             {4, 16, 128}), then SwiGLU's bits: each row of an
              M = 4 row-independent call equals that row alone, and two
              runs agree, at decode and at prefill;
 3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
@@ -134,7 +140,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              function (a yardstick the port never calls), the bound from
              this run's shapes (attention also at zamba2-1.2b's prefill
              shape and at qwen1.5-4b P = 2048; the checksum over 1 GiB of
-             bf16 and over the 64-byte AES canary; attention, SwiGLU, the
+             bf16 and over the 64-byte AES canary; attention also at
+             mistral-nemo-12b's and llama4-scout's P = 128 and mixtral-8x7b's
+             P = 4200 under its window, SwiGLU at mistral-nemo-12b's M = 4
+             and 128; attention, SwiGLU, the
              SSD (also on the model's strided views, where the profiler
              must see no kernel but the SSD's: no copy) and the WKV also
              the profiler's device time a call, kernel by kernel, the
@@ -211,17 +220,42 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              repro_torch.obs.report``, whose MTTR and goodput must equal
              the campaigns' own summaries (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
+11. zoo    — mistral-nemo-12b (40 of 40 layers), mixtral-8x7b (8 of 32:
+             8 experts top-2, a 4096-token window on every layer) and
+             llama4-scout-17b-a16e (6 of 48: 16 experts top-1 and a
+             shared expert) at full width, each built (weights drawn
+             straight into bf16), served and freed in turn, its peak
+             memory printed.  Each goes through phases 4-5 and its serve
+             times as above (``serve_path``): 6 requests of 16-128 prompt
+             tokens and 8-16 new on 4 slots, the fault on ``swiglu_mlp``
+             (mistral) or ``flash_attention`` (the MoE models, which have
+             no SwiGLU stage); per prefill one attention launch a layer
+             and for mistral one SwiGLU launch a layer per prefill and per
+             tick.  For the MoE models the HW route changes only
+             attention, but bf16 drift can flip a near-tied router choice:
+             every layer's top-k choice is recorded on both routes, end to
+             end and layer by layer from the same input; with no flip end
+             to end the 5% logits bound holds, and layer by layer each
+             attention must hold 5% and every flipped token's router
+             margin lie below the largest probability drift on the tokens
+             that did not flip.  mixtral's ring: one request of 4200
+             prompt tokens and 8 new at max_len 4224 (a 4096-slot cache),
+             the SW engine bit-identical to ``reference_decode``, the
+             P = 4200 HW prefill timed (rehearsed on the CPU by
+             ``test_torch_chip_smoke.py``).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
-case studies, the fleet runs, the two ranks of phase 9 and the chaos
-campaigns); the last line is ``{"ok": true, "device": {...}}``.  Details
+case studies, the fleet runs, the two ranks of phase 9, the chaos
+campaigns, and each phase-11 model's serve and mixtral's ring prefill);
+the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -259,6 +293,15 @@ ATTN_CASES = (
     (2, 64, 192, 8, 8, 128, 128, dict(causal=False)),
     (1, 256, 256, 32, 8, 128, 128, dict(causal=True)),
     (1, 128, 128, 20, 20, 128, 126, dict(causal=True)),
+    # phase 11's prefills: mistral-nemo-12b (GQA 32 -> 8) at P = 16 and
+    # 128, mixtral-8x7b (window 4096 on every layer) at P = 128 and over
+    # the 4200-token ring prompt, llama4-scout (GQA 40 -> 8) at 16 and 128
+    (1, 16, 16, 32, 8, 128, 128, dict(causal=True)),
+    (1, 128, 128, 32, 8, 128, 128, dict(causal=True)),
+    (1, 128, 128, 32, 8, 128, 128, dict(causal=True, window=4096)),
+    (1, 4200, 4200, 32, 8, 128, 128, dict(causal=True, window=4096)),
+    (1, 16, 16, 40, 8, 128, 128, dict(causal=True)),
+    (1, 128, 128, 40, 8, 128, 128, dict(causal=True)),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -293,6 +336,9 @@ SSD_CASES = ((1, 384, 64, 64, 64), (1, 2048, 64, 64, 64),
 # activations to bf16 at other points, so the logits drift apart by a few
 # bf16 ulps per layer; 5% of the largest logit bounds that drift.
 LOGITS_REL = 5e-2
+# spin kernels that open a traced serving step (see ``profile_serving``):
+# the profiler has lost up to 99 of a step's first device events
+WARM_SPINS = 1024
 FAULT_STEP = 4
 TRANSIENT_STEP = 2
 
@@ -374,7 +420,7 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
     slots: device time by kernel and the device's busy share of the traced
     wall time (the profiler's own overhead inflates the wall)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.viscosity import HW
@@ -391,20 +437,42 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
     result = {}
     for name, fn in phases.items():
         torch.cuda.synchronize()
+        # a trace can lose its first few dozen device events while the
+        # profiler starts up (an attention launch among them): a warm-up
+        # step goes first, and the reported step opens with spin kernels
+        # and a pause, which take that loss and are left out of the rows
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(WARM_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+            prof.step()
         # device-side events only (kernels, copies): a CPU op's own
-        # "self device time" would count its kernels a second time
+        # "self device time" would count its kernels a second time, and
+        # the step's own annotation spans the whole step on the device
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")]
+        spins = sum(n for k, _, n in rows if "spin_kernel" in k)
+        check(spins > 0, f"{cfg.name} {name}: the profiler lost all "
+              f"{WARM_SPINS} warm-up spins, so the step's own first device "
+              "events may be lost too")
+        rows = sorted((r for r in rows if r[1] > 0 and "spin_kernel"
+                       not in r[0]), key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
         result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                        "warm_spins_kept": spins,
                         "idle_share": (1.0 - busy_ms / wall_ms
                                        if busy_ms else None),
                         "kernels": sum(r[2] for r in rows),
@@ -441,7 +509,8 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                       f"{result[name][op + '_calls']} calls "
                       f"({result[name][op + '_kernels']} kernels); "
                       for op in ("wkv", "ssd") if result[name][op + "_calls"])
-            + f"{result[name]['copy_kernels']} copy kernels"
+            + f"{result[name]['copy_kernels']} copy kernels; "
+            f"{spins} of {WARM_SPINS} warm-up spins kept"
             + "".join(f"\n[profile]   {ms:.3f} ms x{n} {k[:70]}"
                       for k, ms, n in rows[:8]))
     sess.close()
@@ -1560,6 +1629,551 @@ def chaos_phase(cfg, dev, wrappers, params, *, seed: int = CHAOS_SEED,
     return entry, launches
 
 
+def canary_phase(cfg, dev):
+    """Every healthy canary stage passes on HW; each lane-fault kind
+    (armed at the canary's width) fails it."""
+    from repro_torch.chaos import CANARY_WIDTHS
+    from repro_torch.core import CanaryChecker
+    from repro_torch.train.runner import canary_stages
+    from repro_torch.viscosity import HW, SW, lanefault
+    from repro_torch.viscosity.lanefault import KINDS, LaneFault
+
+    stages = canary_stages(cfg, device=dev)
+    chk = CanaryChecker(stages, route_hw=HW)
+    margins = {}
+    for st in stages:
+        args = st.canary_inputs(0)
+        sw = st.run(*args, route=SW)
+        d = CanaryChecker.max_diff(st.run(*args, route=HW), sw)
+        healthy = chk.check_stage(st)
+        caught = {}
+        for kind in KINDS:
+            with lanefault.inject(st.name, LaneFault(
+                    kind, (1,), CANARY_WIDTHS[st.name])):
+                caught[kind] = not chk.check_stage(st)
+        margins[st.name] = {"max_abs_hw_sw": d, "tol": st.tol,
+                            "max_abs_sw": sw.float().abs().max().item(),
+                            "faults_caught": caught}
+        out(f"[canary] {cfg.name} {st.name}: healthy max|hw-sw| {d:.3e} "
+            f"(tol {st.tol:g}, max|sw| "
+            f"{margins[st.name]['max_abs_sw']:.3f}) "
+            f"{'pass' if healthy else 'FAIL'}; lane faults caught "
+            f"{caught}")
+        check(healthy and d <= st.tol,
+              f"{cfg.name} {st.name}: the healthy canary fails on HW")
+        check(all(caught.values()),
+              f"{cfg.name} {st.name}: a lane fault passed the canary")
+    return margins
+
+def init_weights(cfg, dev, *, f32: bool = False):
+    """Seeded random weights of ``cfg`` on ``dev`` in bf16, drawn leaf by
+    leaf and cast at once (``LMModel.init(dtype=...)``: the peak is the
+    bf16 tree and one f32 leaf); with ``f32`` the float32 tree is drawn,
+    kept and cast (the same bf16 values).  Returns (bf16 params, float32
+    params or None, seconds)."""
+    import torch
+
+    from repro_torch.models import build_model, compute_params
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if f32:
+        params32 = model.init(gen, device=dev)
+        params = compute_params(params32, torch.bfloat16)
+    else:
+        params32 = None
+        params = model.init(gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return params, params32, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def router_record():
+    """Record each MoE FFN call's router probabilities (the f32 (B, S, E)
+    softmax that ``moe_ffn`` computes from its input) in call order: one
+    entry a layer in a prefill."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    probs, ffn = [], moe_mod.moe_ffn
+
+    def recording(p, x, **kw):
+        probs.append(torch.softmax(x.float() @ p["router"], dim=-1))
+        return ffn(p, x, **kw)
+    moe_mod.moe_ffn = recording
+    try:
+        yield probs
+    finally:
+        moe_mod.moe_ffn = ffn
+
+
+def choice_flips(cfg, probs_hw, probs_sw):
+    """Per layer, the tokens whose top-k expert choice differs between the
+    HW and the SW route's router probabilities: their count, the SW
+    router's margin at each (the k-th against the (k+1)-th probability),
+    and the largest probability drift between the routes on the tokens
+    whose choice agrees."""
+    from repro_torch.models.moe import _top_k
+    k = cfg.moe.top_k
+    flips, margins, drift = 0, [], 0.0
+    for ph, ps in zip(probs_hw, probs_sw):
+        ih = _top_k(ph, k)[1].sort(-1).values
+        vs, is_ = _top_k(ps, k + 1)
+        flip = (ih != is_[..., :k].sort(-1).values).any(-1)
+        flips += int(flip.sum())
+        margins += (vs[..., k - 1] - vs[..., k])[flip].tolist()
+        if bool((~flip).any()):
+            drift = max(drift, (ph - ps).abs()[~flip].max().item())
+    return {"flips": flips, "margins": margins, "drift": drift,
+            "layers": len(probs_sw)}
+
+
+def router_teacher_forced(cfg, params, prompt):
+    """Layer by layer from the SW route's activations (teacher-forced):
+    each layer's attention on the HW and on the SW route from the same
+    input, its largest difference relative to the largest SW output; and
+    the router's probabilities after each route's attention (the same
+    residual and norm the block feeds the MoE FFN), for ``choice_flips``.
+    Each layer then continues from the SW block's output."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import blocks as B
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as Lm
+    from repro_torch.models import rope as rope_mod
+    from repro_torch.viscosity import HW, SW
+
+    model = build_model(cfg)
+    x = model._embed_in(params, prompt)
+    rope = model._rope(rope_mod.positions_default(1, prompt.shape[1],
+                                                  x.device))
+    kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim, window=model.meta.window,
+              softcap=cfg.attn_softcap, scale=cfg.attn_scale, causal=True,
+              kv_chunk=cfg.attn_chunk)
+
+    def layer(tree, i):
+        return ({k: layer(v, i) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[i])
+    probs, worst = {HW: [], SW: []}, 0.0
+    for i in range(cfg.num_layers):
+        p = layer(params["layers"], i)
+        h = Lm.norm(p["ln1"], x, eps=cfg.norm_eps)
+        att = {r: attn_mod.attn_full(p["attn"], h, *rope, route=r, **kw)
+               for r in (HW, SW)}
+        worst = max(worst, (att[HW] - att[SW]).float().abs().max().item()
+                    / att[SW].float().abs().max().item())
+        for r in (HW, SW):
+            hr = Lm.norm(p["ln2"], x + att[r], eps=cfg.norm_eps)
+            probs[r].append(torch.softmax(hr.float() @ p["moe"]["router"],
+                                          dim=-1))
+        x = B.attn_block(p, x, cfg, model.meta, rope,
+                         {"flash_attention": SW})[0]
+    return probs, worst
+
+
+def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
+               per_prefill, per_tick, prefill_len, *, params32=None,
+               logits_check=None):
+    """Phases 4 and 5 for one model on ``params`` (bf16), then its
+    end-to-end times (a prefill of ``prefill_len`` tokens, a healthy serve,
+    the profiler); returns (its report entry, each kernel's launches in
+    the serve runs, probes included).  ``logits_check(cfg, params,
+    params32, prompt, last)`` replaces the bound on HW against SW prefill
+    logits for a model that amplifies bf16 rounding (see ``rwkv_logits``
+    in ``main``).  For an MoE model every layer's router choice is
+    recorded on both routes, end to end and layer by layer from the same
+    input (``router_teacher_forced``): where none flips end to end, the 5%
+    bound holds; layer by layer, each attention holds 5% and every flipped
+    token's router margin must lie below the largest probability drift
+    between the routes on the tokens that did not flip (a near tie, which
+    bf16 drift may break either way)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import ChaosCanary, canary_fault
+    from repro_torch.core import CanaryChecker
+    from repro_torch.core.fault import (PERSISTENT, TRANSIENT_RECOVERED,
+                                        FaultClassifier)
+    from repro_torch.kernels.checksum import checksum_tree, checksum_tree_ref
+    from repro_torch.models import build_model
+    from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig,
+                                   ServeEngine, percentile, reference_decode,
+                                   synthetic_workload)
+    from repro_torch.train.runner import canary_stages, model_stage_names
+    from repro_torch.viscosity import HW, SW
+    from repro_torch.viscosity.lang import tree_leaves
+
+    entry = {"canaries": canary_phase(cfg, dev)}
+    out(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}")
+    # checksum_tree over the parameters against the plain fold
+    leaves = tree_leaves(params)
+    got, want = checksum_tree(params), checksum_tree_ref(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    entry["checksum_tree"] = {
+        "value": got, "leaves": len(leaves), "bytes": nbytes,
+        "ms": time_ms(torch, lambda: checksum_tree(params), 3)}
+    out(f"[parity] checksum_tree over {cfg.name}'s {len(leaves)} "
+        f"parameter leaves ({nbytes / 2**30:.2f} GiB): {got} (plain "
+        f"fold {want}) in {entry['checksum_tree']['ms']:.2f} ms")
+    check(got == want, f"{cfg.name}: checksum_tree disagrees with the "
+          "plain fold")
+    reqs = synthetic_workload(cfg.vocab_size, 6,
+                              np.random.default_rng(0), **workload)
+    max_len = workload["max_prompt"] + workload["max_new"]
+    stages = model_stage_names(cfg)
+    for w in wrappers.values():      # counts of this path's run only
+        w.launches = 0
+    runs = {}
+    for mode in (RECOMPILE, RESIDENT):
+        canary = ChaosCanary(CanaryChecker(canary_stages(cfg, device=dev),
+                                           route_hw=HW))
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_len=max_len, max_slots=4, hw_route=HW, failover=mode),
+            device=dev, classifier=FaultClassifier(canary))
+        before = {s: wrappers[s].launches for s in stages}
+        want = dict.fromkeys(stages, 0)
+        probe = dict.fromkeys(stages, 0)   # the canary probes' launches
+        before_fault = 0
+        healthy_plan = eng.plan()
+
+        def observe(step, fails):
+            """A detection on the fault stage at ``step``, its canary
+            armed to fail ``fails`` probes (None: every probe)."""
+            n0 = {s: wrappers[s].launches for s in stages}
+            canary.arm(fault_stage, canary_fault(fault_stage),
+                       fails=fails)
+            transient = eng.observe_fault(fault_stage, step=step)
+            canary.disarm(fault_stage)
+            for s in stages:
+                probe[s] += wrappers[s].launches - n0[s]
+            return transient
+
+        sess = eng.session()
+        for r in reqs:
+            sess.submit(r)
+        t_start = time.perf_counter()
+        while sess.pending():
+            if sess.step_count == TRANSIENT_STEP:
+                builds = (eng._prefill.compiles, eng._decode.compiles)
+                check(observe(TRANSIENT_STEP, 1), f"{cfg.name} {mode}: "
+                      "the transient episode was not transient")
+                check(eng.fault_state.log[-1]["kind"]
+                      == TRANSIENT_RECOVERED and eng.plan()
+                      == healthy_plan and all(eng.health_mask()),
+                      f"{cfg.name} {mode}: the transient episode left "
+                      "the HW route")
+            if sess.step_count == TRANSIENT_STEP + 1:
+                check((eng._prefill.compiles, eng._decode.compiles)
+                      == builds, f"{cfg.name} {mode}: the transient "
+                      "episode built a model")
+            if sess.step_count == FAULT_STEP:
+                before_fault = wrappers[fault_stage].launches - \
+                    before[fault_stage] - probe[fault_stage]
+                check(not observe(FAULT_STEP, None)
+                      and eng.fault_state.log[-1]["kind"] == PERSISTENT
+                      and eng.fault_state.is_faulty(fault_stage),
+                      f"{cfg.name} {mode}: the hard fault was not "
+                      "persistent")
+            admitted = sess.stats["admitted"]
+            healthy = {s: not eng.fault_state.is_faulty(s)
+                       for s in stages}
+            tick = sess.step()
+            for s in stages:
+                if healthy[s]:
+                    want[s] += per_prefill[s] * (
+                        sess.stats["admitted"] - admitted) + \
+                        per_tick[s] * (1 if tick["active"] else 0)
+        wall = time.perf_counter() - t_start
+        stats = sess.close()
+        done = {c.rid: c for c in sess.poll()}
+        got = {s: wrappers[s].launches - before[s] - probe[s]
+               for s in stages}
+        verdicts = [e["kind"] for e in eng.fault_state.log
+                    if e["kind"] in (TRANSIENT_RECOVERED, PERSISTENT)]
+        out(f"[serve] {cfg.name} {mode}: {len(done)}/{len(reqs)} done "
+            f"in {stats['steps']} steps, {wall:.2f} s; recompiles "
+            f"{stats['recompiles']}; launches {got} (want {want}) and "
+            f"{probe} by the canary probes; verdicts {verdicts}; "
+            f"{fault_stage} launches before the step-{FAULT_STEP} "
+            f"fault {before_fault}")
+        check(probe == {s: 5 if s == fault_stage else 0 for s in stages},
+              f"{cfg.name} {mode}: probe launches {probe}, want 2 + 3 "
+              f"on {fault_stage}")
+        check(sorted(done) == sorted(r.rid for r in reqs),
+              f"{cfg.name} {mode}: not every request completed")
+        check(any(r.arrival >= FAULT_STEP for r in reqs),
+              f"{cfg.name}: no admission after the fault")
+        for r in reqs:
+            check(len(done[r.rid].tokens) == r.max_new_tokens,
+                  f"{cfg.name} {mode}: request {r.rid} is short")
+        check(stats["recompiles"] == (1 if mode == RECOMPILE else 0),
+              f"{cfg.name} {mode}: recompiles {stats['recompiles']}")
+        check(got == want and all(n > 0 for n in got.values()),
+              f"{cfg.name} {mode}: launches {got}, want {want}")
+        check(before_fault > 0, f"{cfg.name} {mode}: {fault_stage} "
+              "never launched before its fault")
+        runs[mode] = {r.rid: done[r.rid].tokens.tolist() for r in reqs}
+    check(runs[RECOMPILE] == runs[RESIDENT],
+          f"{cfg.name}: RECOMPILE and RESIDENT served different tokens")
+    counts = {s: wrappers[s].launches for s in stages + ["checksum"]}
+    check(counts["checksum"] == 0, f"{cfg.name}: the serve "
+          "launched the checksum (its stages compare with tol > 0)")
+    out(f"[serve] {cfg.name}: modes agree on "
+        f"{sum(map(len, runs[RESIDENT].values()))} tokens; launches "
+        f"{ {s: wrappers[s].launches for s in stages} }")
+
+    sw_reqs = reqs[:3]
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=max_len, max_slots=4, hw_route=SW), device=dev)
+    before = [w.launches for w in wrappers.values()]
+    done, _ = eng.serve(sw_reqs)
+    for r in sw_reqs:
+        ref = reference_decode(cfg, eng.params, r.prompt,
+                               r.max_new_tokens, max_len=max_len)
+        check(done[r.rid].tokens.tolist() == ref.tolist(),
+              f"{cfg.name} SW route: request {r.rid} differs from "
+              "reference_decode")
+    check([w.launches for w in wrappers.values()] == before,
+          f"{cfg.name}: the SW route launched a kernel")
+    out(f"[sw] {cfg.name}: {len(sw_reqs)} requests bit-identical to "
+        "reference_decode")
+    # the kernel route against the SW oracle at full width
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    prompt = torch.as_tensor(np.asarray(longest.prompt, np.int64),
+                             device=dev)[None]
+    last, probs = {}, {}
+    for route in (HW, SW):
+        m = build_model(cfg, routes={s: route for s in stages})
+        with router_record() as probs[route]:
+            logits, _ = m.prefill(params, {
+                "tokens": prompt, "cache": m.init_cache(1, max_len,
+                                                        device=dev)})
+        last[route] = logits[0, -1].float()
+        check(last[route].shape == (cfg.vocab_size,)
+              and bool(torch.isfinite(last[route]).all()),
+              f"{cfg.name} {route} prefill logits are not finite of "
+              "shape (vocab,)")
+    d = (last[HW] - last[SW]).abs().max().item()
+    rel = d / last[SW].abs().max().item()
+    out(f"[sw] {cfg.name} HW vs SW prefill logits (P="
+        f"{prompt.shape[1]}): max_abs {d:.3e} max_rel {rel:.3e} (tol "
+        f"rel {LOGITS_REL:g}); argmax {int(last[HW].argmax())} vs "
+        f"{int(last[SW].argmax())}")
+    entry["hw_vs_sw_logits"] = {"max_abs": d, "max_rel": rel,
+                                "prompt": prompt.shape[1]}
+    if logits_check is not None:
+        entry["logits_check"] = logits_check(cfg, params, params32,
+                                             prompt, last)
+        params32 = None
+    elif cfg.moe is not None:
+        # end to end, a flip's expert output moves its token far, and the
+        # tokens after it through attention, so later flips follow from
+        # it; from the same input, layer by layer, only the route differs
+        e2e = choice_flips(cfg, probs[HW], probs[SW])
+        tf_probs, attn_rel = router_teacher_forced(cfg, params, prompt)
+        tf = choice_flips(cfg, tf_probs[HW], tf_probs[SW])
+        entry["hw_vs_sw_logits"]["router"] = {
+            "end_to_end": e2e, "teacher_forced": tf,
+            "attention_worst_rel": attn_rel}
+        out(f"[sw] {cfg.name} router choices HW vs SW over "
+            f"{e2e['layers']} layers x {prompt.shape[1]} tokens: end to "
+            f"end {e2e['flips']} flipped; layer by layer from the same "
+            f"input {tf['flips']} flipped, margins there "
+            f"{[f'{m_:.3e}' for m_ in tf['margins']]}, largest probability "
+            f"drift on the others {tf['drift']:.3e}; attention HW vs SW "
+            f"worst max_rel {attn_rel:.3e} (tol {LOGITS_REL:g})")
+        check(e2e["layers"] == tf["layers"] == cfg.num_layers,
+              f"{cfg.name}: recorded {e2e['layers']} router calls, want "
+              f"{cfg.num_layers}")
+        check(attn_rel <= LOGITS_REL, f"{cfg.name}: a layer's HW "
+              "attention disagrees with the SW oracle")
+        check(all(m_ < tf["drift"] for m_ in tf["margins"]),
+              f"{cfg.name}: a router choice flipped where its margin "
+              "exceeds the routes' probability drift")
+        if not e2e["flips"]:
+            check(rel <= LOGITS_REL, f"{cfg.name}: HW route logits "
+                  "disagree with the SW oracle")
+    else:
+        check(rel <= LOGITS_REL,
+              f"{cfg.name}: HW route logits disagree with the SW oracle")
+
+    # end to end: prefill of the longest prompt, a healthy HW serve
+    hw_model = build_model(cfg, routes={s: HW for s in stages})
+    toks = torch.randint(0, cfg.vocab_size, (1, prefill_len),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    cache = hw_model.init_cache(1, max_len, device=dev)
+    prefill_ms = time_ms(torch, lambda: hw_model.prefill(
+        params, {"tokens": toks, "cache": cache}), 5)
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=max_len, max_slots=4, hw_route=HW), device=dev)
+    t0 = time.perf_counter()
+    done, stats = eng.serve(reqs)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(c.tokens) for c in done.values())
+    entry["serve"] = {
+        f"prefill_ms_P{toks.shape[1]}": prefill_ms,
+        "decode_tick_ms_median": 1e3 * percentile(stats["step_times"],
+                                                  0.5),
+        "tokens_per_s": n_tok / wall, "tokens": n_tok, "wall_s": wall,
+        "slots": 4, "requests": len(reqs)}
+    entry["profile"] = profile_serving(torch, cfg, hw_model, params,
+                                       toks, cache, reqs, max_len, dev)
+    if "flash_attention" in per_prefill:
+        calls = [ph["attention_launches"]
+                 for ph in entry["profile"].values()]
+        check(calls == [per_prefill["flash_attention"],
+                        per_tick["flash_attention"]],
+              f"{cfg.name}: the profiler saw {calls} attention kernels "
+              "in a prefill and a decode tick, want "
+              f"{per_prefill['flash_attention']} and "
+              f"{per_tick['flash_attention']}")
+    if "swiglu_mlp" in per_prefill:
+        calls = [ph["swiglu_calls"] for ph in entry["profile"].values()]
+        check(calls == [per_prefill["swiglu_mlp"],
+                        per_tick["swiglu_mlp"]],
+              f"{cfg.name}: the profiler saw {calls} SwiGLU kernel "
+              "calls in a prefill and a decode tick, want "
+              f"{per_prefill['swiglu_mlp']} and "
+              f"{per_tick['swiglu_mlp']}")
+    out(f"[times] {cfg.name} serve: {json.dumps(entry['serve'])}")
+    return entry, counts
+
+
+# The model zoo (phase 11): the three architectures this slice ports, at
+# full width on one card, depth cut where the weights would not fit: (arch,
+# layers served, fault stage).  Each is built, served and freed in turn.
+ZOO = (("mistral-nemo-12b", 40, "swiglu_mlp"),
+       ("mixtral-8x7b", 8, "flash_attention"),
+       ("llama4-scout-17b-a16e", 6, "flash_attention"))
+ZOO_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
+                    arrival_every=2, per_arrival=2)
+ZOO_PREFILL = 128
+# mixtral's ring at full width: a prompt longer than the 4096-token window,
+# at a max_len whose cache is the window (Smax = min(4224, 4096))
+RING_PROMPT, RING_NEW, RING_MAX_LEN = 4200, 8, 4224
+
+
+def zoo_configs():
+    """(config cut to its served depth, fault stage) for each ZOO entry."""
+    from repro_torch.configs import get_config
+    return [(dataclasses.replace(get_config(name), num_layers=n), stage)
+            for name, n, stage in ZOO]
+
+
+def ring_check(cfg, dev, wrappers, params):
+    """One request of ``RING_PROMPT`` tokens and ``RING_NEW`` new at
+    ``RING_MAX_LEN``: the cache holds ``min(RING_MAX_LEN, window)`` slots,
+    so the prefill wraps the ring and decode keeps wrapping it.  The SW
+    engine equals ``reference_decode`` bit for bit (and launches nothing);
+    the HW prefill of the prompt makes one attention launch a layer (the
+    path's count) and is timed.  Returns (its report entry, the HW
+    prefill's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.serve import (Request, ServeConfig, ServeEngine,
+                                   reference_decode)
+    from repro_torch.train.runner import model_stage_names
+    from repro_torch.viscosity import HW, SW
+
+    stages = model_stage_names(cfg)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, RING_PROMPT).astype(np.int32)
+    req = Request(rid=0, prompt=prompt, max_new_tokens=RING_NEW)
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=RING_MAX_LEN, max_slots=1, hw_route=SW), device=dev)
+    smax = eng._caches["k"].shape[2]
+    check(smax == min(RING_MAX_LEN, cfg.window) < RING_PROMPT,
+          f"{cfg.name}: the ring cache has {smax} slots")
+    before = [w.launches for w in wrappers.values()]
+    t0 = time.perf_counter()
+    done, _ = eng.serve([req])
+    sw_s = time.perf_counter() - t0
+    ref = reference_decode(cfg, eng.params, prompt, RING_NEW,
+                           max_len=RING_MAX_LEN)
+    check([w.launches for w in wrappers.values()] == before,
+          f"{cfg.name}: the SW route launched a kernel")
+    same = done[0].tokens.tolist() == ref.tolist()
+    check(same, f"{cfg.name}: the ring request differs from "
+          "reference_decode")
+    hw = build_model(cfg, routes={s: HW for s in stages})
+    toks = torch.as_tensor(prompt[None].astype(np.int64), device=dev)
+    cache = hw.init_cache(1, RING_MAX_LEN, device=dev)
+    for w in wrappers.values():
+        w.launches = 0
+    logits, _ = hw.prefill(params, {"tokens": toks, "cache": cache})
+    counts = {s: wrappers[s].launches for s in stages}
+    check(counts == {s: cfg.num_layers for s in stages}
+          and logits.shape == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: the P={RING_PROMPT} HW prefill launched {counts} "
+          "or gave non-finite logits")
+    ms = time_ms(torch, lambda: hw.prefill(params, {"tokens": toks,
+                                                    "cache": cache}), 3)
+    entry = {"prompt": RING_PROMPT, "new": RING_NEW, "max_len": RING_MAX_LEN,
+             "cache_slots": smax, "sw_serve_s": sw_s,
+             "tokens": done[0].tokens.tolist(),
+             "bit_identical": same, f"hw_prefill_ms_P{RING_PROMPT}": ms}
+    out(f"[zoo] {cfg.name} ring: P={RING_PROMPT} into {smax} slots, "
+        f"{RING_NEW} new: SW engine bit-identical to reference_decode "
+        f"({sw_s:.2f} s); HW prefill {ms:.2f} ms, launches {counts}")
+    return entry, counts
+
+
+def zoo_phase(configs, dev, wrappers):
+    """Phase 11: each ``(config, fault stage)`` of ``configs`` on seeded
+    weights drawn straight into bf16, through ``serve_path`` (its
+    canaries, ``checksum_tree``, both failover modes with the transient
+    and the persistent fault, the launch schedule: one attention launch a
+    layer per prefill, and for a gated MLP one SwiGLU launch a layer per
+    prefill and per tick; SW bit-identity, HW against SW logits with the
+    router flips accounted, prefill at ``ZOO_PREFILL``, the healthy serve,
+    the profiler), then, for a windowed model, ``ring_check``; then its
+    weights are freed.  Prints each model's peak memory.  Returns (report
+    entry per model, launches per kernel and path)."""
+    import torch
+
+    from repro_torch.train.runner import model_stage_names
+
+    entries, launches = {}, {name: {} for name in wrappers}
+    for cfg, fault_stage in configs:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params, _, init_s = init_weights(cfg, dev)
+        init_peak = torch.cuda.max_memory_allocated()
+        out(f"[zoo] {cfg.name}: {cfg.num_layers} layers, weights in bf16 "
+            f"ready in {init_s:.1f} s, peak {init_peak / 2**30:.2f} GiB")
+        stages = model_stage_names(cfg)
+        L = cfg.num_layers
+        entry, counts = serve_path(
+            cfg, dev, wrappers, params, ZOO_WORKLOAD, fault_stage,
+            per_prefill={s: L for s in stages},
+            per_tick={s: L if s == "swiglu_mlp" else 0 for s in stages},
+            prefill_len=ZOO_PREFILL)
+        for name, n in counts.items():
+            launches[name][cfg.name] = n
+        if cfg.window:
+            entry["ring"], ring = ring_check(cfg, dev, wrappers, params)
+            for name, n in ring.items():
+                launches[name][f"{cfg.name} ring"] = n
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry.update(init_s=init_s, init_peak_bytes=init_peak,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     layers=L, phase_s=time.perf_counter() - t0)
+        out(f"[zoo] {cfg.name}: peak memory {entry['peak_bytes'] / 2**30:.2f}"
+            f" GiB (init {init_peak / 2**30:.2f} GiB), "
+            f"{entry['phase_s']:.1f} s")
+        entries[cfg.name] = entry
+    return entries, launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1573,20 +2187,14 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
 
-    from repro_torch.chaos import CANARY_WIDTHS, ChaosCanary, canary_fault
     from repro_torch.configs import get_config
     from repro_torch.core import (CanaryChecker, FaultState,
                                   StagedAccelerator, inject)
     from repro_torch.core import casestudies as cs
-    from repro_torch.core.fault import (PERSISTENT, TRANSIENT_RECOVERED,
-                                        FaultClassifier)
     from repro_torch.core.stage import Stage
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
-    from repro_torch.kernels.checksum import (checksum_popcount, checksum_ref,
-                                              checksum_tree,
-                                              checksum_tree_ref)
-    from repro_torch.viscosity.lang import tree_leaves
+    from repro_torch.kernels.checksum import checksum_popcount, checksum_ref
     from repro_torch.kernels.flash_attention import (attention_flops,
                                                      attention_ref_blocked,
                                                      flash_attention_bhsd)
@@ -1612,16 +2220,14 @@ def main() -> int:
     from repro_torch.models.mamba2 import dims as mamba2_dims
     from repro_torch.kernels.swiglu import (swiglu_flops, swiglu_fused,
                                             swiglu_ref_blocked)
+    from repro_torch.kernels.swiglu.kernel import plan as swiglu_plan
     from repro_torch.kernels.swiglu.kernel import ring_bytes
     from repro_torch.kernels.swiglu.kernel import \
         smem_bytes as swiglu_smem_bytes
     from repro_torch.kernels.swiglu.ops import default_tiles
-    from repro_torch.models import build_model, compute_params
-    from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig,
-                                   ServeEngine, percentile, reference_decode,
-                                   synthetic_workload)
-    from repro_torch.train.runner import canary_stages, model_stage_names
-    from repro_torch.viscosity import HW, SW, lanefault
+    from repro_torch.models import build_model
+    from repro_torch.train.runner import model_stage_names
+    from repro_torch.viscosity import HW, SW
     from repro_torch.viscosity.lanefault import KINDS, LaneFault
 
     dev = resolve_device("cuda")
@@ -1669,6 +2275,19 @@ def main() -> int:
               f"swiglu ring nwg={nwg} nsub={nsub}: compiled {got} B, plan "
               f"{ring_bytes(nwg, nsub)} B")
     report["swiglu_rings"] = rings
+    # every SwiGLU plan phase 11 launches (mistral-nemo-12b 5120 -> 14336:
+    # prefill rows 16-128, decode rows 1-4) takes a ring checked above
+    zoo = [c for c, _ in zoo_configs()]
+    mistral = next(c for c in zoo if "swiglu_mlp" in model_stage_names(c))
+    for M in range(1, ZOO_WORKLOAD["max_prompt"] + 1):
+        pl = swiglu_plan(M, mistral.d_model, mistral.d_ff, mistral.d_model,
+                         row_independent=M <= 4)
+        check(pl.path == "wgmma" and pl.smem == (
+            rings[f"nwg={pl.nwg} nsub=0"],
+            rings[f"nwg={pl.nwg} nsub={pl.nsub}"]),
+            f"swiglu plan {mistral.name} M={M}: {pl}")
+        if M in (4, ZOO_PREFILL):
+            out(f"[build] swiglu {mistral.name} M={M}: {pl}")
     out(f"[build] swiglu dynamic shared memory by ring (nsub 0: phase A), "
         f"as the plan computes it: {rings}")
     # attention: every plan this run launches (the parity cases below, the
@@ -1680,6 +2299,14 @@ def main() -> int:
                    for B_, Sq_, Skv_, H_, Hkv_, D_, Dv_, _ in ATTN_CASES}
     attn_shapes |= {(1, qh, qh, P_, P_, qd, qd) for P_ in range(16, 129)}
     attn_shapes |= {(1, zh, zh, P_, P_, zd, zd) for P_ in range(96, 385)}
+    for c in zoo:                       # phase 11's prompts and the ring
+        cd = c.resolved_head_dim
+        attn_shapes |= {(1, c.num_heads, c.num_kv_heads, P_, P_, cd, cd)
+                        for P_ in range(ZOO_WORKLOAD["min_prompt"],
+                                        ZOO_WORKLOAD["max_prompt"] + 1)}
+        if c.window:
+            attn_shapes.add((1, c.num_heads, c.num_kv_heads, RING_PROMPT,
+                             RING_PROMPT, cd, cd))
     plans = {}
     for shp in sorted(attn_shapes):
         pl = attention_plan(*shp)
@@ -2020,6 +2647,8 @@ def main() -> int:
     swiglu_parity(64, 128, (64,), tag=" (canary)")
     swiglu_bits(qwen, 200)
     swiglu_bits(zamba, 384)
+    swiglu_parity(mistral.d_model, mistral.d_ff, (4, 16, ZOO_PREFILL))
+    swiglu_bits(mistral, ZOO_PREFILL)
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2130,261 +2759,6 @@ def main() -> int:
 
     # ------------------------------------------------- 4-5. serve and sw
 
-    def canary_phase(cfg):
-        """Every healthy canary stage passes on HW; each lane-fault kind
-        (armed at the canary's width) fails it."""
-        stages = canary_stages(cfg, device=dev)
-        chk = CanaryChecker(stages, route_hw=HW)
-        margins = {}
-        for st in stages:
-            args = st.canary_inputs(0)
-            sw = st.run(*args, route=SW)
-            d = CanaryChecker.max_diff(st.run(*args, route=HW), sw)
-            healthy = chk.check_stage(st)
-            caught = {}
-            for kind in KINDS:
-                with lanefault.inject(st.name, LaneFault(
-                        kind, (1,), CANARY_WIDTHS[st.name])):
-                    caught[kind] = not chk.check_stage(st)
-            margins[st.name] = {"max_abs_hw_sw": d, "tol": st.tol,
-                                "max_abs_sw": sw.float().abs().max().item(),
-                                "faults_caught": caught}
-            out(f"[canary] {cfg.name} {st.name}: healthy max|hw-sw| {d:.3e} "
-                f"(tol {st.tol:g}, max|sw| "
-                f"{margins[st.name]['max_abs_sw']:.3f}) "
-                f"{'pass' if healthy else 'FAIL'}; lane faults caught "
-                f"{caught}")
-            check(healthy and d <= st.tol,
-                  f"{cfg.name} {st.name}: the healthy canary fails on HW")
-            check(all(caught.values()),
-                  f"{cfg.name} {st.name}: a lane fault passed the canary")
-        return margins
-
-    def serve_path(cfg, workload, fault_stage, per_prefill, per_tick,
-                   prefill_len, logits_check=None):
-        """Phases 4 and 5 for one model, then its end-to-end times (a
-        prefill of ``prefill_len`` tokens, a healthy serve, the profiler);
-        returns its report entry.  ``logits_check(cfg, params, params32,
-        prompt, last)`` replaces the bound on HW against SW prefill logits
-        for a model that amplifies bf16 rounding (see ``rwkv_logits``)."""
-        entry = {"canaries": canary_phase(cfg)}
-        t0 = time.perf_counter()
-        model = build_model(cfg)
-        params32 = model.init(torch.Generator(device=dev).manual_seed(0),
-                              device=dev)
-        params = compute_params(params32, torch.bfloat16)
-        if logits_check is None:
-            params32 = None          # the f32 copy is released
-        torch.cuda.synchronize()
-        entry["init_s"] = time.perf_counter() - t0
-        out(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-            f"{cfg.d_model}, vocab {cfg.vocab_size}; weights ready in "
-            f"{entry['init_s']:.1f} s")
-        # checksum_tree over the parameters against the plain fold
-        leaves = tree_leaves(params)
-        got, want = checksum_tree(params), checksum_tree_ref(params)
-        nbytes = sum(t.numel() * t.element_size() for t in leaves)
-        entry["checksum_tree"] = {
-            "value": got, "leaves": len(leaves), "bytes": nbytes,
-            "ms": time_ms(torch, lambda: checksum_tree(params), 3)}
-        out(f"[parity] checksum_tree over {cfg.name}'s {len(leaves)} "
-            f"parameter leaves ({nbytes / 2**30:.2f} GiB): {got} (plain "
-            f"fold {want}) in {entry['checksum_tree']['ms']:.2f} ms")
-        check(got == want, f"{cfg.name}: checksum_tree disagrees with the "
-              "plain fold")
-        reqs = synthetic_workload(cfg.vocab_size, 6,
-                                  np.random.default_rng(0), **workload)
-        max_len = workload["max_prompt"] + workload["max_new"]
-        stages = model_stage_names(cfg)
-        for w in wrappers.values():      # counts of this path's run only
-            w.launches = 0
-        runs = {}
-        for mode in (RECOMPILE, RESIDENT):
-            canary = ChaosCanary(CanaryChecker(canary_stages(cfg, device=dev),
-                                               route_hw=HW))
-            eng = ServeEngine(cfg, params, ServeConfig(
-                max_len=max_len, max_slots=4, hw_route=HW, failover=mode),
-                device=dev, classifier=FaultClassifier(canary))
-            before = {s: wrappers[s].launches for s in stages}
-            want = dict.fromkeys(stages, 0)
-            probe = dict.fromkeys(stages, 0)   # the canary probes' launches
-            before_fault = 0
-            healthy_plan = eng.plan()
-
-            def observe(step, fails):
-                """A detection on the fault stage at ``step``, its canary
-                armed to fail ``fails`` probes (None: every probe)."""
-                n0 = {s: wrappers[s].launches for s in stages}
-                canary.arm(fault_stage, canary_fault(fault_stage),
-                           fails=fails)
-                transient = eng.observe_fault(fault_stage, step=step)
-                canary.disarm(fault_stage)
-                for s in stages:
-                    probe[s] += wrappers[s].launches - n0[s]
-                return transient
-
-            sess = eng.session()
-            for r in reqs:
-                sess.submit(r)
-            t_start = time.perf_counter()
-            while sess.pending():
-                if sess.step_count == TRANSIENT_STEP:
-                    builds = (eng._prefill.compiles, eng._decode.compiles)
-                    check(observe(TRANSIENT_STEP, 1), f"{cfg.name} {mode}: "
-                          "the transient episode was not transient")
-                    check(eng.fault_state.log[-1]["kind"]
-                          == TRANSIENT_RECOVERED and eng.plan()
-                          == healthy_plan and all(eng.health_mask()),
-                          f"{cfg.name} {mode}: the transient episode left "
-                          "the HW route")
-                if sess.step_count == TRANSIENT_STEP + 1:
-                    check((eng._prefill.compiles, eng._decode.compiles)
-                          == builds, f"{cfg.name} {mode}: the transient "
-                          "episode built a model")
-                if sess.step_count == FAULT_STEP:
-                    before_fault = wrappers[fault_stage].launches - \
-                        before[fault_stage] - probe[fault_stage]
-                    check(not observe(FAULT_STEP, None)
-                          and eng.fault_state.log[-1]["kind"] == PERSISTENT
-                          and eng.fault_state.is_faulty(fault_stage),
-                          f"{cfg.name} {mode}: the hard fault was not "
-                          "persistent")
-                admitted = sess.stats["admitted"]
-                healthy = {s: not eng.fault_state.is_faulty(s)
-                           for s in stages}
-                tick = sess.step()
-                for s in stages:
-                    if healthy[s]:
-                        want[s] += per_prefill[s] * (
-                            sess.stats["admitted"] - admitted) + \
-                            per_tick[s] * (1 if tick["active"] else 0)
-            wall = time.perf_counter() - t_start
-            stats = sess.close()
-            done = {c.rid: c for c in sess.poll()}
-            got = {s: wrappers[s].launches - before[s] - probe[s]
-                   for s in stages}
-            verdicts = [e["kind"] for e in eng.fault_state.log
-                        if e["kind"] in (TRANSIENT_RECOVERED, PERSISTENT)]
-            out(f"[serve] {cfg.name} {mode}: {len(done)}/{len(reqs)} done "
-                f"in {stats['steps']} steps, {wall:.2f} s; recompiles "
-                f"{stats['recompiles']}; launches {got} (want {want}) and "
-                f"{probe} by the canary probes; verdicts {verdicts}; "
-                f"{fault_stage} launches before the step-{FAULT_STEP} "
-                f"fault {before_fault}")
-            check(probe == {s: 5 if s == fault_stage else 0 for s in stages},
-                  f"{cfg.name} {mode}: probe launches {probe}, want 2 + 3 "
-                  f"on {fault_stage}")
-            check(sorted(done) == sorted(r.rid for r in reqs),
-                  f"{cfg.name} {mode}: not every request completed")
-            check(any(r.arrival >= FAULT_STEP for r in reqs),
-                  f"{cfg.name}: no admission after the fault")
-            for r in reqs:
-                check(len(done[r.rid].tokens) == r.max_new_tokens,
-                      f"{cfg.name} {mode}: request {r.rid} is short")
-            check(stats["recompiles"] == (1 if mode == RECOMPILE else 0),
-                  f"{cfg.name} {mode}: recompiles {stats['recompiles']}")
-            check(got == want and all(n > 0 for n in got.values()),
-                  f"{cfg.name} {mode}: launches {got}, want {want}")
-            check(before_fault > 0, f"{cfg.name} {mode}: {fault_stage} "
-                  "never launched before its fault")
-            runs[mode] = {r.rid: done[r.rid].tokens.tolist() for r in reqs}
-        check(runs[RECOMPILE] == runs[RESIDENT],
-              f"{cfg.name}: RECOMPILE and RESIDENT served different tokens")
-        for s in stages + ["checksum"]:
-            launches[s][cfg.name] = wrappers[s].launches
-        check(checksum_popcount.launches == 0, f"{cfg.name}: the serve "
-              "launched the checksum (its stages compare with tol > 0)")
-        out(f"[serve] {cfg.name}: modes agree on "
-            f"{sum(map(len, runs[RESIDENT].values()))} tokens; launches "
-            f"{ {s: wrappers[s].launches for s in stages} }")
-
-        sw_reqs = reqs[:3]
-        eng = ServeEngine(cfg, params, ServeConfig(
-            max_len=max_len, max_slots=4, hw_route=SW), device=dev)
-        before = [w.launches for w in wrappers.values()]
-        done, _ = eng.serve(sw_reqs)
-        for r in sw_reqs:
-            ref = reference_decode(cfg, eng.params, r.prompt,
-                                   r.max_new_tokens, max_len=max_len)
-            check(done[r.rid].tokens.tolist() == ref.tolist(),
-                  f"{cfg.name} SW route: request {r.rid} differs from "
-                  "reference_decode")
-        check([w.launches for w in wrappers.values()] == before,
-              f"{cfg.name}: the SW route launched a kernel")
-        out(f"[sw] {cfg.name}: {len(sw_reqs)} requests bit-identical to "
-            "reference_decode")
-        # the kernel route against the SW oracle at full width
-        longest = max(reqs, key=lambda r: len(r.prompt))
-        prompt = torch.as_tensor(np.asarray(longest.prompt, np.int64),
-                                 device=dev)[None]
-        last = {}
-        for route in (HW, SW):
-            m = build_model(cfg, routes={s: route for s in stages})
-            logits, _ = m.prefill(params, {
-                "tokens": prompt, "cache": m.init_cache(1, max_len,
-                                                        device=dev)})
-            last[route] = logits[0, -1].float()
-            check(last[route].shape == (cfg.vocab_size,)
-                  and bool(torch.isfinite(last[route]).all()),
-                  f"{cfg.name} {route} prefill logits are not finite of "
-                  "shape (vocab,)")
-        d = (last[HW] - last[SW]).abs().max().item()
-        rel = d / last[SW].abs().max().item()
-        out(f"[sw] {cfg.name} HW vs SW prefill logits (P="
-            f"{prompt.shape[1]}): max_abs {d:.3e} max_rel {rel:.3e} (tol "
-            f"rel {LOGITS_REL:g}); argmax {int(last[HW].argmax())} vs "
-            f"{int(last[SW].argmax())}")
-        entry["hw_vs_sw_logits"] = {"max_abs": d, "max_rel": rel,
-                                    "prompt": prompt.shape[1]}
-        if logits_check is None:
-            check(rel <= LOGITS_REL,
-                  f"{cfg.name}: HW route logits disagree with the SW oracle")
-        else:
-            entry["logits_check"] = logits_check(cfg, params, params32,
-                                                 prompt, last)
-            params32 = None
-
-        # end to end: prefill of the longest prompt, a healthy HW serve
-        hw_model = build_model(cfg, routes={s: HW for s in stages})
-        toks = torch.randint(0, cfg.vocab_size, (1, prefill_len),
-                             generator=gen, device=dev)
-        cache = hw_model.init_cache(1, max_len, device=dev)
-        prefill_ms = time_ms(torch, lambda: hw_model.prefill(
-            params, {"tokens": toks, "cache": cache}), 5)
-        eng = ServeEngine(cfg, params, ServeConfig(
-            max_len=max_len, max_slots=4, hw_route=HW), device=dev)
-        t0 = time.perf_counter()
-        done, stats = eng.serve(reqs)
-        wall = time.perf_counter() - t0
-        n_tok = sum(len(c.tokens) for c in done.values())
-        entry["serve"] = {
-            f"prefill_ms_P{toks.shape[1]}": prefill_ms,
-            "decode_tick_ms_median": 1e3 * percentile(stats["step_times"],
-                                                      0.5),
-            "tokens_per_s": n_tok / wall, "tokens": n_tok, "wall_s": wall,
-            "slots": 4, "requests": len(reqs)}
-        entry["profile"] = profile_serving(torch, cfg, hw_model, params,
-                                           toks, cache, reqs, max_len, dev)
-        if "flash_attention" in per_prefill:
-            calls = [ph["attention_launches"]
-                     for ph in entry["profile"].values()]
-            check(calls == [per_prefill["flash_attention"],
-                            per_tick["flash_attention"]],
-                  f"{cfg.name}: the profiler saw {calls} attention kernels "
-                  "in a prefill and a decode tick, want "
-                  f"{per_prefill['flash_attention']} and "
-                  f"{per_tick['flash_attention']}")
-        if "swiglu_mlp" in per_prefill:
-            calls = [ph["swiglu_calls"] for ph in entry["profile"].values()]
-            check(calls == [per_prefill["swiglu_mlp"],
-                            per_tick["swiglu_mlp"]],
-                  f"{cfg.name}: the profiler saw {calls} SwiGLU kernel "
-                  "calls in a prefill and a decode tick, want "
-                  f"{per_prefill['swiglu_mlp']} and "
-                  f"{per_tick['swiglu_mlp']}")
-        out(f"[times] {cfg.name} serve: {json.dumps(entry['serve'])}")
-        return entry
-
     def rwkv_logits(cfg, params, params32, prompt, last):
         """rwkv6-1.6b at its random init amplifies bf16 rounding from layer
         to layer: its SW route in bf16 ends far from the same route in f32,
@@ -2431,14 +2805,26 @@ def main() -> int:
         return {"hw_vs_f32_rel": err[HW], "sw_vs_f32_rel": err[SW],
                 "layer_time_mix_worst_rel": worst}
 
+    def served(cfg, *args, f32=False, **kw):
+        """``serve_path`` on fresh seeded weights; its launches recorded
+        under the model's name."""
+        params, params32, init_s = init_weights(cfg, dev, f32=f32)
+        out(f"[serve] {cfg.name}: weights ready in {init_s:.1f} s")
+        entry, counts = serve_path(cfg, dev, wrappers, params, *args,
+                                   params32=params32, **kw)
+        entry["init_s"] = init_s
+        for s, n in counts.items():
+            launches[s][cfg.name] = n
+        return entry
+
     Lq, G = qwen.num_layers, zamba.num_layers // zamba.shared_attn_every
-    report["qwen1.5-4b"] = serve_path(
+    report["qwen1.5-4b"] = served(
         qwen, dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                    arrival_every=2, per_arrival=2), "swiglu_mlp",
         per_prefill={"flash_attention": Lq, "swiglu_mlp": Lq},
         per_tick={"flash_attention": 0, "swiglu_mlp": Lq}, prefill_len=128)
     torch.cuda.empty_cache()
-    report["zamba2-1.2b"] = serve_path(
+    report["zamba2-1.2b"] = served(
         zamba, dict(min_prompt=96, max_prompt=384, min_new=8, max_new=16,
                     arrival_every=3, per_arrival=2), "mamba2_ssd",
         per_prefill={"flash_attention": G, "swiglu_mlp": G,
@@ -2446,11 +2832,11 @@ def main() -> int:
         per_tick={"flash_attention": 0, "swiglu_mlp": G, "mamba2_ssd": 0},
         prefill_len=384)
     torch.cuda.empty_cache()
-    report["rwkv6-1.6b"] = serve_path(
+    report["rwkv6-1.6b"] = served(
         rwkv, dict(min_prompt=64, max_prompt=512, min_new=8, max_new=16,
                    arrival_every=2, per_arrival=2), "rwkv6_wkv",
         per_prefill={"rwkv6_wkv": rwkv.num_layers},
-        per_tick={"rwkv6_wkv": 0}, prefill_len=512,
+        per_tick={"rwkv6_wkv": 0}, prefill_len=512, f32=True,
         logits_check=rwkv_logits)
     check(all(sum(n.values()) > 0 for n in launches.values()),
           f"a kernel of the paths never launched: {launches}")
@@ -2520,34 +2906,53 @@ def main() -> int:
     # kernels line), zamba2-1.2b's shared block at P = 384, and qwen1.5-4b
     # at P = 2048, where the operations bound it.  The kernel reads (B, S,
     # H, D) views, as the model gives them; scaled_dot_product_attention
-    # and the plain version get contiguous (B, H, S, D) tensors.
+    # and the plain version get contiguous (B, H, S, D) tensors.  Phase
+    # 11's prefills too: mistral-nemo-12b and llama4-scout at P = 128 (GQA
+    # 32 -> 8 and 40 -> 8) and mixtral-8x7b's 4200-token ring prompt under
+    # its 4096-token window (sdpa takes the window as a boolean mask); with
+    # a window the bound counts the (query, key) pairs it admits.
     attn = {}
-    for cfg, P in ((qwen, 128), (zamba, 384), (qwen, 2048)):
-        H, D = cfg.num_heads, cfg.resolved_head_dim
-        qs_, ks_, vs_ = (randn(1, P, H, D).transpose(1, 2) for _ in range(3))
+    mixtral = next(c for c in zoo if c.window)
+    llama4 = next(c for c in zoo if c.moe is not None and not c.window)
+    for cfg, P in ((qwen, 128), (zamba, 384), (qwen, 2048), (mistral, 128),
+                   (llama4, 128), (mixtral, RING_PROMPT)):
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        W = cfg.window
+        qs_ = randn(1, P, H, D).transpose(1, 2)
+        ks_, vs_ = (randn(1, P, Hkv, D).transpose(1, 2) for _ in range(2))
         q, k, v = (t.contiguous() for t in (qs_, ks_, vs_))
         pad = -(-P // 128) * 128 - P
         qp, kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
-        akw = dict(causal=True, kv_len=P, bq=128, bk=128)
-        ms, by = bound(4 * q.numel() * 2, attention_flops(1, P, P, H, D,
-                                                          causal=True))
-        key = f"B=1 H={H} P={P} D={D} causal"
+        wkw = dict(window=W) if W else {}
+        akw = dict(causal=True, kv_len=P, bq=128, bk=128, **wkw)
+        pos = torch.arange(P, device=dev)
+        lkw = dict(is_causal=True) if not W else dict(
+            attn_mask=(pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - W))
+        if Hkv != H:
+            lkw["enable_gqa"] = True
+        flops = (attention_flops(1, P, P, H, D, causal=True) if not W else
+                 4 * H * D * sum(min(i + 1, W) for i in range(P)))
+        ms, by = bound((2 * q.numel() + 2 * k.numel()) * 2, flops)
+        key = (f"B=1 H={H} P={P} D={D} causal" if Hkv == H and not W else
+               f"B=1 H={H} Hkv={Hkv} P={P} D={D} causal"
+               + (f" window={W}" if W else ""))
         attn[key] = {
             "ms": time_ms(torch, lambda: flash_attention_bhsd(
-                qs_, ks_, vs_, causal=True), 50),
+                qs_, ks_, vs_, causal=True, **wkw), 50),
             "plain_ms": time_ms(torch, lambda: attention_ref_blocked(
-                qp, kp, vp, **akw), 10),
+                qp, kp, vp, **akw), 10 if P <= 2048 else 3),
             "bound_ms": ms, "bound_by": by,
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 50)}
+                q, k, v, **lkw), 50)}
         attn[key].update(device_ms(lambda: flash_attention_bhsd(
-            qs_, ks_, vs_, causal=True), "flash_attn_fwd")[0])
+            qs_, ks_, vs_, causal=True, **wkw), "flash_attn_fwd")[0])
         if P <= 384:
             # the wrapper's host time without its per-signature cache: every
             # call takes the checked path (the cache emptied before each)
             attn[key]["checked_ms"] = time_ms(torch, lambda: (
                 attention_calls.clear(),
-                flash_attention_bhsd(qs_, ks_, vs_, causal=True)), 50)
+                flash_attention_bhsd(qs_, ks_, vs_, causal=True, **wkw)), 50)
         attn[key]["share_of_bound"] = ms / attn[key]["ms"]
         if attn[key]["device_ms"]:
             attn[key]["share_of_bound_device"] = ms / attn[key]["device_ms"]
@@ -2561,7 +2966,8 @@ def main() -> int:
         "B=1 H=20 P=128 D=128 causal", **attn["B=1 H=20 P=128 D=128 causal"]))
 
     shapes, swiglu_kernels = {}, {}
-    for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384)):
+    for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384),
+                   (mistral, 4), (mistral, ZOO_PREFILL)):
         Dm, Ff = cfg.d_model, cfg.d_ff
         w1, w3, w2 = swiglu_weights(Dm, Ff)
         x = randn(M, Dm)
@@ -2719,6 +3125,17 @@ def main() -> int:
     check(launches["checksum"]["chaos"] == 0, "chaos: the campaign launched "
           "the checksum (its stages compare with tol > 0)")
     report["chaos"]["nvidia_smi"] = smi
+
+    # ---------------------------------------------------------- 11. zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["zoo"], zoo_launches = zoo_phase(zoo_configs(), dev, wrappers)
+    report["zoo_phase_s"] = time.perf_counter() - t0
+    out(f"[zoo] phase {report['zoo_phase_s']:.2f} s")
+    for name, by_path in zoo_launches.items():
+        launches[name].update(by_path)
+    report["zoo_nvidia_smi"] = smi
     for kn in kernels:                   # the new paths' launches too
         kn["launches"] = sum(launches[kn["name"]].values())
     for kn in kernels:

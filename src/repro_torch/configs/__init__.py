@@ -7,20 +7,22 @@ item that brings it.
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.llama4_scout_17b import CONFIG as _LLAMA4_SCOUT
+from repro_torch.configs.mistral_nemo_12b import CONFIG as _MISTRAL_NEMO
+from repro_torch.configs.mixtral_8x7b import CONFIG as _MIXTRAL_8X7B
 from repro_torch.configs.qwen1p5_4b import CONFIG as _QWEN1P5_4B
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _RWKV6_1P6B
 from repro_torch.configs.zamba2_1p2b import CONFIG as _ZAMBA2_1P2B
 
 _CONFIGS = {"qwen1.5-4b": _QWEN1P5_4B, "zamba2-1.2b": _ZAMBA2_1P2B,
-            "rwkv6-1.6b": _RWKV6_1P6B}
+            "rwkv6-1.6b": _RWKV6_1P6B, "mistral-nemo-12b": _MISTRAL_NEMO,
+            "mixtral-8x7b": _MIXTRAL_8X7B,
+            "llama4-scout-17b-a16e": _LLAMA4_SCOUT}
 
 # Reference architectures not yet ported -> the ROADMAP queue item.
 _PENDING = {
     "gemma2-2b": "queue 1 item 12.1 (gemma2/gemma3)",
     "gemma3-1b": "queue 1 item 12.1 (gemma2/gemma3)",
-    "mistral-nemo-12b": "queue 1 item 12 (rest of the model zoo)",
-    "mixtral-8x7b": "queue 1 item 12.2 (mixtral/llama4, models/moe.py)",
-    "llama4-scout-17b-a16e": "queue 1 item 12.2 (mixtral/llama4)",
     "qwen2-vl-7b": "queue 1 item 12.5 (qwen2-vl, M-RoPE)",
     "whisper-base": "queue 1 item 12.6 (whisper, encdec)",
 }

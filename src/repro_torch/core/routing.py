@@ -97,6 +97,10 @@ class RoutingPlan:
                 return t
         return self.default if self.default is not None else fallback
 
+    def fallback_stages(self, fallback: str = SW) -> Tuple[str, ...]:
+        """The stages this plan routes to ``fallback`` (sorted)."""
+        return tuple(s for s, t in self.assignments if t == fallback)
+
     # ------------------------------------------------------------ updates
     def with_target(self, stage: str, target: str) -> "RoutingPlan":
         d = self.as_dict()
@@ -130,6 +134,11 @@ class RoutingPlan:
         return self
 
     # ----------------------------------------------------- lowering hooks
+    def resolve(self, spec) -> Callable[..., Any]:
+        """Lower one OpSpec under this plan (explicit fallback semantics:
+        an HW target with no kernel resolves to the SW oracle)."""
+        return spec.lower(self.target_for(spec.name))
+
     def resident_routes(self, health_mask: MutableSequence[bool],
                         stage_names: Sequence[str]
                         ) -> Dict[str, "ResidentRoute"]:

@@ -1,4 +1,4 @@
-"""Attention layer: GQA + RoPE + QKV bias (dense family).
+"""Attention layer: GQA + RoPE + QKV bias + sliding windows.
 
 Port of the reference's ``models/attention.py``.  The score/softmax/PV
 core of train and prefill routes through the Viscosity
@@ -7,9 +7,11 @@ whatever the route, as the reference does (it has no decode kernel).
 
 Cache layout: every layer's KV stacked, ``k``/``v`` (L, B, Smax, Hkv, Dh)
 and an explicit per-slot position array ``pos`` (L, B, Smax), -1 where
-nothing is written.  The reference vmaps a B=1 decode over serving slots
-(``(S, G, 1, Smax, Hkv, Dh)``); the port writes the slot batch out.
-Prefill and decode write the cache in place.
+nothing is written.  A windowed model's cache has Smax = min(max_len,
+window) slots, written round-robin (a ring buffer); the positions make
+the masks the same for both.  The reference vmaps a B=1 decode over
+serving slots (``(S, G, 1, Smax, Hkv, Dh)``); the port writes the slot
+batch out.  Prefill and decode write the cache in place.
 """
 from __future__ import annotations
 
@@ -83,19 +85,24 @@ def init_kv_cache(L, B, smax, n_kv, head_dim, dtype, device):
 
 
 def cache_write_prefill(cache, layer: int, k, v):
-    """Write a prefill's k/v into slots [0, S) of ``layer`` (in place).
-    Ring buffers (S > Smax, windowed attention) wait for the gemma slice."""
+    """Write a prefill's k/v into ``layer`` of the cache (in place).
+
+    S <= Smax: slots [0, S).  S > Smax (a ring buffer: windowed attention
+    with Smax = window): keep the last Smax tokens, token ``pos`` at slot
+    ``pos % Smax``, so decode's writes at ``t % Smax`` stay consistent."""
     S = k.shape[1]
     smax = cache["k"].shape[2]
-    if S > smax:
-        raise NotImplementedError(
-            f"prompt of {S} tokens exceeds the cache's {smax} slots; ring "
-            "buffers come with the windowed-attention slice (ROADMAP queue "
-            "1 item 12.1)")
-    cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
-    cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
-    cache["pos"][layer, :, :S] = torch.arange(S, dtype=torch.int32,
-                                              device=k.device)
+    if S <= smax:
+        cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
+        cache["pos"][layer, :, :S] = torch.arange(S, dtype=torch.int32,
+                                                  device=k.device)
+        return cache
+    p0 = S - smax                       # first kept absolute position
+    idx = (torch.arange(smax, device=k.device) - p0) % smax
+    cache["k"][layer] = k[:, p0:][:, idx].to(cache["k"].dtype)
+    cache["v"][layer] = v[:, p0:][:, idx].to(cache["v"].dtype)
+    cache["pos"][layer] = (p0 + idx).to(torch.int32)
     return cache
 
 

@@ -1,9 +1,10 @@
-"""Decoder blocks: attention + gated MLP (dense, and the hybrid family's
-shared block), Mamba2, RWKV-6.
+"""Decoder blocks: attention + FFN (a gated MLP for the dense family and
+the hybrid family's shared block, the MoE FFN for the MoE family),
+Mamba2, RWKV-6.
 
 Port of the reference's ``models/blocks.py`` (``LayerMeta``,
 ``make_metas``, ``attn_block``, ``init_mamba_block``, ``mamba_block``,
-``init_rwkv_block``, ``rwkv_block``); the MoE block waits for its slice.
+``init_rwkv_block``, ``rwkv_block``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
 
@@ -69,11 +71,31 @@ def make_metas(cfg: ModelConfig):
     return metas
 
 
+def init_attn_layers(gen, n, cfg: ModelConfig, dtype, norm_dtype, device):
+    """``n`` stacked attention blocks: pre-norms (scales in
+    ``norm_dtype``), attention, and the gated MLP or (``cfg.moe``) the MoE
+    FFN."""
+    p = {"ln1": L.init_norm(cfg.d_model, norm_dtype, device, lead=(n,)),
+         "attn": attn_mod.init_attention(
+             gen, n, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, dtype, device, qkv_bias=cfg.qkv_bias),
+         "ln2": L.init_norm(cfg.d_model, norm_dtype, device, lead=(n,))}
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(gen, n, cfg.d_model, cfg.d_ff,
+                                    cfg.moe.num_experts, dtype, device,
+                                    shared=cfg.moe.shared_expert)
+    else:
+        p["mlp"] = L.init_mlp(gen, n, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
 def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
                cache=None, layer=None, t=None, tpos=None, step=False):
-    """Returns x after one block.  Prefill (``cache`` given, ``step``
-    False) writes the layer's KV into ``cache``; decode (``step``) reads
-    and writes it, per slot."""
+    """Returns (x after one block, aux): ``aux`` holds the MoE FFN's
+    metrics (``aux_loss``, ``z_loss``, ``drop_frac``) of a prefill or
+    train forward, and is None for a gated MLP and in decode.  Prefill
+    (``cache`` given, ``step`` False) writes the layer's KV into
+    ``cache``; decode (``step``) reads and writes it, per slot."""
     route_attn = routes.get("flash_attention", viscosity.SW)
     route_mlp = routes.get("swiglu_mlp", viscosity.SW)
     kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -100,9 +122,23 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
         h = L.per_row(lambda r: L.norm(p["ln2"], r, eps=cfg.norm_eps), x)
     else:
         h = L.norm(p["ln2"], x, eps=cfg.norm_eps)
-    ffn_out = L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
-                    row_independent=step)
-    return x + checkpoint_name(ffn_out, "ffn_out", cfg)
+    aux = None
+    if cfg.moe is not None:
+        def moe(r):
+            return moe_mod.moe_ffn(p["moe"], r, top_k=cfg.moe.top_k,
+                                   capacity_factor=cfg.moe.capacity_factor,
+                                   act=cfg.mlp_act,
+                                   combine_first=cfg.moe.combine_first)
+        if step:
+            # each slot is its own dispatch group (S = 1, C = top_k), as
+            # the reference's vmapped B=1 decode sees it
+            ffn_out = L.per_row(lambda r: moe(r)[0], h)
+        else:
+            ffn_out, aux = moe(h)
+    else:
+        ffn_out = L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
+                        row_independent=step)
+    return x + checkpoint_name(ffn_out, "ffn_out", cfg), aux
 
 
 def _per_slot(block, x, state):

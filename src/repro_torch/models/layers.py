@@ -10,8 +10,9 @@ from repro_torch.kernels.swiglu import ops as swiglu_ops
 
 
 def _he(gen, shape, fan_in, dtype, device):
-    return (torch.randn(shape, generator=gen, device=device)
-            / fan_in ** 0.5).to(dtype)
+    # scaled in place: a leaf's draw takes one float32 copy, not two
+    return torch.randn(shape, generator=gen, device=device).div_(
+        fan_in ** 0.5).to(dtype)
 
 
 def per_row(fn, x):

@@ -1,26 +1,32 @@
-"""Decoder-only LM of the dense, hybrid and SSM families: train forward
-(loss), prefill, decode, caches.
+"""Decoder-only LM of the dense, MoE, hybrid and SSM families: train
+forward (loss), prefill, decode, caches.
 
 Port of the reference's ``models/transformer.py``.  Params are a nested
 dict with the reference's keys and its stacked (L, ...) layer layout, so
 slicing a layer is a free view; the reference's ``lax.scan`` over layer
-groups is a Python loop.  The hybrid family (Zamba2) is a Mamba2 backbone
-with one shared (tied) attention+MLP block applied after every
-``shared_attn_every`` Mamba2 layers; the SSM family (RWKV-6) is a stack of
-attention-free RWKV-6 layers.  Other families (MoE, VLM, audio) and the
-variants these slices do not need (windows, softcaps, post-norms,
-LayerNorm, qk-norm) raise ``NotImplementedError``.
+groups is a Python loop.  The dense and MoE families are uniform
+attention blocks, all global or all windowed (sliding-window layers keep
+a ring-buffer KV cache of ``window`` slots); MoE blocks replace the gated
+MLP with ``models/moe.py``'s FFN, whose aux losses join the training
+loss.  The hybrid family (Zamba2) is a Mamba2 backbone with one shared
+(tied) attention+MLP block applied after every ``shared_attn_every``
+Mamba2 layers; the SSM family (RWKV-6) is a stack of attention-free
+RWKV-6 layers.  Other families (VLM, audio) and the variants these slices
+do not need (mixed local/global patterns, a local rope theta, softcaps,
+post-norms, LayerNorm, qk-norm, embedding scale) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ATTN_GLOBAL, MAMBA2, RWKV6, ModelConfig
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6,
+                                     ModelConfig)
 from repro_torch.core.routing import as_routes
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -32,24 +38,32 @@ from repro_torch.models import rwkv6 as rwkv_mod
 
 PyTree = Any
 # Subtrees and leaves that keep the param dtype in ``compute_params``: the
-# norm scales (the norms compute in f32), the Mamba2 scalars and conv, and
-# the RWKV-6 decay params and bonus, which the reference reads in f32 and
-# never casts to the compute dtype.
-_KEEP_DTYPE = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias",
-               "conv_w", "conv_b", "w0", "w_lora_a", "w_lora_b", "u")
-_PATTERN = {"dense": ATTN_GLOBAL, "hybrid": MAMBA2, "ssm": RWKV6}
+# norm scales (the norms compute in f32), the MoE router (its logits are
+# f32), the Mamba2 scalars and conv, and the RWKV-6 decay params and bonus,
+# which the reference reads in f32 and never casts to the compute dtype.
+_KEEP_DTYPE = ("ln1", "ln2", "final_norm", "router", "A_log", "D",
+               "dt_bias", "conv_w", "conv_b", "w0", "w_lora_a", "w_lora_b",
+               "u")
+_PATTERN = {"dense": ATTN_GLOBAL, "moe": ATTN_GLOBAL, "hybrid": MAMBA2,
+            "ssm": RWKV6}
 
 
 def _unsupported(cfg: ModelConfig):
     if cfg.family not in _PATTERN:
         return f"family {cfg.family!r}"
-    for flag in ("window", "attn_softcap", "final_softcap", "post_norms",
-                 "use_layernorm", "qk_norm", "embed_scale", "mrope_sections",
-                 "stub_frontend", "is_encdec"):
+    for flag in ("attn_softcap", "final_softcap", "post_norms",
+                 "use_layernorm", "qk_norm", "embed_scale", "rope_theta_local",
+                 "mrope_sections", "stub_frontend", "is_encdec"):
         if getattr(cfg, flag):
             return f"{flag}={getattr(cfg, flag)!r}"
-    if set(cfg.layer_pattern or (ATTN_GLOBAL,)) != {_PATTERN[cfg.family]}:
+    kinds = set(cfg.layer_pattern or (ATTN_GLOBAL,))
+    if kinds == {ATTN_LOCAL} and _PATTERN[cfg.family] == ATTN_GLOBAL:
+        if not cfg.window:          # every layer windowed: a ring cache
+            return "window=0 with local layers"
+    elif kinds != {_PATTERN[cfg.family]}:
         return f"layer_pattern={cfg.layer_pattern!r}"
+    elif cfg.window:
+        return f"window={cfg.window!r}"
     if cfg.family == "hybrid" and not cfg.shared_attn_every:
         return "shared_attn_every=0"
     # the SSM family's MLP is RWKV-6's own channel-mix, never gated
@@ -134,8 +148,8 @@ class LMModel:
         if why is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {why} is not ported yet (the port covers the "
-                "dense qwen1.5-4b, hybrid zamba2-1.2b and ssm rwkv6-1.6b "
-                "paths; see ROADMAP queue 1 item 12)")
+                "dense, MoE, hybrid zamba2-1.2b and ssm rwkv6-1.6b paths; "
+                "see ROADMAP queue 1 item 12)")
         self.cfg = cfg
         self.routes = as_routes(routes)
         if cfg.family == "hybrid":
@@ -149,42 +163,48 @@ class LMModel:
         self.param_dtype = getattr(torch, cfg.param_dtype)
 
     # ------------------------------------------------------------- init
-    def init(self, seed: Union[int, torch.Generator] = 0,
-             device=None) -> PyTree:
-        """Random params from a seed (or a generator on ``device``)."""
+    def init(self, seed: Union[int, torch.Generator] = 0, device=None,
+             dtype: Optional[torch.dtype] = None) -> PyTree:
+        """Random params from a seed (or a generator on ``device``).
+
+        ``dtype`` (a compute dtype, e.g. ``torch.bfloat16``) gives the
+        tree ``compute_params(init(seed), dtype)`` bit for bit without the
+        param-dtype tree: the dense and MoE families draw each leaf in the
+        param dtype, from the same generator in the same order, and cast
+        it at once (the ``_KEEP_DTYPE`` leaves stay in the param dtype),
+        so the peak is the cast tree plus one leaf.  The hybrid and SSM
+        families (at most 1.6 B params) init in the param dtype and
+        cast."""
         cfg = self.cfg
         dev = resolve_device(device)
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
-        dt, n = self.param_dtype, cfg.num_layers
-
-        def attn_layers(n):
-            return {
-                "ln1": L.init_norm(cfg.d_model, dt, dev, lead=(n,)),
-                "attn": attn_mod.init_attention(
-                    gen, n, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                    cfg.resolved_head_dim, dt, dev, qkv_bias=cfg.qkv_bias),
-                "ln2": L.init_norm(cfg.d_model, dt, dev, lead=(n,)),
-                "mlp": L.init_mlp(gen, n, cfg.d_model, cfg.d_ff, dt, dev),
-            }
+        pdt, n = self.param_dtype, cfg.num_layers
+        if dtype is not None and cfg.family in ("hybrid", "ssm"):
+            return compute_params(self.init(gen, dev), dtype)
+        dt = pdt if dtype is None else dtype
         params = {
             "embed": L.init_embed(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-            "final_norm": L.init_norm(cfg.d_model, dt, dev),
+            "final_norm": L.init_norm(cfg.d_model, pdt, dev),
         }
         if cfg.family == "hybrid":
             params["layers"] = B.init_mamba_block(gen, n, cfg, dt, dev)
-            params["shared"] = _layer(attn_layers(1), 0)
+            params["shared"] = _layer(B.init_attn_layers(gen, 1, cfg, dt,
+                                                         pdt, dev), 0)
         elif cfg.family == "ssm":
             params["layers"] = B.init_rwkv_block(gen, n, cfg, dt, dev)
         else:
-            params["layers"] = attn_layers(n)
+            params["layers"] = B.init_attn_layers(gen, n, cfg, dt, pdt,
+                                                  dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_lm_head(gen, cfg.d_model,
                                                cfg.vocab_size, dt, dev)
         return params
 
     def init_cache(self, Bt: int, max_len: int, device=None) -> PyTree:
-        """Dense: the KV cache of every layer.  Hybrid: {"mamba": conv
+        """Dense and MoE: the KV cache of every layer, of
+        ``min(max_len, window)`` slots when every layer is windowed (a ring
+        buffer), as the reference's ``smax_for``.  Hybrid: {"mamba": conv
         tails and SSM states of every Mamba2 layer, "attn": the KV cache of
         each shared-block application}.  SSM: the token shifts and WKV
         states of every RWKV-6 layer (no KV; ``max_len`` is unused).  Every
@@ -195,9 +215,10 @@ class LMModel:
             return rwkv_mod.init_rwkv6_state(cfg.num_layers, Bt, cfg,
                                              self.compute_dtype, dev)
         n_kv = self.n_groups if cfg.family == "hybrid" else cfg.num_layers
+        window = self.meta.window
         kv = attn_mod.init_kv_cache(
-            n_kv, Bt, max_len, cfg.num_kv_heads, cfg.resolved_head_dim,
-            self.compute_dtype, dev)
+            n_kv, Bt, min(max_len, window) if window else max_len,
+            cfg.num_kv_heads, cfg.resolved_head_dim, self.compute_dtype, dev)
         if cfg.family != "hybrid":
             return kv
         return {"mamba": mamba_mod.init_mamba2_state(
@@ -245,12 +266,16 @@ class LMModel:
 
     def _run_layers(self, params, x, rope, cache=None, t=None, tpos=None,
                     step=False):
-        """Every layer over ``x``; under autograd each layer is one remat
-        body (``_remat``), as each pattern group is in the reference."""
+        """Every layer over ``x``; returns (x, aux): the MoE metrics summed
+        over layers (None without MoE, and in decode).  Under autograd each
+        layer is one remat body (``_remat``), as each pattern group is in
+        the reference."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            return self._run_hybrid(params, x, rope, cache, t, tpos, step)
+            return self._run_hybrid(params, x, rope, cache, t, tpos,
+                                    step), None
         layers = _unstack(params["layers"], cfg.num_layers)
+        aux = None
         for i, p in enumerate(layers):
             if cfg.family == "ssm":
                 state = (None if cache is None else
@@ -259,13 +284,18 @@ class LMModel:
                 def body(x, p=p, state=state):
                     return B.rwkv_block(p, x, cfg, self.routes, state=state,
                                         step=step)
-            else:
-                def body(x, p=p, i=i):
-                    return B.attn_block(p, x, cfg, self.meta, rope,
-                                        self.routes, cache=cache, layer=i,
-                                        t=t, tpos=tpos, step=step)
-            x = _remat(cfg, body, x)(x)
-        return x
+                x = _remat(cfg, body, x)(x)
+                continue
+
+            def body(x, p=p, i=i):
+                return B.attn_block(p, x, cfg, self.meta, rope, self.routes,
+                                    cache=cache, layer=i, t=t, tpos=tpos,
+                                    step=step)
+            x, aux_i = _remat(cfg, body, x)(x)
+            if aux_i is not None:
+                aux = aux_i if aux is None else {
+                    k: aux[k] + aux_i[k] for k in aux}
+        return x, aux
 
     def _run_hybrid(self, params, x, rope, cache, t, tpos, step):
         """Zamba2: groups of ``shared_attn_every`` Mamba2 layers, each
@@ -287,7 +317,7 @@ class LMModel:
             return B.attn_block(params["shared"], x, cfg, self.meta, rope,
                                 self.routes,
                                 cache=None if cache is None else cache["attn"],
-                                layer=g, t=t, tpos=tpos, step=step)
+                                layer=g, t=t, tpos=tpos, step=step)[0]
         for g in range(self.n_groups):      # the reference's remat'd scan
             x = _remat(cfg, functools.partial(group, g=g), x)(x)
         for j in range(self.n_tail):        # its unrolled tail: no remat
@@ -302,21 +332,29 @@ class LMModel:
         cfg = self.cfg
         x = self._embed_in(params, batch["tokens"])
         Bt, S = x.shape[:2]
-        x = self._run_layers(params, x, self._rope(
+        x, aux = self._run_layers(params, x, self._rope(
             rope_mod.positions_default(Bt, S, x.device)))
         h = L.norm(params["final_norm"], x, eps=cfg.norm_eps)
         tied = cfg.tie_embeddings
         w = params["embed"]["table"] if tied else params["lm_head"]["w"]
-        loss, denom = L.chunked_xent(
+        xent, denom = L.chunked_xent(
             h, batch["targets"], w, tied=tied, chunk=cfg.loss_chunk,
             mask=batch.get("loss_mask"))
-        return loss, {"xent": loss, "tokens": denom, "loss": loss}
+        metrics = {"xent": xent, "tokens": denom}
+        loss = xent
+        if cfg.moe is not None:
+            n = max(1, cfg.num_layers)
+            loss = loss + cfg.moe.aux_coef * aux["aux_loss"] / n \
+                + cfg.moe.router_z_coef * aux["z_loss"] / n
+            metrics.update({k: v / n for k, v in aux.items()})
+        metrics["loss"] = loss
+        return loss, metrics
 
     def logits_all(self, params, batch) -> torch.Tensor:
         """Full (B, S, V) teacher-forced logits (tests / tiny models)."""
         x = self._embed_in(params, batch["tokens"])
         Bt, S = x.shape[:2]
-        x = self._run_layers(params, x, self._rope(
+        x, _ = self._run_layers(params, x, self._rope(
             rope_mod.positions_default(Bt, S, x.device)))
         return self._logits(params, x)
 
@@ -327,7 +365,7 @@ class LMModel:
         x = self._embed_in(params, batch["tokens"])
         Bt, S = x.shape[:2]
         cache = batch["cache"]
-        x = self._run_layers(params, x, self._rope(
+        x, _ = self._run_layers(params, x, self._rope(
             rope_mod.positions_default(Bt, S, x.device)), cache=cache)
         return self._logits(params, x[:, -1:]), cache
 
@@ -346,6 +384,6 @@ class LMModel:
             raise ValueError(f"{len(t)} positions for {Bt} slots")
         x = self._embed_in(params, tokens)
         tpos = torch.tensor(t, dtype=torch.int32, device=x.device)
-        x = self._run_layers(params, x, self._rope(tpos[:, None]),
-                             cache=cache, t=t, tpos=tpos, step=True)
+        x, _ = self._run_layers(params, x, self._rope(tpos[:, None]),
+                                cache=cache, t=t, tpos=tpos, step=True)
         return L.per_row(lambda r: self._logits(params, r), x), cache

@@ -24,6 +24,7 @@ import torch
 
 import chip_smoke
 from repro_torch.configs import get_config
+from repro_torch.kernels import checksum
 from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.kernels.swiglu import ops as swiglu_ops
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -175,3 +176,91 @@ def test_chaos_phase_on_the_cpu(monkeypatch, tmp_path):
     assert entry["train"]["quarantined"] == [0, 1]
     assert entry["train"]["guard_trips"] == 1
     assert list(tmp_path.iterdir()) == []
+
+
+def test_zoo_phase_on_the_cpu(monkeypatch):
+    """``zoo_phase`` (phase 11) at smoke width with each model's full
+    vocabulary (the request draws depend on it): every check it makes on
+    the card passes (the canaries, both failover modes under the
+    transient and the persistent fault, the launch schedule, SW
+    bit-identity, the router-flip accounting, the ring), with the
+    wrappers counting their calls and a stand-in for the profiler that
+    counts the same kernels' launches.  The ring request is cut to 40
+    prompt tokens at max_len 56: mixtral-8x7b-smoke's window of 16 makes
+    the same wrap as the card's 4200 tokens over 4096 slots (the plain
+    attention over 4200 tokens takes half a minute on the CPU)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    counters = {name: types.SimpleNamespace(launches=0)
+                for name in ("checksum", "flash_attention", "swiglu_mlp")}
+
+    def counted(fn, name):
+        def call(*a, **kw):
+            counters[name].launches += 1
+            return fn(*a, **kw)
+        return call
+
+    def profile(torch_, cfg, hw_model, params, toks, cache, reqs, max_len,
+                dev):
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_len=max_len, max_slots=4, hw_route="hw"), device=dev)
+        sess = eng.session()
+        for r in reqs:
+            sess.submit(r)
+        while eng.occupancy() < 4:
+            sess.step()
+        res = {}
+        for name, fn in (("prefill", lambda: hw_model.prefill(
+                params, {"tokens": toks, "cache": cache})),
+                ("decode_tick_4", sess.step)):
+            n0 = {k: c.launches for k, c in counters.items()}
+            fn()
+            res[name] = {"attention_launches": counters[
+                "flash_attention"].launches - n0["flash_attention"],
+                "swiglu_calls": counters["swiglu_mlp"].launches
+                - n0["swiglu_mlp"]}
+        sess.close()
+        return res
+    monkeypatch.setattr(attention_ops, "flash_attention_bhsd", counted(
+        attention_ops.flash_attention_bhsd, "flash_attention"))
+    monkeypatch.setattr(swiglu_ops, "swiglu_fused", counted(
+        swiglu_ops.swiglu_fused, "swiglu_mlp"))
+    monkeypatch.setattr(chip_smoke, "profile_serving", profile)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda *a, **kw: 0.0)
+    # the Fig. 4 fold over the full vocabulary's weights takes seconds on
+    # the CPU; test_torch_checksum.py holds it against the plain fold
+    monkeypatch.setattr(checksum, "checksum_tree", lambda tree: 0)
+    monkeypatch.setattr(checksum, "checksum_tree_ref", lambda tree: 0)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "RING_PROMPT", 40)
+    monkeypatch.setattr(chip_smoke, "RING_MAX_LEN", 56)
+    configs = [(dataclasses.replace(get_config(c.name + "-smoke"),
+                                    vocab_size=c.vocab_size), stage)
+               for c, stage in chip_smoke.zoo_configs()]
+    entries, launches = chip_smoke.zoo_phase(configs, torch.device("cpu"),
+                                             counters)
+    assert list(entries) == [c.name for c, _ in configs]
+    L = {c.name: c.num_layers for c, _ in configs}
+    mistral, mixtral, llama4 = L
+    # the schedule of each serve, the same on the card at its depth
+    # (python3 chip_smoke.py on an H100: 480 and 650, 74 and 8, 58): per
+    # mode one launch a layer for each prefill and (SwiGLU) each tick while
+    # the stage is healthy, plus the 2 + 3 canary probes on the fault
+    # stage.  mistral: 6 prefills, and 8 SwiGLU calls (prefills and ticks)
+    # before its fault at step 4; the MoE models: 4 prefills before their
+    # attention fault
+    assert launches["checksum"] == {n: 0 for n in L}
+    assert launches["flash_attention"] == {
+        mistral: 2 * 6 * L[mistral], mixtral: 2 * (4 * L[mixtral] + 5),
+        f"{mixtral} ring": L[mixtral], llama4: 2 * (4 * L[llama4] + 5)}
+    assert launches["swiglu_mlp"] == {mistral: 2 * (8 * L[mistral] + 5)}
+    assert entries[mistral]["hw_vs_sw_logits"].get("router") is None
+    for name in (mixtral, llama4):
+        router = entries[name]["hw_vs_sw_logits"]["router"]
+        tf = router["teacher_forced"]
+        assert router["end_to_end"]["layers"] == tf["layers"] == L[name]
+        assert all(m < tf["drift"] for m in tf["margins"])
+    ring = entries[mixtral]["ring"]
+    assert ring["bit_identical"] and ring["cache_slots"] == 16 < 40
+    assert len(ring["tokens"]) == chip_smoke.RING_NEW

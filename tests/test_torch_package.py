@@ -48,7 +48,7 @@ def test_import_leaves_no_jax_or_reference_module():
         "       'repro_torch.checkpoint.manager', 'repro_torch.train.runner',\n"
         "       'repro_torch.launch.train', 'repro_torch.obs.report',\n"
         "       'repro_torch.chaos.schedule', 'repro_torch.chaos.invariants',\n"
-        "       'repro_torch.chaos.campaign']\n"
+        "       'repro_torch.chaos.campaign', 'repro_torch.models.moe']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -132,13 +132,17 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen1.5-4b-smoke",
                                   "zamba2-1.2b", "zamba2-1.2b-smoke",
-                                  "rwkv6-1.6b", "rwkv6-1.6b-smoke"])
+                                  "rwkv6-1.6b", "rwkv6-1.6b-smoke",
+                                  "mistral-nemo-12b", "mistral-nemo-12b-smoke",
+                                  "mixtral-8x7b", "mixtral-8x7b-smoke",
+                                  "llama4-scout-17b-a16e",
+                                  "llama4-scout-17b-a16e-smoke"])
 def test_config_copy_matches_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(ref_configs.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x7b",
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-7b",
                                   "gemma3-1b-smoke", "whisper-base"])
 def test_unported_arch_names_its_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -106,6 +106,34 @@ def test_plan_validation_matches():
     assert a == b and hash(a) == hash(b)
 
 
+def test_plan_fallback_stages_and_resolve_match():
+    """``fallback_stages`` and ``resolve`` (the reference's
+    ``tests/test_oobleck.py`` plan case, over both packages)."""
+    plans = []
+    for routing, fault in ((ref_routing, ref_fault), (pt_routing, pt_fault)):
+        sig = fault.FaultSignature.healthy(["s0", "s1", "s2"]).with_fault(
+            "s1")
+        plan = routing.RoutingPlan.from_signature(sig, healthy="interpret")
+        assert plan.fallback_stages() == ("s1",)
+        assert plan.with_fault("s2").fallback_stages() == ("s1", "s2")
+        assert plan.fallback_stages("interpret") == ("s0", "s2")
+        plans.append(plan)
+    assert plans[0].assignments == plans[1].assignments
+    # resolve(spec) == spec.lower(target_for(spec.name)), every target
+    spec = pt_lang.OpSpec(name="toy", ref=lambda x: x + 1,
+                          kernel=lambda x: x + 2)
+    ref_spec = ref_lang.OpSpec(name="toy", ref=lambda x: x + 1,
+                               kernel=lambda x: x + 2)
+    for target in ("hw", "sw"):
+        got = pt_routing.RoutingPlan.make({"toy": target}).resolve(spec)
+        want = ref_routing.RoutingPlan.make({"toy": target}).resolve(
+            ref_spec)
+        assert got(0) == want(0) == spec.lower(target)(0) == \
+            (2 if target == "hw" else 1)
+    with pytest.raises(KeyError, match="not in routing plan"):
+        pt_routing.RoutingPlan.make({"other": "hw"}).resolve(spec)
+
+
 def test_fault_state_matches():
     rs, ps = ref_fault.FaultState(), pt_fault.FaultState()
     for st in (rs, ps):
