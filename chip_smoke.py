@@ -10,11 +10,13 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              nvcc (all sources at once) into ``build/repro_torch/``; print
              each SwiGLU, attention, SSD and WKV kernel's registers, static
              shared memory, stack and spills from ``-Xptxas -v`` (and
-             whether ptxas serialized its wgmma: C7510-C7520), and hold each
+             whether ptxas serialized its wgmma: C7510-C7520; attention's
+             head-dim-256 instantiation ``flash_attn_fwd<1, 4, 4, *>``
+             among them), and hold each
              SwiGLU ring's and each attention plan's dynamic shared memory
              (every shape this run launches, phase 11's SwiGLU at
-             5120 -> 14336 for M = 1-128 and its attention prompts
-             included) against the Python plan's, and
+             5120 -> 14336 and 2304 -> 9216 for M = 1-128 and its attention
+             prompts included) against the Python plan's, and
              each WKV and SSD launch plan (grids, group size, scratch,
              shared memory; the parity cases and every serving prompt
              length) against the compiled library's;
@@ -61,13 +63,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              Dv = 126 (the pad path), and phase 11's prefills (GQA
              32 -> 8 at P = 16 and 128, the same under a 4096 window at
              P = 128 and over mixtral-8x7b's 4200-token ring prompt, GQA
-             40 -> 8 at P = 16 and 128); and its bits: two calls, the
+             40 -> 8 at P = 16 and 128; gemma2-2b's head dim 256 with
+             GQA 8 -> 4 and the softcap 50 under its 4096 window at
+             P = 128 and a ragged 200, and over the 4200-token ring prompt
+             with and without the window); and its bits: two calls, the
              contiguous (B, H, S, D) copies and ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
              zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
              sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
              x (64, 128) x (128, 64); mistral-nemo-12b 5120 -> 14336: M in
-             {4, 16, 128}), then SwiGLU's bits: each row of an
+             {4, 16, 128}; gemma2-2b's GeGLU, the kernel's tanh-gelu,
+             2304 -> 9216: M in {4, 128}), then SwiGLU's bits: each row of an
              M = 4 row-independent call equals that row alone, and two
              runs agree, at decode and at prefill;
 3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
@@ -142,8 +148,11 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              shape and at qwen1.5-4b P = 2048; the checksum over 1 GiB of
              bf16 and over the 64-byte AES canary; attention also at
              mistral-nemo-12b's and llama4-scout's P = 128 and mixtral-8x7b's
-             P = 4200 under its window, SwiGLU at mistral-nemo-12b's M = 4
-             and 128; attention, SwiGLU, the
+             P = 4200 under its window, gemma2-2b's head dim 256 with its
+             softcap at P = 128 and 4200, windowed and global (the library
+             call: sdpa without the softcap, which no PyTorch call
+             applies), SwiGLU at mistral-nemo-12b's M = 4 and 128 and
+             gemma2-2b's GeGLU at M = 4 and 128; attention, SwiGLU, the
              SSD (also on the model's strided views, where the profiler
              must see no kernel but the SSD's: no copy) and the WKV also
              the profiler's device time a call, kernel by kernel, the
@@ -221,34 +230,39 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              the campaigns' own summaries (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
 11. zoo    — mistral-nemo-12b (40 of 40 layers), mixtral-8x7b (8 of 32:
-             8 experts top-2, a 4096-token window on every layer) and
+             8 experts top-2, a 4096-token window on every layer),
              llama4-scout-17b-a16e (6 of 48: 16 experts top-1 and a
-             shared expert) at full width, each built (weights drawn
-             straight into bf16), served and freed in turn, its peak
-             memory printed.  Each goes through phases 4-5 and its serve
-             times as above (``serve_path``): 6 requests of 16-128 prompt
-             tokens and 8-16 new on 4 slots, the fault on ``swiglu_mlp``
-             (mistral) or ``flash_attention`` (the MoE models, which have
-             no SwiGLU stage); per prefill one attention launch a layer
-             and for mistral one SwiGLU launch a layer per prefill and per
-             tick.  For the MoE models the HW route changes only
-             attention, but bf16 drift can flip a near-tied router choice:
+             shared expert) and gemma2-2b (26 of 26: head dim 256, local
+             and global layers in turn, both softcaps, post-norms, GeGLU)
+             at full width, each built (weights drawn straight into
+             bf16), served and freed in turn, its peak memory printed.
+             Each goes through phases 4-5 and its serve times as above
+             (``serve_path``): 6 requests of 16-128 prompt tokens and 8-16
+             new on 4 slots, the fault on ``swiglu_mlp`` (mistral) or
+             ``flash_attention`` (the MoE models, which have no SwiGLU
+             stage, and gemma2); per prefill one attention launch a layer
+             and for mistral and gemma2 one SwiGLU launch a layer per
+             prefill and per tick.  For the MoE models the HW route
+             changes only attention, but bf16 drift can flip a near-tied
+             router choice:
              every layer's top-k choice is recorded on both routes, end to
              end and layer by layer from the same input; with no flip end
              to end the 5% logits bound holds, and layer by layer each
              attention must hold 5% and every flipped token's router
              margin lie below the largest probability drift on the tokens
-             that did not flip.  mixtral's ring: one request of 4200
-             prompt tokens and 8 new at max_len 4224 (a 4096-slot cache),
-             the SW engine bit-identical to ``reference_decode``, the
-             P = 4200 HW prefill timed (rehearsed on the CPU by
+             that did not flip.  The ring (mixtral, gemma2): one request
+             of 4200 prompt tokens and 8 new at max_len 4224, so each
+             windowed layer's 4096-slot cache wraps and each of gemma2's
+             global layers keeps 4224 slots in order, the SW engine
+             bit-identical to ``reference_decode``, the P = 4200 HW
+             prefill timed (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
 case studies, the fleet runs, the two ranks of phase 9, the chaos
-campaigns, and each phase-11 model's serve and mixtral's ring prefill);
+campaigns, and each phase-11 model's serve and ring prefill);
 the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -302,6 +316,17 @@ ATTN_CASES = (
     (1, 4200, 4200, 32, 8, 128, 128, dict(causal=True, window=4096)),
     (1, 16, 16, 40, 8, 128, 128, dict(causal=True)),
     (1, 128, 128, 40, 8, 128, 128, dict(causal=True)),
+    # gemma2-2b (GQA 8 -> 4, head dim 256, attention softcap 50): a local
+    # layer's prefill at P = 128, a ragged one (Sq = 200), and the
+    # 4200-token ring prompt through a local (window 4096) and a global
+    # layer
+    (1, 128, 128, 8, 4, 256, 256, dict(causal=True, window=4096,
+                                       softcap=50.0)),
+    (1, 200, 200, 8, 4, 256, 256, dict(causal=True, window=4096,
+                                       softcap=50.0)),
+    (1, 4200, 4200, 8, 4, 256, 256, dict(causal=True, window=4096,
+                                         softcap=50.0)),
+    (1, 4200, 4200, 8, 4, 256, 256, dict(causal=True, softcap=50.0)),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -1749,7 +1774,7 @@ def router_teacher_forced(cfg, params, prompt):
     rope = model._rope(rope_mod.positions_default(1, prompt.shape[1],
                                                   x.device))
     kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
-              head_dim=cfg.resolved_head_dim, window=model.meta.window,
+              head_dim=cfg.resolved_head_dim, window=model.metas[0].window,
               softcap=cfg.attn_softcap, scale=cfg.attn_scale, causal=True,
               kv_chunk=cfg.attn_chunk)
 
@@ -1768,7 +1793,7 @@ def router_teacher_forced(cfg, params, prompt):
             hr = Lm.norm(p["ln2"], x + att[r], eps=cfg.norm_eps)
             probs[r].append(torch.softmax(hr.float() @ p["moe"]["router"],
                                           dim=-1))
-        x = B.attn_block(p, x, cfg, model.meta, rope,
+        x = B.attn_block(p, x, cfg, model.metas[0], rope,
                          {"flash_attention": SW})[0]
     return probs, worst
 
@@ -2043,17 +2068,20 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
     return entry, counts
 
 
-# The model zoo (phase 11): the three architectures this slice ports, at
-# full width on one card, depth cut where the weights would not fit: (arch,
-# layers served, fault stage).  Each is built, served and freed in turn.
+# The model zoo (phase 11): the architectures served after the main path,
+# at full width on one card, depth cut where the weights would not fit:
+# (arch, layers served, fault stage).  Each is built, served and freed in
+# turn.
 ZOO = (("mistral-nemo-12b", 40, "swiglu_mlp"),
        ("mixtral-8x7b", 8, "flash_attention"),
-       ("llama4-scout-17b-a16e", 6, "flash_attention"))
+       ("llama4-scout-17b-a16e", 6, "flash_attention"),
+       ("gemma2-2b", 26, "flash_attention"))
 ZOO_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                     arrival_every=2, per_arrival=2)
 ZOO_PREFILL = 128
-# mixtral's ring at full width: a prompt longer than the 4096-token window,
-# at a max_len whose cache is the window (Smax = min(4224, 4096))
+# the ring at full width (mixtral-8x7b, gemma2-2b): a prompt longer than
+# the 4096-token window, at a max_len whose windowed caches are the window
+# (Smax = min(4224, 4096)) and whose global caches (gemma2's) are 4224
 RING_PROMPT, RING_NEW, RING_MAX_LEN = 4200, 8, 4224
 
 
@@ -2066,12 +2094,15 @@ def zoo_configs():
 
 def ring_check(cfg, dev, wrappers, params):
     """One request of ``RING_PROMPT`` tokens and ``RING_NEW`` new at
-    ``RING_MAX_LEN``: the cache holds ``min(RING_MAX_LEN, window)`` slots,
-    so the prefill wraps the ring and decode keeps wrapping it.  The SW
-    engine equals ``reference_decode`` bit for bit (and launches nothing);
-    the HW prefill of the prompt makes one attention launch a layer (the
-    path's count) and is timed.  Returns (its report entry, the HW
-    prefill's launches)."""
+    ``RING_MAX_LEN``: a windowed layer's cache holds ``min(RING_MAX_LEN,
+    window)`` slots, so the prefill wraps its ring and decode keeps
+    wrapping it; a global layer's (gemma2's every other layer) holds
+    ``RING_MAX_LEN`` and does not wrap.  After the serve each windowed
+    layer holds the last positions written, each global layer every
+    position in order.  The SW engine equals ``reference_decode`` bit for
+    bit (and launches nothing); the HW prefill of the prompt makes one
+    launch a layer of each kernel of the path and is timed.  Returns (its
+    report entry, the HW prefill's launches)."""
     import numpy as np
     import torch
 
@@ -2087,13 +2118,29 @@ def ring_check(cfg, dev, wrappers, params):
     req = Request(rid=0, prompt=prompt, max_new_tokens=RING_NEW)
     eng = ServeEngine(cfg, params, ServeConfig(
         max_len=RING_MAX_LEN, max_slots=1, hw_route=SW), device=dev)
-    smax = eng._caches["k"].shape[2]
-    check(smax == min(RING_MAX_LEN, cfg.window) < RING_PROMPT,
-          f"{cfg.name}: the ring cache has {smax} slots")
     before = [w.launches for w in wrappers.values()]
     t0 = time.perf_counter()
     done, _ = eng.serve([req])
     sw_s = time.perf_counter() - t0
+    # {kind: (layers, slots)}: one stacked cache ("all") or local + global
+    kv = eng._caches if "k" not in eng._caches else {"all": eng._caches}
+    slots = {n: tuple(c["k"].shape[i] for i in (0, 2)) for n, c in kv.items()}
+    want = {n: RING_MAX_LEN if n == "global" else
+            min(RING_MAX_LEN, cfg.window) for n in kv}
+    check({n: s_ for n, (_, s_) in slots.items()} == want
+          and sum(n_ for n_, _ in slots.values()) == cfg.num_layers
+          and min(want.values()) < RING_PROMPT,
+          f"{cfg.name}: the ring caches hold {slots} (layers, slots)")
+    written = RING_PROMPT + RING_NEW - 1       # the last token is not fed
+    for n, c in kv.items():
+        pos = c["pos"][:, 0].sort(-1).values.cpu()
+        keep = torch.arange(max(0, written - want[n]), written,
+                            dtype=pos.dtype)
+        got = pos[:, -keep.numel():]
+        check(torch.equal(got, keep.expand_as(got))
+              and bool((pos[:, :-keep.numel()] == -1).all()),
+              f"{cfg.name}: the {n} caches do not hold positions "
+              f"{int(keep[0])}..{written - 1}")
     ref = reference_decode(cfg, eng.params, prompt, RING_NEW,
                            max_len=RING_MAX_LEN)
     check([w.launches for w in wrappers.values()] == before,
@@ -2116,12 +2163,15 @@ def ring_check(cfg, dev, wrappers, params):
     ms = time_ms(torch, lambda: hw.prefill(params, {"tokens": toks,
                                                     "cache": cache}), 3)
     entry = {"prompt": RING_PROMPT, "new": RING_NEW, "max_len": RING_MAX_LEN,
-             "cache_slots": smax, "sw_serve_s": sw_s,
-             "tokens": done[0].tokens.tolist(),
+             "cache_slots": min(want.values()),
+             "caches": {n: {"layers": slots[n][0], "slots": slots[n][1],
+                            "wraps": want[n] < written} for n in kv},
+             "sw_serve_s": sw_s, "tokens": done[0].tokens.tolist(),
              "bit_identical": same, f"hw_prefill_ms_P{RING_PROMPT}": ms}
-    out(f"[zoo] {cfg.name} ring: P={RING_PROMPT} into {smax} slots, "
-        f"{RING_NEW} new: SW engine bit-identical to reference_decode "
-        f"({sw_s:.2f} s); HW prefill {ms:.2f} ms, launches {counts}")
+    out(f"[zoo] {cfg.name} ring: P={RING_PROMPT}, {RING_NEW} new, caches "
+        f"{json.dumps(entry['caches'])}: SW engine bit-identical to "
+        f"reference_decode ({sw_s:.2f} s); HW prefill {ms:.2f} ms, "
+        f"launches {counts}")
     return entry, counts
 
 
@@ -2275,19 +2325,22 @@ def main() -> int:
               f"swiglu ring nwg={nwg} nsub={nsub}: compiled {got} B, plan "
               f"{ring_bytes(nwg, nsub)} B")
     report["swiglu_rings"] = rings
-    # every SwiGLU plan phase 11 launches (mistral-nemo-12b 5120 -> 14336:
-    # prefill rows 16-128, decode rows 1-4) takes a ring checked above
+    # every SwiGLU plan phase 11 launches (mistral-nemo-12b 5120 -> 14336
+    # and gemma2-2b 2304 -> 9216: prefill rows 16-128, decode rows 1-4)
+    # takes a ring checked above
     zoo = [c for c, _ in zoo_configs()]
     mistral = next(c for c in zoo if "swiglu_mlp" in model_stage_names(c))
-    for M in range(1, ZOO_WORKLOAD["max_prompt"] + 1):
-        pl = swiglu_plan(M, mistral.d_model, mistral.d_ff, mistral.d_model,
-                         row_independent=M <= 4)
-        check(pl.path == "wgmma" and pl.smem == (
-            rings[f"nwg={pl.nwg} nsub=0"],
-            rings[f"nwg={pl.nwg} nsub={pl.nsub}"]),
-            f"swiglu plan {mistral.name} M={M}: {pl}")
-        if M in (4, ZOO_PREFILL):
-            out(f"[build] swiglu {mistral.name} M={M}: {pl}")
+    gemma = next(c for c in zoo if c.name == "gemma2-2b")
+    for c in (mistral, gemma):
+        for M in range(1, ZOO_WORKLOAD["max_prompt"] + 1):
+            pl = swiglu_plan(M, c.d_model, c.d_ff, c.d_model,
+                             row_independent=M <= 4)
+            check(pl.path == "wgmma" and pl.smem == (
+                rings[f"nwg={pl.nwg} nsub=0"],
+                rings[f"nwg={pl.nwg} nsub={pl.nsub}"]),
+                f"swiglu plan {c.name} M={M}: {pl}")
+            if M in (4, ZOO_PREFILL):
+                out(f"[build] swiglu {c.name} M={M}: {pl}")
     out(f"[build] swiglu dynamic shared memory by ring (nsub 0: phase A), "
         f"as the plan computes it: {rings}")
     # attention: every plan this run launches (the parity cases below, the
@@ -2598,7 +2651,7 @@ def main() -> int:
                 randn(Dm, Ff, scale=Dm ** -0.5),
                 randn(Ff, Dm, scale=Ff ** -0.5))
 
-    def swiglu_parity(Dm, Ff, rows, Do=None, tag=""):
+    def swiglu_parity(Dm, Ff, rows, Do=None, tag="", act="silu"):
         w1, w3, w2 = swiglu_weights(Dm, Ff)
         w2 = w2[:, :Do or Dm]           # a narrow w2 is a strided view
         Do = w2.shape[1]
@@ -2608,13 +2661,13 @@ def main() -> int:
             for kind in (None,) + KINDS:
                 fault = None if kind is None else LaneFault(
                     kind, (5, max(0, Do - 60)), Do)
-                got = swiglu_fused(x, w1, w3, w2, lane_fault=fault)
+                got = swiglu_fused(x, w1, w3, w2, act=act, lane_fault=fault)
                 torch.cuda.synchronize()
-                want = swiglu_ref_blocked(x, w1, w3, w2, bm=bm, bf=bf, bs=bs,
-                                          lane_fault=fault)
+                want = swiglu_ref_blocked(x, w1, w3, w2, act=act, bm=bm,
+                                          bf=bf, bs=bs, lane_fault=fault)
                 max_err["swiglu_mlp"] = max(
                     max_err["swiglu_mlp"],
-                    compare(f"swiglu {Dm}->{Ff}->{Do}{tag} M={M} "
+                    compare(f"swiglu {act} {Dm}->{Ff}->{Do}{tag} M={M} "
                             f"fault={kind}", got, want, SWIGLU_TOL))
 
     def swiglu_bits(cfg, prefill_rows):
@@ -2649,6 +2702,8 @@ def main() -> int:
     swiglu_bits(zamba, 384)
     swiglu_parity(mistral.d_model, mistral.d_ff, (4, 16, ZOO_PREFILL))
     swiglu_bits(mistral, ZOO_PREFILL)
+    # gemma2-2b's GeGLU (tanh-gelu, act = 1 in csrc/swiglu.cu)
+    swiglu_parity(gemma.d_model, gemma.d_ff, (4, ZOO_PREFILL), act="gelu")
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2911,19 +2966,30 @@ def main() -> int:
     # 32 -> 8 and 40 -> 8) and mixtral-8x7b's 4200-token ring prompt under
     # its 4096-token window (sdpa takes the window as a boolean mask); with
     # a window the bound counts the (query, key) pairs it admits.
+    # gemma2-2b (head dim 256, the attention softcap 50) at a local
+    # layer's P = 128 and over the 4200-token ring prompt through a local
+    # and a global layer: no PyTorch call applies a tanh softcap, so its
+    # library time is sdpa on the same shapes without one.
     attn = {}
-    mixtral = next(c for c in zoo if c.window)
+    mixtral = next(c for c in zoo if c.window and c.moe is not None)
     llama4 = next(c for c in zoo if c.moe is not None and not c.window)
-    for cfg, P in ((qwen, 128), (zamba, 384), (qwen, 2048), (mistral, 128),
-                   (llama4, 128), (mixtral, RING_PROMPT)):
+    for cfg, P, W, cap in ((qwen, 128, 0, 0), (zamba, 384, 0, 0),
+                           (qwen, 2048, 0, 0), (mistral, 128, 0, 0),
+                           (llama4, 128, 0, 0),
+                           (mixtral, RING_PROMPT, mixtral.window, 0),
+                           (gemma, 128, gemma.window, gemma.attn_softcap),
+                           (gemma, RING_PROMPT, gemma.window,
+                            gemma.attn_softcap),
+                           (gemma, RING_PROMPT, 0, gemma.attn_softcap)):
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        W = cfg.window
         qs_ = randn(1, P, H, D).transpose(1, 2)
         ks_, vs_ = (randn(1, P, Hkv, D).transpose(1, 2) for _ in range(2))
         q, k, v = (t.contiguous() for t in (qs_, ks_, vs_))
         pad = -(-P // 128) * 128 - P
         qp, kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         wkw = dict(window=W) if W else {}
+        if cap:
+            wkw["softcap"] = cap
         akw = dict(causal=True, kv_len=P, bq=128, bk=128, **wkw)
         pos = torch.arange(P, device=dev)
         lkw = dict(is_causal=True) if not W else dict(
@@ -2936,7 +3002,8 @@ def main() -> int:
         ms, by = bound((2 * q.numel() + 2 * k.numel()) * 2, flops)
         key = (f"B=1 H={H} P={P} D={D} causal" if Hkv == H and not W else
                f"B=1 H={H} Hkv={Hkv} P={P} D={D} causal"
-               + (f" window={W}" if W else ""))
+               + (f" window={W}" if W else "")
+               + (f" softcap={cap:g}" if cap else ""))
         attn[key] = {
             "ms": time_ms(torch, lambda: flash_attention_bhsd(
                 qs_, ks_, vs_, causal=True, **wkw), 50),
@@ -2945,6 +3012,8 @@ def main() -> int:
             "bound_ms": ms, "bound_by": by,
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, **lkw), 50)}
+        if cap:
+            attn[key]["library_note"] = "sdpa without the softcap"
         attn[key].update(device_ms(lambda: flash_attention_bhsd(
             qs_, ks_, vs_, causal=True, **wkw), "flash_attn_fwd")[0])
         if P <= 384:
@@ -2966,26 +3035,29 @@ def main() -> int:
         "B=1 H=20 P=128 D=128 causal", **attn["B=1 H=20 P=128 D=128 causal"]))
 
     shapes, swiglu_kernels = {}, {}
+    gates = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh")}
     for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384),
-                   (mistral, 4), (mistral, ZOO_PREFILL)):
-        Dm, Ff = cfg.d_model, cfg.d_ff
+                   (mistral, 4), (mistral, ZOO_PREFILL), (gemma, 4),
+                   (gemma, ZOO_PREFILL)):
+        Dm, Ff, act = cfg.d_model, cfg.d_ff, cfg.mlp_act
         w1, w3, w2 = swiglu_weights(Dm, Ff)
         x = randn(M, Dm)
         bm, bf, bs = default_tiles(M, Ff)
         ms, by = bound((x.numel() + w1.numel() + w3.numel() + w2.numel()
                         + M * Dm) * 2, swiglu_flops(M, Dm, Ff))
-        key = f"{cfg.name} M={M}"
+        key = f"{cfg.name} M={M}" + (f" {act}" if act != "silu" else "")
         shapes[key] = {
-            "ms": time_ms(torch, lambda: swiglu_fused(x, w1, w3, w2), 20),
+            "ms": time_ms(torch, lambda: swiglu_fused(x, w1, w3, w2,
+                                                      act=act), 20),
             "plain_ms": time_ms(torch, lambda: swiglu_ref_blocked(
-                x, w1, w3, w2, bm=bm, bf=bf, bs=bs), 2, warmup=1),
+                x, w1, w3, w2, act=act, bm=bm, bf=bf, bs=bs), 2, warmup=1),
             "library_ms": time_ms(torch, lambda: (
-                F.silu(x @ w1) * (x @ w3)) @ w2, 20),
+                gates[act](x @ w1) * (x @ w3)) @ w2, 20),
             "bound_ms": ms, "bound_by": by}
         # the kernels' own device time a call (torch.profiler), beside the
         # event time above, which also holds the wrapper's host time
         device_times, names = device_ms(
-            lambda: swiglu_fused(x, w1, w3, w2), "swiglu_")
+            lambda: swiglu_fused(x, w1, w3, w2, act=act), "swiglu_")
         shapes[key].update(device_times)
         shapes[key]["share_of_bound"] = shapes[key]["bound_ms"] / \
             shapes[key]["ms"]

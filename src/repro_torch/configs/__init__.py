@@ -7,6 +7,7 @@ item that brings it.
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.gemma2_2b import CONFIG as _GEMMA2_2B
 from repro_torch.configs.llama4_scout_17b import CONFIG as _LLAMA4_SCOUT
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _MISTRAL_NEMO
 from repro_torch.configs.mixtral_8x7b import CONFIG as _MIXTRAL_8X7B
@@ -17,12 +18,12 @@ from repro_torch.configs.zamba2_1p2b import CONFIG as _ZAMBA2_1P2B
 _CONFIGS = {"qwen1.5-4b": _QWEN1P5_4B, "zamba2-1.2b": _ZAMBA2_1P2B,
             "rwkv6-1.6b": _RWKV6_1P6B, "mistral-nemo-12b": _MISTRAL_NEMO,
             "mixtral-8x7b": _MIXTRAL_8X7B,
-            "llama4-scout-17b-a16e": _LLAMA4_SCOUT}
+            "llama4-scout-17b-a16e": _LLAMA4_SCOUT, "gemma2-2b": _GEMMA2_2B}
 
 # Reference architectures not yet ported -> the ROADMAP queue item.
 _PENDING = {
-    "gemma2-2b": "queue 1 item 12.1 (gemma2/gemma3)",
-    "gemma3-1b": "queue 1 item 12.1 (gemma2/gemma3)",
+    "gemma3-1b": "queue 1 item 12.1 (gemma3-1b: qk-norm, a local rope "
+                 "theta, a 5:1 local/global pattern with a tail)",
     "qwen2-vl-7b": "queue 1 item 12.5 (qwen2-vl, M-RoPE)",
     "whisper-base": "queue 1 item 12.6 (whisper, encdec)",
 }

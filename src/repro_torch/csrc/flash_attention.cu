@@ -59,15 +59,20 @@
 //     for every call of a shape: the same inputs give the same bits, and a
 //     strided view gives the bits of its contiguous copy.
 //
-// Head dim 256 (not compiled: no ported config uses it): a 64 x 256 f32 O
-// is 128 registers a thread of a consumer warpgroup; with S and P at
-// BK = 64 (32 + 16) and addresses that is about 200, which leaves room for
-// one consumer warpgroup a block only (NWG = 1: 5 warps, 2 blocks a SM
-// cap a thread at 200 registers).  Its shared memory: two Q tiles of 32 KB
-// and 64 KB a K/V stage, so two stages at 1 block a SM (193 KB), with P V
-// as one m64n256k16 (or two m64n128k16) per 16 keys.
+// Head dims 129-256 (gemma2-2b's 256): KD = VB = 3 or 4 boxes, one
+// consumer warpgroup a block (NWG = 1) and one block a SM.  A 64 x 256 f32
+// O is 128 registers a consumer thread, and with S and P at BK = 64 (32 +
+// 16) and the addresses the thread needs about 200: the launch bounds ask
+// for one block a SM, so ptxas may give a thread up to 255 (5 warps a SM
+// leave registers to spare, so the producer warp need not hand any over
+// with ``setmaxnreg``).  P V is two m64n128k16 halves per 16 keys (at VB
+// = 3 an m64n128k16 and an m64n64k16), each over its own 64-column boxes
+// of the V stage.  Shared memory at KD = VB = 4: two 32 KB Q tiles and
+// 64 KB a K/V stage, so two stages (197,696 B); at KD = VB = 3, three.
+// Other pairs above 2 (D and Dv in different box counts) are not compiled.
 //
-// Requirements checked by the C entry: D, Dv <= 128; 16-byte aligned
+// Requirements checked by the C entry: D, Dv <= 256, and (KD, VB) one of
+// the compiled pairs, at NWG = 1 above 128; 16-byte aligned
 // pointers; strides that TMA takes (the wrapper pads a row whose stride is
 // not a multiple of 16 bytes).  Any Sq, Skv: ragged edges are zero-filled
 // by TMA and masked on store.
@@ -88,7 +93,7 @@ constexpr int COLS = 64;         // head dims per box: 128 bytes, one swizzle ro
 constexpr int QROWS = 64;        // query rows per consumer warpgroup
 constexpr int BK = 64;           // keys a K/V stage
 constexpr int WG = 128;          // threads per warpgroup
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;  // a Hopper block's dynamic shared memory
 constexpr float NEG_INF = -1e30f;   // finite, as in the reference kernel
@@ -227,10 +232,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// O(64 x 64, f32) = P(64 x 16, bf16 pairs in registers) V(16 x 64,
-// MN-major) + (scale_d ? O : 0): the RS form (imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db, int scale_d) {
+#define ACC8O(i)                                                         \
+  "+f"(d[OFF + i]), "+f"(d[OFF + i + 1]), "+f"(d[OFF + i + 2]),          \
+      "+f"(d[OFF + i + 3]), "+f"(d[OFF + i + 4]), "+f"(d[OFF + i + 5]),  \
+      "+f"(d[OFF + i + 6]), "+f"(d[OFF + i + 7])
+
+// O[OFF, OFF + 32) (64 x 64, f32) = P(64 x 16, bf16 pairs in registers)
+// V(16 x 64, MN-major) + (scale_d ? O : 0): the RS form (imm-trans-b = 1).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[N], const uint32_t* a,
+                                           uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -239,13 +250,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : ACC8O(0), ACC8O(8), ACC8O(16), ACC8O(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// O(64 x 128) as above, Dv = 128: V's two 64-column boxes, LBO apart.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db, int scale_d) {
+// O[OFF, OFF + 64) (64 x 128) as above: two 64-column boxes of V, LBO apart.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs128(float (&d)[N], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -258,9 +270,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
-        ACC8(56)
+      : ACC8O(0), ACC8O(8), ACC8O(16), ACC8O(24), ACC8O(32), ACC8O(40),
+        ACC8O(48), ACC8O(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef ACC8O
+
+// O (64 x 64 VB, f32) += P V over VB 64-column boxes of V, 128 columns a
+// product and a last m64n64 for an odd box: register i of O is column
+// 8 (i / 4) + 2 t + i % 2 throughout, as one m64n(64 VB) product lays it
+// out.  ``db`` addresses box 0; box c starts c boxes of BK rows later.
+template <int NO>
+__device__ __forceinline__ void wgmma_pv(float (&d)[NO], const uint32_t* a,
+                                         uint64_t db, int scale_d) {
+  constexpr uint64_t BOX16 = (BK * 128) >> 4;  // one box, 16-byte units
+  static_assert(NO % 32 == 0 && NO <= 128, "1 to 4 boxes of V");
+  if constexpr (NO >= 64) wgmma_rs128<0>(d, a, db, scale_d);
+  if constexpr (NO >= 128) wgmma_rs128<64>(d, a, db + 2 * BOX16, scale_d);
+  if constexpr (NO % 64) wgmma_rs64<NO - 32>(d, a, db + (NO / 32 - 1) * BOX16,
+                                             scale_d);
 }
 
 #undef ACC8
@@ -366,7 +395,9 @@ __device__ __forceinline__ int nth_item(int n, int items) {
 }
 
 // grid: persistent blocks; block NWG consumer warpgroups then one producer
-// warp.  KD, VB: 64-column boxes of a Q / K row and of a V row (1 or 2).
+// warp.  KD, VB: 64-column boxes of a Q / K row and of a V row (1 or 2,
+// or KD = VB = 3 or 4 at NWG = 1: one block a SM, so up to 255 registers
+// a thread).
 //
 // The producer loads each item's Q tile into one of two buffers (as soon as
 // the consumers have released it) and its K/V tiles into the ring, which
@@ -378,7 +409,8 @@ __device__ __forceinline__ int nth_item(int n, int items) {
 // The last tile's P V follows the loop; the store of an item's output runs
 // while the next item's loads are in flight.
 template <int NWG, int KD, int VB, bool FAULT>
-__global__ void __launch_bounds__(NWG * WG + 32, NWG == 1 ? 2 : 1)
+__global__ void __launch_bounds__(NWG * WG + 32,
+                                  NWG == 1 && KD <= 2 ? 2 : 1)
 flash_attn_fwd(const __grid_constant__ CUtensorMap tmQ,
                const __grid_constant__ CUtensorMap tmK,
                const __grid_constant__ CUtensorMap tmV, const AttnArgs a,
@@ -508,7 +540,7 @@ flash_attn_fwd(const __grid_constant__ CUtensorMap tmQ,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         // +16 keys: 16 rows of 128 bytes; the first product overwrites O
-        wgmma_rs(O, P + 4 * kk, make_desc(vaddr, KVBOX, 1024) + 128 * kk,
+        wgmma_pv(O, P + 4 * kk, make_desc(vaddr, KVBOX, 1024) + 128 * kk,
                  (done > 0 || kk > 0) ? 1 : 0);
       wgmma_commit();
       wgmma_wait<1>();  // S only: the P V product runs on
@@ -548,7 +580,7 @@ flash_attn_fwd(const __grid_constant__ CUtensorMap tmQ,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(O, P + 4 * kk, make_desc(vaddr, KVBOX, 1024) + 128 * kk,
+        wgmma_pv(O, P + 4 * kk, make_desc(vaddr, KVBOX, 1024) + 128 * kk,
                  (done > 0 || kk > 0) ? 1 : 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -689,6 +721,12 @@ int dispatch(int kd, int vb, const CUtensorMap& q, const CUtensorMap& k,
     case 9: return launch<NWG, 2, 1, FAULT>(q, k, v, a, f, grid, s);
     case 10: return launch<NWG, 2, 2, FAULT>(q, k, v, a, f, grid, s);
   }
+  if constexpr (NWG == 1) {  // head dims 129-256: one warpgroup a block
+    switch (kd * 4 + vb) {
+      case 15: return launch<1, 3, 3, FAULT>(q, k, v, a, f, grid, s);
+      case 20: return launch<1, 4, 4, FAULT>(q, k, v, a, f, grid, s);
+    }
+  }
   return ERR_ARGS;
 }
 
@@ -722,7 +760,7 @@ extern "C" int flash_attention_fwd(const Params* p) {
       p->D > DMAX || p->Dv < 1 || p->Dv > DMAX || p->kv_len < 1 ||
       p->kv_len > p->Skv || p->stages < 2 || p->stages > MAX_STAGES ||
       smem_bytes(p->nwg, kd, vb, p->stages) > SMEM_LIMIT ||
-      (p->o & 3))
+      ((kd > 2 || vb > 2) && (p->nwg != 1 || kd != vb)) || (p->o & 3))
     return ERR_ARGS;
   AttnArgs a;
   CUtensorMap mq, mk, mv;

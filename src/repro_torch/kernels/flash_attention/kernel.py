@@ -4,7 +4,9 @@ Replaces the Pallas kernel ``flash_attention_bhsd``
 (src/repro/kernels/flash_attention/kernel.py).  The CUDA kernel is
 warp-specialized: a producer warp fills a ring of K/V stages with TMA,
 and one or two consumer warpgroups run ``wgmma`` for Q K^T and P V with
-the online softmax in registers.
+the online softmax in registers.  Head dims up to 128 take any (D, Dv);
+above 128 (gemma2-2b's 256) D and Dv take the same number of 64-column
+boxes, 3 or 4, with one consumer warpgroup a block (``COMPILED_WIDE``).
 
 ``plan`` is the launch plan in plain Python, the same on every device:
 rows a block, ring depth, shared memory and the persistent grid, from the
@@ -51,7 +53,10 @@ _TAIL = struct.Struct("<9q16i4f")
 # (every layer of a prefill) skips the checks and the packing
 _CALLS: Dict[tuple, tuple] = {}
 _CALLS_KEEP = 1024
-DMAX = 128                # the CUDA kernel's widest head dim
+DMAX = 256                # the CUDA kernel's widest head dim
+# (kd, vb) box pairs compiled above two boxes (csrc/flash_attention.cu
+# ``dispatch``): one consumer warpgroup a block, one block a SM
+COMPILED_WIDE = ((3, 3), (4, 4))
 TILE = 64                 # query rows a warpgroup; head dims a box; keys a
                           # K/V stage
 SM_COUNT = 132            # H100 SXM
@@ -93,7 +98,9 @@ def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
     query rows of one (b, h) for each consumer warpgroup: two warpgroups
     (128 rows: K and V cross shared memory once for twice the rows) where
     such items still outnumber the SMs, else one (two blocks a SM where
-    the items outnumber the SMs).  The grid is persistent: one block per
+    the items outnumber the SMs and two rings fit).  Above 128 head dims
+    a block has one warpgroup, whose 64 x 256 f32 O takes 128 registers a
+    thread, and the SM one block.  The grid is persistent: one block per
     SM slot, dealt the items in turn.  64 keys a K/V stage, and as many
     stages as fit, 2 to 4."""
     if min(B, H, Hkv, Sq, Skv, D, Dv) < 1:
@@ -105,10 +112,17 @@ def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
         raise ValueError(f"flash_attention: head dims {D}, {Dv} exceed "
                          f"{DMAX}")
     kd, vb = _ceil(D, TILE), _ceil(Dv, TILE)
-    nwg = 2 if B * H * _ceil(Sq, 2 * TILE) >= SM_COUNT else 1
+    wide = max(kd, vb) > 2
+    if wide and (kd, vb) not in COMPILED_WIDE:
+        raise ValueError(f"flash_attention: head dims {D}, {Dv} take "
+                         f"(kd, vb) = ({kd}, {vb}) boxes of 64; above two "
+                         f"boxes only {COMPILED_WIDE} are compiled")
+    nwg = 2 if not wide and B * H * _ceil(Sq, 2 * TILE) >= SM_COUNT else 1
     items = B * H * _ceil(Sq, TILE * nwg)
-    # two one-warpgroup blocks a SM where the items outnumber the SMs
-    per_sm = 2 if nwg == 1 and items > SM_COUNT else 1
+    # two one-warpgroup blocks a SM where the items outnumber the SMs and
+    # two two-stage rings fit in its shared memory
+    per_sm = 2 if (nwg == 1 and items > SM_COUNT and ring_bytes(
+        nwg, kd, vb, 2) <= SMEM_SM // 2 - 1024) else 1
     budget = min(SMEM_LIMIT, SMEM_SM // per_sm - 1024)
     stages = max(s for s in range(2, MAX_STAGES + 1)
                  if s == 2 or ring_bytes(nwg, kd, vb, s) <= budget)

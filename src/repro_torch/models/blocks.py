@@ -74,7 +74,8 @@ def make_metas(cfg: ModelConfig):
 def init_attn_layers(gen, n, cfg: ModelConfig, dtype, norm_dtype, device):
     """``n`` stacked attention blocks: pre-norms (scales in
     ``norm_dtype``), attention, and the gated MLP or (``cfg.moe``) the MoE
-    FFN."""
+    FFN; with ``cfg.post_norms`` the post-norms too, which draw nothing
+    (ones), so the generator's order is the same either way."""
     p = {"ln1": L.init_norm(cfg.d_model, norm_dtype, device, lead=(n,)),
          "attn": attn_mod.init_attention(
              gen, n, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -86,6 +87,9 @@ def init_attn_layers(gen, n, cfg: ModelConfig, dtype, norm_dtype, device):
                                     shared=cfg.moe.shared_expert)
     else:
         p["mlp"] = L.init_mlp(gen, n, cfg.d_model, cfg.d_ff, dtype, device)
+    if cfg.post_norms:
+        for name in ("post_ln1", "post_ln2"):
+            p[name] = L.init_norm(cfg.d_model, norm_dtype, device, lead=(n,))
     return p
 
 
@@ -95,7 +99,9 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
     metrics (``aux_loss``, ``z_loss``, ``drop_frac``) of a prefill or
     train forward, and is None for a gated MLP and in decode.  Prefill
     (``cache`` given, ``step`` False) writes the layer's KV into
-    ``cache``; decode (``step``) reads and writes it, per slot."""
+    ``cache``; decode (``step``) reads and writes it, per slot.  With
+    ``cfg.post_norms`` the attention and FFN outputs are normed before
+    each residual add (per slot in decode, as the pre-norms are)."""
     route_attn = routes.get("flash_attention", viscosity.SW)
     route_mlp = routes.get("swiglu_mlp", viscosity.SW)
     kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -116,6 +122,7 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
             attn_mod.cache_write_prefill(cache, layer, k, v)
         else:
             attn_out = res
+    attn_out = _post_norm(p, "post_ln1", attn_out, cfg, step)
     # tagged so remat_policy="collectives" keeps the block's output
     x = x + checkpoint_name(attn_out, "attn_out", cfg)
     if step:
@@ -138,7 +145,18 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
     else:
         ffn_out = L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
                         row_independent=step)
+    ffn_out = _post_norm(p, "post_ln2", ffn_out, cfg, step)
     return x + checkpoint_name(ffn_out, "ffn_out", cfg), aux
+
+
+def _post_norm(p, name, y, cfg: ModelConfig, step):
+    """``y`` through the block's post-norm ``name`` (gemma2), if it has
+    one; per slot in decode."""
+    if not cfg.post_norms:
+        return y
+    if step:
+        return L.per_row(lambda r: L.norm(p[name], r, eps=cfg.norm_eps), y)
+    return L.norm(p[name], y, eps=cfg.norm_eps)
 
 
 def _per_slot(block, x, state):

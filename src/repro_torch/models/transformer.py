@@ -4,17 +4,19 @@ forward (loss), prefill, decode, caches.
 Port of the reference's ``models/transformer.py``.  Params are a nested
 dict with the reference's keys and its stacked (L, ...) layer layout, so
 slicing a layer is a free view; the reference's ``lax.scan`` over layer
-groups is a Python loop.  The dense and MoE families are uniform
-attention blocks, all global or all windowed (sliding-window layers keep
-a ring-buffer KV cache of ``window`` slots); MoE blocks replace the gated
-MLP with ``models/moe.py``'s FFN, whose aux losses join the training
-loss.  The hybrid family (Zamba2) is a Mamba2 backbone with one shared
-(tied) attention+MLP block applied after every ``shared_attn_every``
-Mamba2 layers; the SSM family (RWKV-6) is a stack of attention-free
-RWKV-6 layers.  Other families (VLM, audio) and the variants these slices
-do not need (mixed local/global patterns, a local rope theta, softcaps,
-post-norms, LayerNorm, qk-norm, embedding scale) raise
-``NotImplementedError``.
+groups is a Python loop, and layer ``i`` takes pattern position ``i %
+len(pattern)`` (the reference's groups, then its tail).  The MoE family
+is uniform attention blocks, all global or all windowed (sliding-window
+layers keep a ring-buffer KV cache of ``window`` slots); MoE blocks
+replace the gated MLP with ``models/moe.py``'s FFN, whose aux losses join
+the training loss.  The dense family may also alternate local (windowed)
+and global layers, as gemma2-2b does, with the attention and final
+softcaps, post-norms and the sqrt(d) embedding scale.  The hybrid family
+(Zamba2) is a Mamba2 backbone with one shared (tied) attention+MLP block
+applied after every ``shared_attn_every`` Mamba2 layers; the SSM family
+(RWKV-6) is a stack of attention-free RWKV-6 layers.  Other families
+(VLM, audio) and the variants these slices do not need (a local rope
+theta, LayerNorm, qk-norm) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,9 +43,9 @@ PyTree = Any
 # norm scales (the norms compute in f32), the MoE router (its logits are
 # f32), the Mamba2 scalars and conv, and the RWKV-6 decay params and bonus,
 # which the reference reads in f32 and never casts to the compute dtype.
-_KEEP_DTYPE = ("ln1", "ln2", "final_norm", "router", "A_log", "D",
-               "dt_bias", "conv_w", "conv_b", "w0", "w_lora_a", "w_lora_b",
-               "u")
+_KEEP_DTYPE = ("ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "router",
+               "A_log", "D", "dt_bias", "conv_w", "conv_b", "w0", "w_lora_a",
+               "w_lora_b", "u")
 _PATTERN = {"dense": ATTN_GLOBAL, "moe": ATTN_GLOBAL, "hybrid": MAMBA2,
             "ssm": RWKV6}
 
@@ -51,14 +53,14 @@ _PATTERN = {"dense": ATTN_GLOBAL, "moe": ATTN_GLOBAL, "hybrid": MAMBA2,
 def _unsupported(cfg: ModelConfig):
     if cfg.family not in _PATTERN:
         return f"family {cfg.family!r}"
-    for flag in ("attn_softcap", "final_softcap", "post_norms",
-                 "use_layernorm", "qk_norm", "embed_scale", "rope_theta_local",
+    for flag in ("use_layernorm", "qk_norm", "rope_theta_local",
                  "mrope_sections", "stub_frontend", "is_encdec"):
         if getattr(cfg, flag):
             return f"{flag}={getattr(cfg, flag)!r}"
     kinds = set(cfg.layer_pattern or (ATTN_GLOBAL,))
-    if kinds == {ATTN_LOCAL} and _PATTERN[cfg.family] == ATTN_GLOBAL:
-        if not cfg.window:          # every layer windowed: a ring cache
+    if (kinds == {ATTN_LOCAL} and _PATTERN[cfg.family] == ATTN_GLOBAL
+            or kinds == {ATTN_LOCAL, ATTN_GLOBAL} and cfg.family == "dense"):
+        if not cfg.window:          # windowed layers: a ring cache
             return "window=0 with local layers"
     elif kinds != {_PATTERN[cfg.family]}:
         return f"layer_pattern={cfg.layer_pattern!r}"
@@ -153,12 +155,13 @@ class LMModel:
         self.cfg = cfg
         self.routes = as_routes(routes)
         if cfg.family == "hybrid":
-            self.meta = B.LayerMeta(kind=ATTN_GLOBAL, window=0,
-                                    theta=cfg.rope_theta, local=False)
+            self.metas = (B.LayerMeta(kind=ATTN_GLOBAL, window=0,
+                                      theta=cfg.rope_theta, local=False),)
             self.n_groups = cfg.num_layers // cfg.shared_attn_every
             self.n_tail = cfg.num_layers % cfg.shared_attn_every
         else:
-            self.meta = B.make_metas(cfg)[0]
+            self.metas = tuple(B.make_metas(cfg))
+        self._kv_at = self._kv_layout()
         self.compute_dtype = getattr(torch, cfg.dtype)
         self.param_dtype = getattr(torch, cfg.param_dtype)
 
@@ -201,28 +204,51 @@ class LMModel:
                                                cfg.vocab_size, dt, dev)
         return params
 
+    def _kv_layout(self):
+        """Per attention layer, where its KV lives: (None, i) in the one
+        stacked cache of a model whose layers are all of one kind, else
+        ("local" or "global", its index among the layers of its kind)."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):   # no KV, or the shared block's
+            return ()
+        kinds = [self.metas[i % len(self.metas)].kind
+                 for i in range(cfg.num_layers)]
+        if len(set(kinds)) == 1:
+            return tuple((None, i) for i in range(cfg.num_layers))
+        names = ["local" if k == ATTN_LOCAL else "global" for k in kinds]
+        return tuple((n, names[:i].count(n)) for i, n in enumerate(names))
+
     def init_cache(self, Bt: int, max_len: int, device=None) -> PyTree:
         """Dense and MoE: the KV cache of every layer, of
-        ``min(max_len, window)`` slots when every layer is windowed (a ring
-        buffer), as the reference's ``smax_for``.  Hybrid: {"mamba": conv
-        tails and SSM states of every Mamba2 layer, "attn": the KV cache of
-        each shared-block application}.  SSM: the token shifts and WKV
-        states of every RWKV-6 layer (no KV; ``max_len`` is unused).  Every
-        leaf has the slot axis at dim 1."""
+        ``min(max_len, window)`` slots for windowed layers (a ring buffer)
+        and ``max_len`` for global ones, as the reference's ``smax_for``:
+        one stacked {"k", "v", "pos"} when the layers are all of one kind,
+        else {"local": the local layers', "global": the global layers'}
+        (``_kv_layout``).  Hybrid: {"mamba": conv tails and SSM states of
+        every Mamba2 layer, "attn": the KV cache of each shared-block
+        application}.  SSM: the token shifts and WKV states of every
+        RWKV-6 layer (no KV; ``max_len`` is unused).  Every leaf has the
+        slot axis at dim 1."""
         cfg = self.cfg
         dev = resolve_device(device)
         if cfg.family == "ssm":
             return rwkv_mod.init_rwkv6_state(cfg.num_layers, Bt, cfg,
                                              self.compute_dtype, dev)
-        n_kv = self.n_groups if cfg.family == "hybrid" else cfg.num_layers
-        window = self.meta.window
-        kv = attn_mod.init_kv_cache(
-            n_kv, Bt, min(max_len, window) if window else max_len,
-            cfg.num_kv_heads, cfg.resolved_head_dim, self.compute_dtype, dev)
-        if cfg.family != "hybrid":
-            return kv
-        return {"mamba": mamba_mod.init_mamba2_state(
-            cfg.num_layers, Bt, cfg, self.compute_dtype, dev), "attn": kv}
+
+        def kv(n, window):
+            return attn_mod.init_kv_cache(
+                n, Bt, min(max_len, window) if window else max_len,
+                cfg.num_kv_heads, cfg.resolved_head_dim, self.compute_dtype,
+                dev)
+        if cfg.family == "hybrid":
+            return {"mamba": mamba_mod.init_mamba2_state(
+                cfg.num_layers, Bt, cfg, self.compute_dtype, dev),
+                "attn": kv(self.n_groups, 0)}
+        if self._kv_at[0][0] is None:
+            return kv(cfg.num_layers, self.metas[0].window)
+        return {n: kv(sum(1 for k, _ in self._kv_at if k == n),
+                      cfg.window if n == "local" else 0)
+                for n in ("local", "global")}
 
     @staticmethod
     def cache_lane(cache: PyTree, i: int) -> PyTree:
@@ -256,13 +282,16 @@ class LMModel:
 
     def _embed_in(self, params, tokens):
         return L.embed(params["embed"], tokens,
+                       scale_by_dim=self.cfg.embed_scale,
                        compute_dtype=self.compute_dtype)
 
     def _logits(self, params, h):
-        h = L.norm(params["final_norm"], h, eps=self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            return L.logits_from_embed(params["embed"]["table"], h)
-        return L.lm_head(params["lm_head"], h)
+        cfg = self.cfg
+        h = L.norm(params["final_norm"], h, eps=cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return L.logits_from_embed(params["embed"]["table"], h,
+                                       softcap=cfg.final_softcap)
+        return L.lm_head(params["lm_head"], h, softcap=cfg.final_softcap)
 
     def _run_layers(self, params, x, rope, cache=None, t=None, tpos=None,
                     step=False):
@@ -287,9 +316,13 @@ class LMModel:
                 x = _remat(cfg, body, x)(x)
                 continue
 
-            def body(x, p=p, i=i):
-                return B.attn_block(p, x, cfg, self.meta, rope, self.routes,
-                                    cache=cache, layer=i, t=t, tpos=tpos,
+            name, j = self._kv_at[i]
+            kv = cache if cache is None or name is None else cache[name]
+
+            def body(x, p=p, kv=kv, j=j,
+                     meta=self.metas[i % len(self.metas)]):
+                return B.attn_block(p, x, cfg, meta, rope, self.routes,
+                                    cache=kv, layer=j, t=t, tpos=tpos,
                                     step=step)
             x, aux_i = _remat(cfg, body, x)(x)
             if aux_i is not None:
@@ -314,8 +347,8 @@ class LMModel:
         def group(x, g):
             for j in range(per):
                 x = mamba(g * per + j, x)
-            return B.attn_block(params["shared"], x, cfg, self.meta, rope,
-                                self.routes,
+            return B.attn_block(params["shared"], x, cfg, self.metas[0],
+                                rope, self.routes,
                                 cache=None if cache is None else cache["attn"],
                                 layer=g, t=t, tpos=tpos, step=step)[0]
         for g in range(self.n_groups):      # the reference's remat'd scan
@@ -338,8 +371,8 @@ class LMModel:
         tied = cfg.tie_embeddings
         w = params["embed"]["table"] if tied else params["lm_head"]["w"]
         xent, denom = L.chunked_xent(
-            h, batch["targets"], w, tied=tied, chunk=cfg.loss_chunk,
-            mask=batch.get("loss_mask"))
+            h, batch["targets"], w, tied=tied, softcap=cfg.final_softcap,
+            chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
         metrics = {"xent": xent, "tokens": denom}
         loss = xent
         if cfg.moe is not None:

@@ -186,9 +186,11 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     bit-identity, the router-flip accounting, the ring), with the
     wrappers counting their calls and a stand-in for the profiler that
     counts the same kernels' launches.  The ring request is cut to 40
-    prompt tokens at max_len 56: mixtral-8x7b-smoke's window of 16 makes
-    the same wrap as the card's 4200 tokens over 4096 slots (the plain
-    attention over 4200 tokens takes half a minute on the CPU)."""
+    prompt tokens at max_len 56: the smoke window of 16 makes the same
+    wrap as the card's 4200 tokens over 4096 slots (the plain attention
+    over 4200 tokens takes half a minute on the CPU), in mixtral's every
+    layer and gemma2's local layers, while gemma2's global layer keeps
+    all 56 slots in order, as its 4224 on the card."""
     from repro_torch.serve import ServeConfig, ServeEngine
     counters = {name: types.SimpleNamespace(launches=0)
                 for name in ("checksum", "flash_attention", "swiglu_mlp")}
@@ -242,19 +244,24 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
                                              counters)
     assert list(entries) == [c.name for c, _ in configs]
     L = {c.name: c.num_layers for c, _ in configs}
-    mistral, mixtral, llama4 = L
+    mistral, mixtral, llama4, gemma = L
     # the schedule of each serve, the same on the card at its depth
     # (python3 chip_smoke.py on an H100: 480 and 650, 74 and 8, 58): per
     # mode one launch a layer for each prefill and (SwiGLU) each tick while
     # the stage is healthy, plus the 2 + 3 canary probes on the fault
     # stage.  mistral: 6 prefills, and 8 SwiGLU calls (prefills and ticks)
-    # before its fault at step 4; the MoE models: 4 prefills before their
-    # attention fault
+    # before its fault at step 4; the MoE models and gemma2: 4 prefills
+    # before their attention fault; gemma2's SwiGLU, never faulted, every
+    # one of the 6 prefills and 26 ticks; each ring prefill one launch a
+    # layer of each kernel
     assert launches["checksum"] == {n: 0 for n in L}
     assert launches["flash_attention"] == {
         mistral: 2 * 6 * L[mistral], mixtral: 2 * (4 * L[mixtral] + 5),
-        f"{mixtral} ring": L[mixtral], llama4: 2 * (4 * L[llama4] + 5)}
-    assert launches["swiglu_mlp"] == {mistral: 2 * (8 * L[mistral] + 5)}
+        f"{mixtral} ring": L[mixtral], llama4: 2 * (4 * L[llama4] + 5),
+        gemma: 2 * (4 * L[gemma] + 5), f"{gemma} ring": L[gemma]}
+    assert launches["swiglu_mlp"] == {
+        mistral: 2 * (8 * L[mistral] + 5), gemma: 2 * (6 + 26) * L[gemma],
+        f"{gemma} ring": L[gemma]}
     assert entries[mistral]["hw_vs_sw_logits"].get("router") is None
     for name in (mixtral, llama4):
         router = entries[name]["hw_vs_sw_logits"]["router"]
@@ -264,3 +271,11 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     ring = entries[mixtral]["ring"]
     assert ring["bit_identical"] and ring["cache_slots"] == 16 < 40
     assert len(ring["tokens"]) == chip_smoke.RING_NEW
+    assert ring["caches"] == {"all": {"layers": L[mixtral], "slots": 16,
+                                      "wraps": True}}
+    ring = entries[gemma]["ring"]
+    assert ring["bit_identical"] and len(ring["tokens"]) == chip_smoke.RING_NEW
+    assert ring["caches"] == {
+        "local": {"layers": 2, "slots": 16, "wraps": True},
+        "global": {"layers": 1, "slots": 56, "wraps": False}}
+    assert entries[gemma]["hw_vs_sw_logits"].get("router") is None

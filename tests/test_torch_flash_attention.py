@@ -19,11 +19,14 @@ import torch
 from repro.kernels.flash_attention import attention as ref_attention
 from repro.kernels.flash_attention import attention_naive as ref_naive
 from repro.kernels.flash_attention import attention_flops as ref_flops
+from repro.kernels.flash_attention.kernel import \
+    flash_attention_bhsd as ref_kernel
 from repro.viscosity import lanefault as ref_lf
 
 from repro_torch.kernels.flash_attention import (ATTENTION, attention,
                                                  attention_flops,
-                                                 attention_naive)
+                                                 attention_naive,
+                                                 attention_ref_blocked)
 from repro_torch.viscosity import lanefault as pt_lf
 
 F32_TOL = 2e-5
@@ -95,6 +98,34 @@ def test_bf16_hw_matches_reference_interpret(name, shape, kw):
     want = _ref(qkv, jnp.bfloat16, "interpret", **kw)
     for route in ("hw", "interpret", "sw"):
         _close_bf16(_pt(qkv, torch.bfloat16, route, **kw), want)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True, window=40, softcap=50.0),
+                                dict(causal=True, softcap=50.0),
+                                dict(causal=False)],
+                         ids=["window_softcap", "softcap", "noncausal"])
+def test_head_dim_256_blocked_matches_reference_kernel(kw):
+    """gemma2-2b's head dim: the plain blocked version (the HW wrapper's
+    CPU path, and what the Hopper kernel is held against on the card) on
+    (B, H, S, D) bf16 tensors against the reference's Pallas kernel in
+    interpret mode, 32-row tiles over S = 96 (the window drops whole
+    tiles), GQA 8 -> 4, at the bf16 tolerances."""
+    B, S, H, Hkv, D = 1, 96, 8, 4, 256
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=(B, h, S, D)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    want = np.asarray(ref_kernel(*(jnp.asarray(a, jnp.bfloat16)
+                                   for a in (q, k, v)),
+                                 bq=32, bk=32, interpret=True, **kw),
+                      np.float32)
+    got = attention_ref_blocked(*(torch.from_numpy(a).to(torch.bfloat16)
+                                  for a in (q, k, v)), bq=32, bk=32, **kw)
+    assert got.shape == (B, H, S, D)
+    _close_bf16(got.float().numpy(), want)
+    # and through the op's HW route on the model's (B, S, H, D) layout
+    qkv = tuple(a.transpose(0, 2, 1, 3) for a in (q, k, v))
+    op = _pt(qkv, torch.bfloat16, "hw", **kw)
+    _close_bf16(op, want.transpose(0, 2, 1, 3))
 
 
 def test_narrow_value_width_matches():

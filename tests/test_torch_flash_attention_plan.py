@@ -7,6 +7,9 @@ shape the port launches, the rule that pads a head dim only when a row
 stride is not a multiple of 16 bytes, the packed argument layout, and the
 wrapper's CPU path on the strided (B, S, H, D) views the model passes.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,9 @@ from repro_torch.kernels.flash_attention import kernel as K
 
 QWEN = (20, 20, 128)        # H, Hkv, head dim: qwen1.5-4b
 ZAMBA = (32, 32, 64)        # zamba2-1.2b's shared attention block
+GEMMA2 = (8, 4, 256)        # gemma2-2b
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+        / "flash_attention.cu")
 
 # (B, H, Hkv, Sq, Skv, D, Dv): the served prompt lengths, P = 2048, the
 # chip_smoke parity shapes, every head dim, a narrow Dv (after the pad to 8)
@@ -27,6 +33,9 @@ SHAPES = (
        (1, 32, 8, 256, 256, 128, 128), (1, 16, 16, 1000, 1000, 128, 128)]
     + [(1, 4, 4, 128, 128, d, d) for d in (16, 32, 64, 128)]
     + [(1, 20, 20, 128, 128, 128, 40), (1, 32, 32, 384, 384, 64, 32)]
+    + [(1, *GEMMA2[:2], p, p, GEMMA2[2], GEMMA2[2])
+       for p in (16, 128, 200, 4200)]
+    + [(1, 8, 4, 300, 300, 192, 192), (1, 8, 4, 128, 128, 256, 248)]
 )
 
 
@@ -62,10 +71,51 @@ def test_plan_picks_two_warpgroups_only_where_they_fill_the_card():
 @pytest.mark.parametrize("bad", [(0, 1, 1, 8, 8, 64, 64),
                                  (1, 6, 4, 8, 8, 64, 64),
                                  (1, 4, 4, 8, 8, 136, 64),
-                                 (1, 4, 4, 8, 8, 64, 256)])
+                                 (1, 4, 4, 8, 8, 64, 256),
+                                 (1, 8, 4, 8, 8, 264, 264)])
 def test_plan_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         K.plan(*bad)
+
+
+@pytest.mark.parametrize("P", [16, 128, 200, 4200])
+def test_plan_at_gemma2_head_dim_256(P):
+    """One consumer warpgroup a block (a 64 x 256 f32 O is 128 registers
+    a thread), one block a SM and two K/V stages: 197,696 B."""
+    p = K.plan(1, *GEMMA2[:2], P, P, GEMMA2[2], GEMMA2[2])
+    assert (p.nwg, p.kd, p.vb, p.stages, p.blocks_per_sm) == (1, 4, 4, 2, 1)
+    assert p.smem == K.ring_bytes(1, 4, 4, 2) == 197_696
+    assert p.items == 8 * -(-P // 64) and p.grid == min(p.items, K.SM_COUNT)
+
+
+@pytest.mark.parametrize("kd,vb", [(4, 2), (2, 4), (3, 1), (1, 4), (4, 3),
+                                   (3, 4)])
+def test_unsupported_wide_pairs_raise_naming_the_pair(kd, vb):
+    with pytest.raises(ValueError, match=rf"\({kd}, {vb}\)"):
+        K.plan(1, 8, 4, 64, 64, 64 * kd, 64 * vb)
+
+
+def test_ring_bytes_is_the_c_formula():
+    """``ring_bytes`` against ``smem_bytes`` in csrc/flash_attention.cu,
+    its expression and constants read from the source, at every plan the
+    kernel compiles (and a few more stages)."""
+    src = CSRC.read_text()
+    body = re.search(r"constexpr int smem_bytes\(int nwg, int kd, int vb,"
+                     r"\s*int stages\) \{\s*return (.*?);", src, re.S)
+    consts = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+              for n in ("QROWS", "BK", "DMAX")}
+    assert consts["DMAX"] == K.DMAX
+    expr = " ".join(body.group(1).split())
+    for nwg, kd, vb in [(1, 1, 1), (1, 1, 2), (1, 2, 1), (1, 2, 2), (2, 1, 1),
+                        (2, 2, 2), (1, 3, 3), (1, 4, 4)]:
+        for stages in range(2, 5):
+            want = eval(expr, {}, dict(consts, nwg=nwg, kd=kd, vb=vb,
+                                       stages=stages))
+            assert K.ring_bytes(nwg, kd, vb, stages) == want
+    # the C entry's dispatch compiles exactly the wide pairs the plan takes
+    wide = {(int(a), int(b)) for a, b in re.findall(
+        r"launch<1, (\d), (\d), FAULT>", src)}
+    assert wide == set(K.COMPILED_WIDE)
 
 
 def _bshd(shape, dtype=torch.bfloat16, seed=0):

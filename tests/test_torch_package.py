@@ -136,13 +136,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                                   "mistral-nemo-12b", "mistral-nemo-12b-smoke",
                                   "mixtral-8x7b", "mixtral-8x7b-smoke",
                                   "llama4-scout-17b-a16e",
-                                  "llama4-scout-17b-a16e-smoke"])
+                                  "llama4-scout-17b-a16e-smoke",
+                                  "gemma2-2b", "gemma2-2b-smoke"])
 def test_config_copy_matches_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(ref_configs.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-7b",
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2-vl-7b",
                                   "gemma3-1b-smoke", "whisper-base"])
 def test_unported_arch_names_its_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
