@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, multi-process fleet, chaos
-and model-zoo paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, multi-process fleet, chaos,
+model-zoo and encoder-decoder paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -14,9 +14,9 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              head-dim-256 instantiation ``flash_attn_fwd<1, 4, 4, *>``
              among them), and hold each
              SwiGLU ring's and each attention plan's dynamic shared memory
-             (every shape this run launches, phase 11's SwiGLU at
-             5120 -> 14336 and 2304 -> 9216 for M = 1-128 and its attention
-             prompts included) against the Python plan's, and
+             (every shape this run launches, phase 11's SwiGLU for M =
+             1-128, its ring and image prefills and its attention prompts
+             included) against the Python plan's, and
              each WKV and SSD launch plan (grids, group size, scratch,
              shared memory; the parity cases and every serving prompt
              length) against the compiled library's;
@@ -66,14 +66,25 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              40 -> 8 at P = 16 and 128; gemma2-2b's head dim 256 with
              GQA 8 -> 4 and the softcap 50 under its 4096 window at
              P = 128 and a ragged 200, and over the 4200-token ring prompt
-             with and without the window); and its bits: two calls, the
-             contiguous (B, H, S, D) copies and ``_kernel_path`` agree.
+             with and without the window; gemma3-1b's GQA 4 -> 1 at head
+             dim 256, its 512 window at P = 128 and over the ring prompt,
+             and a global layer over it; whisper-base's B = 4, 8 heads of
+             64: the bidirectional encoder over 1500 frames, the
+             decoder's causal 4-token prompt, cross-attention of Sq = 4
+             and of Sq = 1 over 1500 keys; qwen2-vl-7b's GQA 28 -> 4 at
+             P = 128 and at its image prefill's 288); and its bits: two
+             calls, the contiguous (B, H, S, D) copies and
+             ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
              zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
              sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
              x (64, 128) x (128, 64); mistral-nemo-12b 5120 -> 14336: M in
              {4, 16, 128}; gemma2-2b's GeGLU, the kernel's tanh-gelu,
-             2304 -> 9216: M in {4, 128}), then SwiGLU's bits: each row of an
+             2304 -> 9216, and gemma3-1b's GeGLU 1152 -> 6912: M in {4,
+             128, 4200}, the last their ring prefill's; qwen2-vl-7b's
+             SwiGLU 3584 -> 18944: M in {4, 128, 288}, the last its image
+             prefill's), then SwiGLU's bits (qwen1.5-4b, zamba2-1.2b,
+             mistral-nemo-12b, gemma3-1b, qwen2-vl-7b): each row of an
              M = 4 row-independent call equals that row alone, and two
              runs agree, at decode and at prefill;
 3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
@@ -151,8 +162,13 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              P = 4200 under its window, gemma2-2b's head dim 256 with its
              softcap at P = 128 and 4200, windowed and global (the library
              call: sdpa without the softcap, which no PyTorch call
-             applies), SwiGLU at mistral-nemo-12b's M = 4 and 128 and
-             gemma2-2b's GeGLU at M = 4 and 128; attention, SwiGLU, the
+             applies), gemma3-1b's at P = 128 and 4200, windowed and
+             global, qwen2-vl-7b's at P = 128 and 288, whisper-base's
+             encoder and its cross-attention at Sq = 4 and Sq = 1;
+             SwiGLU at mistral-nemo-12b's, gemma2-2b's, gemma3-1b's and
+             qwen2-vl-7b's M = 4 and 128, gemma3-1b's ring prefill M =
+             4200 and qwen2-vl-7b's image prefill M = 288; attention,
+             SwiGLU, the
              SSD (also on the model's strided views, where the profiler
              must see no kernel but the SSD's: no copy) and the WKV also
              the profiler's device time a call, kernel by kernel, the
@@ -232,17 +248,21 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 11. zoo    — mistral-nemo-12b (40 of 40 layers), mixtral-8x7b (8 of 32:
              8 experts top-2, a 4096-token window on every layer),
              llama4-scout-17b-a16e (6 of 48: 16 experts top-1 and a
-             shared expert) and gemma2-2b (26 of 26: head dim 256, local
-             and global layers in turn, both softcaps, post-norms, GeGLU)
-             at full width, each built (weights drawn straight into
-             bf16), served and freed in turn, its peak memory printed.
+             shared expert), gemma2-2b (26 of 26: head dim 256, local
+             and global layers in turn, both softcaps, post-norms, GeGLU),
+             gemma3-1b (26 of 26: five local layers of window 512 and
+             rope theta 1e4 to one global of 1e6, a two-layer tail,
+             qk-norm, GQA 4 -> 1) and qwen2-vl-7b (28 of 28: M-RoPE, QKV
+             biases, an untied head) at full width, each built (weights
+             drawn straight into bf16), served and freed in turn, its
+             peak memory printed.
              Each goes through phases 4-5 and its serve times as above
              (``serve_path``): 6 requests of 16-128 prompt tokens and 8-16
-             new on 4 slots, the fault on ``swiglu_mlp`` (mistral) or
-             ``flash_attention`` (the MoE models, which have no SwiGLU
-             stage, and gemma2); per prefill one attention launch a layer
-             and for mistral and gemma2 one SwiGLU launch a layer per
-             prefill and per tick.  For the MoE models the HW route
+             new on 4 slots, the fault on ``swiglu_mlp`` (mistral,
+             gemma3) or ``flash_attention`` (the MoE models, which have
+             no SwiGLU stage, gemma2 and qwen2-vl); per prefill one
+             attention launch a layer and for the gated MLPs one SwiGLU
+             launch a layer per prefill and per tick.  For the MoE models the HW route
              changes only attention, but bf16 drift can flip a near-tied
              router choice:
              every layer's top-k choice is recorded on both routes, end to
@@ -250,19 +270,38 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              to end the 5% logits bound holds, and layer by layer each
              attention must hold 5% and every flipped token's router
              margin lie below the largest probability drift on the tokens
-             that did not flip.  The ring (mixtral, gemma2): one request
-             of 4200 prompt tokens and 8 new at max_len 4224, so each
-             windowed layer's 4096-slot cache wraps and each of gemma2's
-             global layers keeps 4224 slots in order, the SW engine
-             bit-identical to ``reference_decode``, the P = 4200 HW
-             prefill timed (rehearsed on the CPU by
+             that did not flip.  The ring (mixtral, gemma2, gemma3): one
+             request of 4200 prompt tokens and 8 new at max_len 4224, so
+             each windowed layer's cache (4096 slots; gemma3's 512)
+             wraps and each global layer keeps 4224 slots in order, the
+             SW engine bit-identical to ``reference_decode``, the P =
+             4200 HW prefill timed.  qwen2-vl's stub frontend: a prefill
+             of 288 seeded N(0, 1) bf16 embeddings (16 text tokens, the
+             16 x 16 grid of a 448 x 448 image, 16 text tokens) at
+             Qwen2-VL's (t, h, w) positions, one attention and one
+             SwiGLU launch a layer, HW logits finite and within 5% of SW,
+             timed (rehearsed on the CPU by ``test_torch_chip_smoke.py``).
+12. encdec — whisper-base at full width (6 + 6 layers, d_model 512)
+             through ``EncDecModel.prefill`` and ``decode_step``: its
+             ``flash_attention`` canary (healthy passes, each lane fault
+             fails); 4 requests of 1500 seeded N(0, 1) bf16 frames and a
+             4-token prompt; in f32 on SW, prefill and every decode step
+             to 64 equal ``logits_all`` teacher-forced to 2e-4; in bf16
+             the HW prefill logits within 5% of SW, greedy decode to 448
+             on both routes, attention launches 6 + 2 x 6 a prefill and 6
+             a step on HW (a step's self-attention is plain) and none on
+             SW; a persistent fault at step 4 (the canary fails every
+             probe) rebuilds the model with the stage on SW, whose tokens
+             equal the healthy SW run's bit for bit; prefill and decode
+             step ms, peak memory (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
 case studies, the fleet runs, the two ranks of phase 9, the chaos
-campaigns, and each phase-11 model's serve and ring prefill);
+campaigns, each phase-11 model's serve, ring prefill and image
+prefill, and phase 12's decode, faulted run and probes);
 the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -327,6 +366,25 @@ ATTN_CASES = (
     (1, 4200, 4200, 8, 4, 256, 256, dict(causal=True, window=4096,
                                          softcap=50.0)),
     (1, 4200, 4200, 8, 4, 256, 256, dict(causal=True, softcap=50.0)),
+    # gemma3-1b (GQA 4 -> 1: every head reads kv head 0; head dim 256, no
+    # softcap): a local layer's prefill at P = 128 under its 512 window and
+    # the 4200-token ring prompt through a local and a global layer
+    (1, 128, 128, 4, 1, 256, 256, dict(causal=True, window=512)),
+    (1, 4200, 4200, 4, 1, 256, 256, dict(causal=True, window=512)),
+    (1, 4200, 4200, 4, 1, 256, 256, dict(causal=True)),
+    # whisper-base (8 heads of 64, 4 requests of 1500 frames): the
+    # encoder's bidirectional attention (Skv = 1500 ends in a partial key
+    # stage), the decoder's causal self-attention over its 4-token prompt,
+    # and cross-attention over the encoder at the prompt's Sq = 4 and at a
+    # decode step's Sq = 1 (a one-row query tile)
+    (4, 1500, 1500, 8, 8, 64, 64, dict(causal=False)),
+    (4, 4, 4, 8, 8, 64, 64, dict(causal=True)),
+    (4, 4, 1500, 8, 8, 64, 64, dict(causal=False)),
+    (4, 1, 1500, 8, 8, 64, 64, dict(causal=False)),
+    # qwen2-vl-7b (GQA 28 -> 4, D = 128): a prompt of 128 tokens and the
+    # stub frontend's 288 (16 text, a 16 x 16 image grid, 16 text)
+    (1, 128, 128, 28, 4, 128, 128, dict(causal=True)),
+    (1, 288, 288, 28, 4, 128, 128, dict(causal=True)),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -1770,9 +1828,9 @@ def router_teacher_forced(cfg, params, prompt):
     from repro_torch.viscosity import HW, SW
 
     model = build_model(cfg)
-    x = model._embed_in(params, prompt)
-    rope = model._rope(rope_mod.positions_default(1, prompt.shape[1],
-                                                  x.device))
+    x = model._embed_in(params, {"tokens": prompt})
+    ropes = model._ropes(rope_mod.positions_default(1, prompt.shape[1],
+                                                    x.device))
     kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
               head_dim=cfg.resolved_head_dim, window=model.metas[0].window,
               softcap=cfg.attn_softcap, scale=cfg.attn_scale, causal=True,
@@ -1785,7 +1843,8 @@ def router_teacher_forced(cfg, params, prompt):
     for i in range(cfg.num_layers):
         p = layer(params["layers"], i)
         h = Lm.norm(p["ln1"], x, eps=cfg.norm_eps)
-        att = {r: attn_mod.attn_full(p["attn"], h, *rope, route=r, **kw)
+        att = {r: attn_mod.attn_full(p["attn"], h, *ropes["global"],
+                                     route=r, **kw)
                for r in (HW, SW)}
         worst = max(worst, (att[HW] - att[SW]).float().abs().max().item()
                     / att[SW].float().abs().max().item())
@@ -1793,7 +1852,7 @@ def router_teacher_forced(cfg, params, prompt):
             hr = Lm.norm(p["ln2"], x + att[r], eps=cfg.norm_eps)
             probs[r].append(torch.softmax(hr.float() @ p["moe"]["router"],
                                           dim=-1))
-        x = B.attn_block(p, x, cfg, model.metas[0], rope,
+        x = B.attn_block(p, x, cfg, model.metas[0], ropes,
                          {"flash_attention": SW})[0]
     return probs, worst
 
@@ -2075,7 +2134,9 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
 ZOO = (("mistral-nemo-12b", 40, "swiglu_mlp"),
        ("mixtral-8x7b", 8, "flash_attention"),
        ("llama4-scout-17b-a16e", 6, "flash_attention"),
-       ("gemma2-2b", 26, "flash_attention"))
+       ("gemma2-2b", 26, "flash_attention"),
+       ("gemma3-1b", 26, "swiglu_mlp"),
+       ("qwen2-vl-7b", 28, "flash_attention"))
 ZOO_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                     arrival_every=2, per_arrival=2)
 ZOO_PREFILL = 128
@@ -2175,6 +2236,81 @@ def ring_check(cfg, dev, wrappers, params):
     return entry, counts
 
 
+# qwen2-vl's stub-frontend prefill: 16 text tokens, the 16 x 16 grid of
+# merged patches that a 448 x 448 image gives at Qwen2-VL's 14-pixel
+# patches merged 2 x 2 (arXiv:2409.12191), then 16 text tokens
+VL_TEXT, VL_GRID = 16, 16
+
+
+def image_positions3(n_before: int, rows: int, cols: int, n_after: int):
+    """(S, 3) M-RoPE positions by Qwen2-VL's rule: text at t = h = w = i;
+    the image at t = o, h = o + row, w = o + col, o its first position;
+    the text after it resumes at the largest position + 1."""
+    import numpy as np
+    t = np.arange(n_before)
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    img = np.stack([np.full(rows * cols, n_before), n_before + r.ravel(),
+                    n_before + c.ravel()], -1)
+    t2 = img.max() + 1 + np.arange(n_after)
+    return np.concatenate([np.stack([t, t, t], -1), img,
+                           np.stack([t2, t2, t2], -1)]).astype(np.int32)
+
+
+def image_prefill(cfg, dev, wrappers, params):
+    """The stub frontend at full width: a prefill of seeded N(0, 1) bf16
+    embeddings (``VL_TEXT`` text tokens, a ``VL_GRID`` x ``VL_GRID`` image,
+    ``VL_TEXT`` text tokens) at ``image_positions3``, on the HW and on the
+    SW route.  The HW prefill makes one attention and one SwiGLU launch a
+    layer, its logits are finite and within ``LOGITS_REL`` of the SW
+    route's; it is timed.  Returns (its report entry, the HW prefill's
+    launches)."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train.runner import model_stage_names
+    from repro_torch.viscosity import HW, SW
+
+    stages = model_stage_names(cfg)
+    p3 = torch.as_tensor(image_positions3(VL_TEXT, VL_GRID, VL_GRID,
+                                          VL_TEXT)[None], device=dev)
+    S = p3.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    emb = torch.randn((1, S, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    last, counts = {}, None
+    for route in (HW, SW):
+        m = build_model(cfg, routes={s: route for s in stages})
+        batch = {"embeds": emb, "positions3": p3,
+                 "cache": m.init_cache(1, S, device=dev)}
+        for w in wrappers.values():
+            w.launches = 0
+        logits, _ = m.prefill(params, batch)
+        if route == HW:
+            counts = {s: wrappers[s].launches for s in stages}
+            ms = time_ms(torch, lambda: m.prefill(params, batch), 3)
+        last[route] = logits[0, -1].float()
+        check(last[route].shape == (cfg.vocab_size,)
+              and bool(torch.isfinite(last[route]).all()),
+              f"{cfg.name} image prefill on {route}: logits not finite of "
+              "shape (vocab,)")
+    d = (last[HW] - last[SW]).abs().max().item()
+    rel = d / last[SW].abs().max().item()
+    entry = {"tokens": S, "text": 2 * VL_TEXT, "image": VL_GRID ** 2,
+             "positions3_last": p3[0, -1].tolist(), "max_abs": d,
+             "max_rel": rel, "launches": counts,
+             f"hw_prefill_ms_P{S}": ms}
+    out(f"[zoo] {cfg.name} image prefill: {S} embeddings ({VL_TEXT} text, "
+        f"a {VL_GRID}x{VL_GRID} grid, {VL_TEXT} text; last positions3 "
+        f"{entry['positions3_last']}): HW vs SW logits max_abs {d:.3e} "
+        f"max_rel {rel:.3e} (tol rel {LOGITS_REL:g}); launches {counts}; "
+        f"HW prefill {ms:.2f} ms")
+    check(counts == {s: cfg.num_layers for s in stages},
+          f"{cfg.name} image prefill launched {counts}, want one a layer")
+    check(rel <= LOGITS_REL, f"{cfg.name} image prefill: HW logits "
+          "disagree with the SW oracle")
+    return entry, counts
+
+
 def zoo_phase(configs, dev, wrappers):
     """Phase 11: each ``(config, fault stage)`` of ``configs`` on seeded
     weights drawn straight into bf16, through ``serve_path`` (its
@@ -2183,8 +2319,8 @@ def zoo_phase(configs, dev, wrappers):
     layer per prefill, and for a gated MLP one SwiGLU launch a layer per
     prefill and per tick; SW bit-identity, HW against SW logits with the
     router flips accounted, prefill at ``ZOO_PREFILL``, the healthy serve,
-    the profiler), then, for a windowed model, ``ring_check``; then its
-    weights are freed.  Prints each model's peak memory.  Returns (report
+    the profiler), then, for a windowed model, ``ring_check``, and for the
+    stub frontend ``image_prefill``; then its weights are freed.  Prints each model's peak memory.  Returns (report
     entry per model, launches per kernel and path)."""
     import torch
 
@@ -2211,6 +2347,11 @@ def zoo_phase(configs, dev, wrappers):
             entry["ring"], ring = ring_check(cfg, dev, wrappers, params)
             for name, n in ring.items():
                 launches[name][f"{cfg.name} ring"] = n
+        if cfg.stub_frontend:
+            entry["image_prefill"], image = image_prefill(cfg, dev, wrappers,
+                                                          params)
+            for name, n in image.items():
+                launches[name][f"{cfg.name} image prefill"] = n
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2222,6 +2363,201 @@ def zoo_phase(configs, dev, wrappers):
             f"{entry['phase_s']:.1f} s")
         entries[cfg.name] = entry
     return entries, launches
+
+
+# Phase 12, whisper-base at full width: 4 requests of 1500 stub frames (30 s
+# of audio at the encoder's 50 frames a second, arXiv:2212.04356), a
+# 4-token decoder prompt, greedy decode to max_target_len; the reference's
+# prefill + decode_step bound against teacher-forced logits in f32
+# (tests/test_consistency.py), over the first ENCDEC_F32_TARGET tokens
+ENCDEC_FRAMES, ENCDEC_BATCH, ENCDEC_PROMPT = 1500, 4, 4
+ENCDEC_F32_TOL, ENCDEC_F32_TARGET = 2e-4, 64
+
+
+def encdec_phase(cfg, dev, wrappers, *, frames: int = ENCDEC_FRAMES,
+                 batch: int = ENCDEC_BATCH, prompt: int = ENCDEC_PROMPT,
+                 f32_target: int = ENCDEC_F32_TARGET):
+    """Phase 12: an encoder-decoder model through ``EncDecModel.prefill``
+    and ``decode_step``, the reference's serving contract for it (it has
+    no serving engine).  Its ``flash_attention`` canary passes healthy and
+    fails under each lane fault.  In f32 on the SW route, the prefill and
+    every decode step to ``f32_target`` (at most ``max_target_len``) equal
+    ``logits_all`` teacher-forced to ``ENCDEC_F32_TOL``.  In bf16, the HW prefill logits are
+    within ``LOGITS_REL`` of the SW route's; each route decodes greedily
+    to ``max_target_len``: the HW route makes ``enc + 2 dec`` attention
+    launches a prefill (the encoder's, the decoder's self- and
+    cross-attention) and ``dec`` a step (cross-attention at Sq = 1; a
+    step's self-attention is plain), the SW route none.  Then a
+    persistent fault: the canary fails every probe of ``flash_attention``
+    at step ``FAULT_STEP``, the classifier calls it persistent, the model
+    is rebuilt under the plan with the stage on SW, and the requests run
+    again on it equal the healthy SW run's tokens bit for bit.  Prefill
+    and decode-step ms are timed.  Returns (its report entry, the
+    launches of the HW route's prefill, decode and probes)."""
+    import torch
+
+    from repro_torch.chaos import ChaosCanary, canary_fault
+    from repro_torch.core import CanaryChecker
+    from repro_torch.core.fault import PERSISTENT, FaultClassifier, FaultState
+    from repro_torch.core.routing import RoutingPlan
+    from repro_torch.models import build_model, compute_params
+    from repro_torch.train.runner import canary_stages, model_stage_names
+    from repro_torch.viscosity import HW, SW
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    stage = "flash_attention"
+    stages = model_stage_names(cfg)
+    check(stages == [stage], f"{cfg.name}: stages {stages}")
+    T = cfg.max_target_len
+    Le, Ld = cfg.enc_layers, cfg.dec_layers
+    entry = {"canaries": canary_phase(cfg, dev), "frames": frames,
+             "batch": batch, "prompt": prompt, "max_target_len": T}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params32 = build_model(cfg).init(gen, device=dev)
+    params = compute_params(params32, torch.bfloat16)
+    gen.manual_seed(1)
+    emb = torch.randn((batch, frames, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (batch, T), generator=gen,
+                         device=dev)
+    out(f"[encdec] {cfg.name}: {Le} + {Ld} layers, d_model {cfg.d_model}, "
+        f"{batch} requests of {frames} frames, a {prompt}-token prompt, "
+        f"decode to {T}")
+
+    # f32, SW: prefill + decode_step against teacher-forced logits
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32)
+    T32 = min(T, f32_target)
+    full = m32.logits_all(params32, {"embeds": emb,
+                                     "dec_tokens": toks[:, :T32]})
+    lg, state = m32.prefill(params32, {
+        "embeds": emb, "dec_tokens": toks[:, :prompt],
+        "cache": m32.init_cache(batch, T, device=dev)})
+    errs = [(lg[:, 0] - full[:, prompt - 1]).abs().max()]
+    for t in range(prompt, T32):
+        lg, state = m32.decode_step(params32, state, toks[:, t:t + 1], t)
+        errs.append((lg[:, 0] - full[:, t]).abs().max())
+    errs = torch.stack(errs).tolist()
+    entry["f32_decode_vs_teacher_forced"] = {
+        "max_abs": max(errs), "steps": len(errs) - 1,
+        "max_abs_logit": full.abs().max().item()}
+    out(f"[encdec] f32 SW: prefill + {len(errs) - 1} decode steps against "
+        f"logits_all teacher-forced: max_abs {max(errs):.3e} (tol "
+        f"{ENCDEC_F32_TOL:g}; largest logit "
+        f"{entry['f32_decode_vs_teacher_forced']['max_abs_logit']:.3f})")
+    check(max(errs) <= ENCDEC_F32_TOL, f"{cfg.name}: f32 decode disagrees "
+          "with the teacher-forced logits")
+    del full, state, params32, m32
+
+    def greedy(model, counted=False, fault_at=None, on_fault=None):
+        """Prefill the prompt, then greedy decode to ``T``.  Returns
+        (tokens (B, T - prompt), prefill logits, launches of the prefill
+        and of each step, the step at which ``on_fault`` stopped it)."""
+        n0 = wrappers[stage].launches
+        lg, st = model.prefill(params, {
+            "embeds": emb, "dec_tokens": toks[:, :prompt],
+            "cache": model.init_cache(batch, T, device=dev)})
+        pre = wrappers[stage].launches - n0
+        first = lg[:, 0].float()
+        tok = lg[:, -1].argmax(-1)[:, None]
+        got, per_step = [tok], []
+        for t in range(prompt, T - 1):
+            if fault_at is not None and t - prompt == fault_at:
+                on_fault()
+                return torch.cat(got, 1), first, pre, per_step, t - prompt
+            n0 = wrappers[stage].launches
+            lg, st = model.decode_step(params, st, tok, t)
+            per_step.append(wrappers[stage].launches - n0)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            got.append(tok)
+        return torch.cat(got, 1), first, pre, per_step, None
+
+    # bf16: SW then HW, greedy to max_target_len
+    sw_model = build_model(cfg, routes={stage: SW})
+    before = [w.launches for w in wrappers.values()]
+    sw_toks, sw_first, *_ = greedy(sw_model)
+    check([w.launches for w in wrappers.values()] == before,
+          f"{cfg.name}: the SW route launched a kernel")
+    for w in wrappers.values():        # counts of this path's run only
+        w.launches = 0
+    hw_model = build_model(cfg, routes={stage: HW})
+    hw_toks, hw_first, pre, per_step, _ = greedy(hw_model)
+    check(hw_toks.shape == (batch, T - prompt) and bool(
+        torch.isfinite(hw_first).all()), f"{cfg.name}: HW decode gave "
+        f"{tuple(hw_toks.shape)} tokens or non-finite logits")
+    d = (hw_first - sw_first).abs().max().item()
+    rel = d / sw_first.abs().max().item()
+    agree = (hw_toks == sw_toks).float().mean().item()
+    entry["hw_vs_sw_logits"] = {"max_abs": d, "max_rel": rel}
+    entry["launches"] = {"prefill": pre, "per_step": sorted(set(per_step)),
+                         "steps": len(per_step)}
+    out(f"[encdec] bf16 HW vs SW prefill logits: max_abs {d:.3e} max_rel "
+        f"{rel:.3e} (tol rel {LOGITS_REL:g}); greedy tokens agree on "
+        f"{100 * agree:.2f}% of {hw_toks.numel()}; attention launches "
+        f"{pre} a prefill (want {Le + 2 * Ld}) and {sorted(set(per_step))} "
+        f"a step over {len(per_step)} steps (want {Ld})")
+    check(rel <= LOGITS_REL, f"{cfg.name}: HW prefill logits disagree "
+          "with the SW oracle")
+    check(pre == Le + 2 * Ld and set(per_step) == {Ld}
+          and len(per_step) == T - prompt - 1,
+          f"{cfg.name}: attention launches {pre} a prefill and "
+          f"{sorted(set(per_step))} a step")
+    entry["greedy_agreement"] = agree
+
+    # a persistent fault at step FAULT_STEP: the canary fails every probe,
+    # the plan takes the stage to SW, the rebuilt model runs the requests
+    canary = ChaosCanary(CanaryChecker(canary_stages(cfg, device=dev),
+                                       route_hw=HW))
+    classifier, state = FaultClassifier(canary), FaultState()
+    plan = RoutingPlan.for_stages(stages, HW)
+    verdict = {}
+
+    def fault():
+        n0 = wrappers[stage].launches
+        canary.arm(stage, canary_fault(stage), fails=None)
+        state.mark(stage, 0, kind="detected", step=FAULT_STEP)
+        res = classifier.classify(stage, replica=0, step=FAULT_STEP,
+                                  state=state)
+        canary.disarm(stage)
+        verdict.update(transient=res.transient, attempts=res.attempts,
+                       probes=wrappers[stage].launches - n0)
+    _, _, _, _, stopped = greedy(build_model(cfg, routes=plan),
+                                 fault_at=FAULT_STEP, on_fault=fault)
+    check(stopped == FAULT_STEP and verdict["transient"] is False
+          and state.log[-1]["kind"] == PERSISTENT,
+          f"{cfg.name}: the hard fault was not persistent: {verdict}")
+    plan = plan.with_fault(stage)
+    n0 = wrappers[stage].launches
+    re_toks, *_ = greedy(build_model(cfg, routes=plan))
+    check(wrappers[stage].launches == n0, f"{cfg.name}: the rebuilt "
+          "model launched the kernel")
+    same = torch.equal(re_toks, sw_toks)
+    entry["failover"] = {"verdict": verdict, "plan": plan.as_dict(),
+                         "bit_identical_to_sw": same}
+    out(f"[encdec] persistent fault at step {FAULT_STEP}: {verdict}; "
+        f"rebuilt on {plan.as_dict()}: tokens bit-identical to the healthy "
+        f"SW run: {same}")
+    check(same, f"{cfg.name}: the SW rebuild's tokens differ from the "
+          "healthy SW run")
+    counts = {stage: wrappers[stage].launches}
+
+    # times on the HW route
+    cache = hw_model.init_cache(batch, T, device=dev)
+    pbatch = {"embeds": emb, "dec_tokens": toks[:, :prompt], "cache": cache}
+    prefill_ms = time_ms(torch, lambda: hw_model.prefill(params, pbatch), 5)
+    _, st = hw_model.prefill(params, pbatch)
+    tok = toks[:, prompt:prompt + 1]
+    step_ms = time_ms(torch, lambda: hw_model.decode_step(
+        params, st, tok, prompt), 20)
+    entry.update(prefill_ms=prefill_ms, decode_step_ms=step_ms,
+                 peak_bytes=torch.cuda.max_memory_allocated(),
+                 phase_s=time.perf_counter() - t0)
+    out(f"[encdec] {cfg.name}: HW prefill {prefill_ms:.2f} ms ({batch} x "
+        f"{frames} frames, {prompt} tokens), decode step {step_ms:.2f} ms "
+        f"({batch} rows); peak memory {entry['peak_bytes'] / 2**30:.2f} "
+        f"GiB; {entry['phase_s']:.1f} s")
+    return entry, counts
 
 
 def main() -> int:
@@ -2325,21 +2661,28 @@ def main() -> int:
               f"swiglu ring nwg={nwg} nsub={nsub}: compiled {got} B, plan "
               f"{ring_bytes(nwg, nsub)} B")
     report["swiglu_rings"] = rings
-    # every SwiGLU plan phase 11 launches (mistral-nemo-12b 5120 -> 14336
-    # and gemma2-2b 2304 -> 9216: prefill rows 16-128, decode rows 1-4)
-    # takes a ring checked above
+    # every SwiGLU plan phase 11 launches (mistral-nemo-12b 5120 -> 14336,
+    # gemma2-2b 2304 -> 9216, gemma3-1b 1152 -> 6912 and qwen2-vl-7b
+    # 3584 -> 18944: prefill rows 16-128, decode rows 1-4, the windowed
+    # models' ring prefill of 4200, qwen2-vl's image prefill of 288) takes
+    # a ring checked above
     zoo = [c for c, _ in zoo_configs()]
     mistral = next(c for c in zoo if "swiglu_mlp" in model_stage_names(c))
     gemma = next(c for c in zoo if c.name == "gemma2-2b")
-    for c in (mistral, gemma):
-        for M in range(1, ZOO_WORKLOAD["max_prompt"] + 1):
+    gemma3 = next(c for c in zoo if c.name == "gemma3-1b")
+    qwen_vl = next(c for c in zoo if c.stub_frontend)
+    vl_tokens = 2 * VL_TEXT + VL_GRID ** 2
+    for c in (mistral, gemma, gemma3, qwen_vl):
+        rows_ = list(range(1, ZOO_WORKLOAD["max_prompt"] + 1))
+        for M in rows_ + ([vl_tokens] if c.stub_frontend else []) + (
+                [RING_PROMPT] if c.window else []):
             pl = swiglu_plan(M, c.d_model, c.d_ff, c.d_model,
                              row_independent=M <= 4)
             check(pl.path == "wgmma" and pl.smem == (
                 rings[f"nwg={pl.nwg} nsub=0"],
                 rings[f"nwg={pl.nwg} nsub={pl.nsub}"]),
                 f"swiglu plan {c.name} M={M}: {pl}")
-            if M in (4, ZOO_PREFILL):
+            if M in (4, ZOO_PREFILL, vl_tokens, RING_PROMPT):
                 out(f"[build] swiglu {c.name} M={M}: {pl}")
     out(f"[build] swiglu dynamic shared memory by ring (nsub 0: phase A), "
         f"as the plan computes it: {rings}")
@@ -2360,6 +2703,18 @@ def main() -> int:
         if c.window:
             attn_shapes.add((1, c.num_heads, c.num_kv_heads, RING_PROMPT,
                              RING_PROMPT, cd, cd))
+    attn_shapes.add((1, qwen_vl.num_heads, qwen_vl.num_kv_heads, vl_tokens,
+                     vl_tokens, qwen_vl.resolved_head_dim,
+                     qwen_vl.resolved_head_dim))
+    # phase 12's: the encoder, the prompt's self- and cross-attention and a
+    # decode step's cross-attention
+    whisper = get_config("whisper-base")
+    wh, wd = whisper.num_heads, whisper.resolved_head_dim
+    for Sq_, Skv_ in ((ENCDEC_FRAMES, ENCDEC_FRAMES),
+                      (ENCDEC_PROMPT, ENCDEC_PROMPT),
+                      (ENCDEC_PROMPT, ENCDEC_FRAMES), (1, ENCDEC_FRAMES)):
+        attn_shapes.add((ENCDEC_BATCH, wh, whisper.num_kv_heads, Sq_, Skv_,
+                         wd, wd))
     plans = {}
     for shp in sorted(attn_shapes):
         pl = attention_plan(*shp)
@@ -2651,13 +3006,20 @@ def main() -> int:
                 randn(Dm, Ff, scale=Dm ** -0.5),
                 randn(Ff, Dm, scale=Ff ** -0.5))
 
+    def replica_tiles(M, Ff):
+        """``default_tiles``, but a long prefill's rows in one block, not
+        M / 8: the replica's row tile only groups rows, and no row's sums
+        depend on it."""
+        bm, bf, bs = default_tiles(M, Ff)
+        return (M if M > 384 else bm), bf, bs
+
     def swiglu_parity(Dm, Ff, rows, Do=None, tag="", act="silu"):
         w1, w3, w2 = swiglu_weights(Dm, Ff)
         w2 = w2[:, :Do or Dm]           # a narrow w2 is a strided view
         Do = w2.shape[1]
         for M in rows:
             x = randn(M, Dm)
-            bm, bf, bs = default_tiles(M, Ff)
+            bm, bf, bs = replica_tiles(M, Ff)
             for kind in (None,) + KINDS:
                 fault = None if kind is None else LaneFault(
                     kind, (5, max(0, Do - 60)), Do)
@@ -2670,20 +3032,21 @@ def main() -> int:
                     compare(f"swiglu {act} {Dm}->{Ff}->{Do}{tag} M={M} "
                             f"fault={kind}", got, want, SWIGLU_TOL))
 
-    def swiglu_bits(cfg, prefill_rows):
+    def swiglu_bits(cfg, prefill_rows, act="silu"):
         """Row independence: each row of an M=4 ``row_independent`` call
         equals that row run alone; and the same call twice gives the same
         bits, at decode and at prefill."""
         w1, w3, w2 = swiglu_weights(cfg.d_model, cfg.d_ff)
         x = randn(4, cfg.d_model)
-        y = swiglu_fused(x, w1, w3, w2, row_independent=True)
+        y = swiglu_fused(x, w1, w3, w2, act=act, row_independent=True)
         rows_ok = all(torch.equal(y[i:i + 1], swiglu_fused(
-            x[i:i + 1], w1, w3, w2, row_independent=True)) for i in range(4))
-        runs_ok = torch.equal(y, swiglu_fused(x, w1, w3, w2,
+            x[i:i + 1], w1, w3, w2, act=act, row_independent=True))
+            for i in range(4))
+        runs_ok = torch.equal(y, swiglu_fused(x, w1, w3, w2, act=act,
                                               row_independent=True))
         xp = randn(prefill_rows, cfg.d_model)
-        runs_ok &= torch.equal(swiglu_fused(xp, w1, w3, w2),
-                               swiglu_fused(xp, w1, w3, w2))
+        runs_ok &= torch.equal(swiglu_fused(xp, w1, w3, w2, act=act),
+                               swiglu_fused(xp, w1, w3, w2, act=act))
         out(f"[parity] swiglu {cfg.name}: rows of an M=4 row-independent "
             f"call equal M=1 calls bit for bit: {rows_ok}; run to run (M=4 "
             f"and M={prefill_rows}) bit for bit: {runs_ok}")
@@ -2703,7 +3066,15 @@ def main() -> int:
     swiglu_parity(mistral.d_model, mistral.d_ff, (4, 16, ZOO_PREFILL))
     swiglu_bits(mistral, ZOO_PREFILL)
     # gemma2-2b's GeGLU (tanh-gelu, act = 1 in csrc/swiglu.cu)
-    swiglu_parity(gemma.d_model, gemma.d_ff, (4, ZOO_PREFILL), act="gelu")
+    swiglu_parity(gemma.d_model, gemma.d_ff, (4, ZOO_PREFILL, RING_PROMPT),
+                  act="gelu")
+    # gemma3-1b's GeGLU 1152 -> 6912 (its ring prefill too) and qwen2-vl-7b's
+    # SwiGLU 3584 -> 18944 (its image prefill too: nwg = 3 there)
+    swiglu_parity(gemma3.d_model, gemma3.d_ff, (4, ZOO_PREFILL, RING_PROMPT),
+                  act="gelu")
+    swiglu_bits(gemma3, RING_PROMPT, act="gelu")
+    swiglu_parity(qwen_vl.d_model, qwen_vl.d_ff, (4, ZOO_PREFILL, vl_tokens))
+    swiglu_bits(qwen_vl, vl_tokens)
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2973,55 +3344,80 @@ def main() -> int:
     attn = {}
     mixtral = next(c for c in zoo if c.window and c.moe is not None)
     llama4 = next(c for c in zoo if c.moe is not None and not c.window)
-    for cfg, P, W, cap in ((qwen, 128, 0, 0), (zamba, 384, 0, 0),
-                           (qwen, 2048, 0, 0), (mistral, 128, 0, 0),
-                           (llama4, 128, 0, 0),
-                           (mixtral, RING_PROMPT, mixtral.window, 0),
-                           (gemma, 128, gemma.window, gemma.attn_softcap),
-                           (gemma, RING_PROMPT, gemma.window,
-                            gemma.attn_softcap),
-                           (gemma, RING_PROMPT, 0, gemma.attn_softcap)):
+    # (config, B, Sq, Skv, window, softcap, causal): the causal prefills
+    # above, gemma3-1b's (GQA 4 -> 1 at head dim 256, window 512) at a
+    # local layer's P = 128 and over the ring prompt, windowed and global,
+    # qwen2-vl-7b's (GQA 28 -> 4) at P = 128 and its image prefill's 288,
+    # and phase 12's whisper-base calls (B = 4): the encoder's
+    # bidirectional attention over 1500 frames and the cross-attention at
+    # the prompt's Sq = 4 and a decode step's Sq = 1 over them
+    vl = 2 * VL_TEXT + VL_GRID ** 2
+    F_, B4 = ENCDEC_FRAMES, ENCDEC_BATCH
+    for cfg, B_, Sq, Skv, W, cap, causal in (
+            (qwen, 1, 128, 128, 0, 0, True), (zamba, 1, 384, 384, 0, 0, True),
+            (qwen, 1, 2048, 2048, 0, 0, True),
+            (mistral, 1, 128, 128, 0, 0, True),
+            (llama4, 1, 128, 128, 0, 0, True),
+            (mixtral, 1, RING_PROMPT, RING_PROMPT, mixtral.window, 0, True),
+            (gemma, 1, 128, 128, gemma.window, gemma.attn_softcap, True),
+            (gemma, 1, RING_PROMPT, RING_PROMPT, gemma.window,
+             gemma.attn_softcap, True),
+            (gemma, 1, RING_PROMPT, RING_PROMPT, 0, gemma.attn_softcap,
+             True),
+            (gemma3, 1, 128, 128, gemma3.window, 0, True),
+            (gemma3, 1, RING_PROMPT, RING_PROMPT, gemma3.window, 0, True),
+            (gemma3, 1, RING_PROMPT, RING_PROMPT, 0, 0, True),
+            (qwen_vl, 1, 128, 128, 0, 0, True),
+            (qwen_vl, 1, vl, vl, 0, 0, True),
+            (whisper, B4, F_, F_, 0, 0, False),
+            (whisper, B4, ENCDEC_PROMPT, F_, 0, 0, False),
+            (whisper, B4, 1, F_, 0, 0, False)):
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        qs_ = randn(1, P, H, D).transpose(1, 2)
-        ks_, vs_ = (randn(1, P, Hkv, D).transpose(1, 2) for _ in range(2))
+        qs_ = randn(B_, Sq, H, D).transpose(1, 2)
+        ks_, vs_ = (randn(B_, Skv, Hkv, D).transpose(1, 2) for _ in range(2))
         q, k, v = (t.contiguous() for t in (qs_, ks_, vs_))
-        pad = -(-P // 128) * 128 - P
-        qp, kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
-        wkw = dict(window=W) if W else {}
+        qp = F.pad(q, (0, 0, 0, -(-Sq // 128) * 128 - Sq))
+        kp, vp = (F.pad(t, (0, 0, 0, -(-Skv // 128) * 128 - Skv))
+                  for t in (k, v))
+        wkw = dict(causal=causal)
+        if W:
+            wkw["window"] = W
         if cap:
             wkw["softcap"] = cap
-        akw = dict(causal=True, kv_len=P, bq=128, bk=128, **wkw)
-        pos = torch.arange(P, device=dev)
-        lkw = dict(is_causal=True) if not W else dict(
+        akw = dict(kv_len=Skv, bq=128, bk=128, **wkw)
+        pos = torch.arange(Sq, device=dev)
+        lkw = dict(is_causal=causal) if not W else dict(
             attn_mask=(pos[None, :] <= pos[:, None])
             & (pos[None, :] > pos[:, None] - W))
         if Hkv != H:
             lkw["enable_gqa"] = True
-        flops = (attention_flops(1, P, P, H, D, causal=True) if not W else
-                 4 * H * D * sum(min(i + 1, W) for i in range(P)))
+        flops = (attention_flops(B_, Sq, Skv, H, D, causal=causal)
+                 if not W else
+                 4 * B_ * H * D * sum(min(i + 1, W) for i in range(Sq)))
         ms, by = bound((2 * q.numel() + 2 * k.numel()) * 2, flops)
-        key = (f"B=1 H={H} P={P} D={D} causal" if Hkv == H and not W else
-               f"B=1 H={H} Hkv={Hkv} P={P} D={D} causal"
+        key = (f"B={B_} H={H}" + (f" Hkv={Hkv}" if Hkv != H else "")
+               + (f" P={Sq}" if Sq == Skv else f" Sq={Sq} Skv={Skv}")
+               + f" D={D} " + ("causal" if causal else "non-causal")
                + (f" window={W}" if W else "")
                + (f" softcap={cap:g}" if cap else ""))
         attn[key] = {
             "ms": time_ms(torch, lambda: flash_attention_bhsd(
-                qs_, ks_, vs_, causal=True, **wkw), 50),
+                qs_, ks_, vs_, **wkw), 50),
             "plain_ms": time_ms(torch, lambda: attention_ref_blocked(
-                qp, kp, vp, **akw), 10 if P <= 2048 else 3),
+                qp, kp, vp, **akw), 10 if B_ * Sq * Skv <= 2048 ** 2 else 3),
             "bound_ms": ms, "bound_by": by,
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, **lkw), 50)}
         if cap:
             attn[key]["library_note"] = "sdpa without the softcap"
         attn[key].update(device_ms(lambda: flash_attention_bhsd(
-            qs_, ks_, vs_, causal=True, **wkw), "flash_attn_fwd")[0])
-        if P <= 384:
+            qs_, ks_, vs_, **wkw), "flash_attn_fwd")[0])
+        if Sq <= 384 and Skv <= 384:
             # the wrapper's host time without its per-signature cache: every
             # call takes the checked path (the cache emptied before each)
             attn[key]["checked_ms"] = time_ms(torch, lambda: (
                 attention_calls.clear(),
-                flash_attention_bhsd(qs_, ks_, vs_, causal=True, **wkw)), 50)
+                flash_attention_bhsd(qs_, ks_, vs_, **wkw)), 50)
         attn[key]["share_of_bound"] = ms / attn[key]["ms"]
         if attn[key]["device_ms"]:
             attn[key]["share_of_bound_device"] = ms / attn[key]["device_ms"]
@@ -3038,11 +3434,13 @@ def main() -> int:
     gates = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh")}
     for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384),
                    (mistral, 4), (mistral, ZOO_PREFILL), (gemma, 4),
-                   (gemma, ZOO_PREFILL)):
+                   (gemma, ZOO_PREFILL), (gemma3, 4), (gemma3, ZOO_PREFILL),
+                   (gemma3, RING_PROMPT), (qwen_vl, 4),
+                   (qwen_vl, ZOO_PREFILL), (qwen_vl, vl_tokens)):
         Dm, Ff, act = cfg.d_model, cfg.d_ff, cfg.mlp_act
         w1, w3, w2 = swiglu_weights(Dm, Ff)
         x = randn(M, Dm)
-        bm, bf, bs = default_tiles(M, Ff)
+        bm, bf, bs = replica_tiles(M, Ff)
         ms, by = bound((x.numel() + w1.numel() + w3.numel() + w2.numel()
                         + M * Dm) * 2, swiglu_flops(M, Dm, Ff))
         key = f"{cfg.name} M={M}" + (f" {act}" if act != "silu" else "")
@@ -3208,6 +3606,14 @@ def main() -> int:
     for name, by_path in zoo_launches.items():
         launches[name].update(by_path)
     report["zoo_nvidia_smi"] = smi
+
+    # --------------------------------------------------------- 12. encdec
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["encdec"], encdec_launches = encdec_phase(whisper, dev, wrappers)
+    for name, n in encdec_launches.items():
+        launches[name][whisper.name] = n
+    report["encdec"]["nvidia_smi"] = smi
     for kn in kernels:                   # the new paths' launches too
         kn["launches"] = sum(launches[kn["name"]].values())
     for kn in kernels:

@@ -1,32 +1,28 @@
 """Architecture registry of the port: ``get_config(name)``.
 
-The architectures of the ported serving slices are registered; every
-other reference architecture raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+Every architecture of the reference's model zoo is registered, under the
+reference's name; ``<name>-smoke`` gives its reduced config.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.gemma2_2b import CONFIG as _GEMMA2_2B
+from repro_torch.configs.gemma3_1b import CONFIG as _GEMMA3_1B
 from repro_torch.configs.llama4_scout_17b import CONFIG as _LLAMA4_SCOUT
 from repro_torch.configs.mistral_nemo_12b import CONFIG as _MISTRAL_NEMO
 from repro_torch.configs.mixtral_8x7b import CONFIG as _MIXTRAL_8X7B
 from repro_torch.configs.qwen1p5_4b import CONFIG as _QWEN1P5_4B
+from repro_torch.configs.qwen2_vl_7b import CONFIG as _QWEN2_VL_7B
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _RWKV6_1P6B
+from repro_torch.configs.whisper_base import CONFIG as _WHISPER_BASE
 from repro_torch.configs.zamba2_1p2b import CONFIG as _ZAMBA2_1P2B
 
 _CONFIGS = {"qwen1.5-4b": _QWEN1P5_4B, "zamba2-1.2b": _ZAMBA2_1P2B,
             "rwkv6-1.6b": _RWKV6_1P6B, "mistral-nemo-12b": _MISTRAL_NEMO,
             "mixtral-8x7b": _MIXTRAL_8X7B,
-            "llama4-scout-17b-a16e": _LLAMA4_SCOUT, "gemma2-2b": _GEMMA2_2B}
-
-# Reference architectures not yet ported -> the ROADMAP queue item.
-_PENDING = {
-    "gemma3-1b": "queue 1 item 12.1 (gemma3-1b: qk-norm, a local rope "
-                 "theta, a 5:1 local/global pattern with a tail)",
-    "qwen2-vl-7b": "queue 1 item 12.5 (qwen2-vl, M-RoPE)",
-    "whisper-base": "queue 1 item 12.6 (whisper, encdec)",
-}
+            "llama4-scout-17b-a16e": _LLAMA4_SCOUT, "gemma2-2b": _GEMMA2_2B,
+            "gemma3-1b": _GEMMA3_1B, "qwen2-vl-7b": _QWEN2_VL_7B,
+            "whisper-base": _WHISPER_BASE}
 
 ARCH_NAMES = tuple(_CONFIGS)
 
@@ -36,10 +32,6 @@ def get_config(name: str) -> ModelConfig:
         return get_config(name[: -len("-smoke")]).reduced()
     if name in _CONFIGS:
         return _CONFIGS[name]
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; see ROADMAP "
-            f"{_PENDING[name]}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_CONFIGS)}")
 
 

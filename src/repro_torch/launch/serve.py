@@ -8,7 +8,8 @@ failover mode (plan-keyed rebuild or resident health mask).  With
 single-request reference decode.
 
 The flags and defaults are the reference CLI's (the arch's reduced config,
-random params from seed 0), plus ``--device``: the card (``cuda``) unless
+random params from seed 0; like it, the CLI refuses the stub-frontend and
+encoder-decoder archs, qwen2-vl-7b and whisper-base), plus ``--device``: the card (``cuda``) unless
 given another, e.g. ``--device cpu``.
 """
 from __future__ import annotations
@@ -60,8 +61,10 @@ def main(argv=None):
                          "cuda)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
+    if cfg.is_encdec or cfg.stub_frontend:   # as the reference's CLI
+        raise SystemExit("serve demo targets decoder-only LM archs")
+    dev = resolve_device(args.device)
     params = build_model(cfg).init(0, device=dev)
     reqs = synthetic_workload(cfg.vocab_size, args.requests,
                               np.random.default_rng(args.seed),

@@ -1,4 +1,5 @@
-"""Attention layer: GQA + RoPE + QKV bias + sliding windows.
+"""Attention layer: GQA + RoPE/M-RoPE + QKV bias + qk-norm + sliding
+windows, and cross-attention (whisper).
 
 Port of the reference's ``models/attention.py``.  The score/softmax/PV
 core of train and prefill routes through the Viscosity
@@ -23,11 +24,11 @@ from repro_torch import viscosity
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.layers import _he
+from repro_torch.models.layers import _he, rms_norm_simple
 
 
 def init_attention(gen, L, d_model, n_heads, n_kv, head_dim, dtype, device,
-                   *, qkv_bias=False):
+                   *, qkv_bias=False, qk_norm=False):
     p = {
         "wq": _he(gen, (L, d_model, n_heads * head_dim), d_model, dtype,
                   device),
@@ -40,29 +41,65 @@ def init_attention(gen, L, d_model, n_heads, n_kv, head_dim, dtype, device,
         for name, width in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
             p[name] = torch.zeros((L, width * head_dim), dtype=dtype,
                                   device=device)
+    if qk_norm:                     # ones: they draw nothing
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones((L, head_dim), dtype=dtype, device=device)
     return p
 
 
-def _project_qkv(p, x, n_heads, n_kv, head_dim):
+def _qk_norm(t, scale, eps=1e-6):
+    """gemma3's qk-norm: the RMS norm in f32, back to the compute dtype,
+    then the scale in the compute dtype, in the reference's order."""
+    return rms_norm_simple(t, eps=eps) * scale.to(t.dtype)
+
+
+def _project_q_only(p, x, n_heads, head_dim):
     B, S, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
+    q = q.reshape(B, S, n_heads, head_dim)
+    return _qk_norm(q, p["q_norm"]) if "q_norm" in p else q
+
+
+def project_kv(p, x, n_kv, head_dim):
+    """Keys and values of ``x`` (B, S, D) -> two (B, S, n_kv, head_dim);
+    for cross-attention, of the encoder output.  As in the reference,
+    ``bk``'s presence adds both biases."""
+    B, S, _ = x.shape
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv, head_dim),
-            v.reshape(B, S, n_kv, head_dim))
+    k = k.reshape(B, S, n_kv, head_dim)
+    v = v.reshape(B, S, n_kv, head_dim)
+    if "k_norm" in p:
+        k = _qk_norm(k, p["k_norm"])
+    return k, v
+
+
+def _project_qkv(p, x, n_heads, n_kv, head_dim):
+    return (_project_q_only(p, x, n_heads, head_dim),
+            *project_kv(p, x, n_kv, head_dim))
 
 
 def attn_full(p, x, cos, sin, *, n_heads, n_kv, head_dim, causal=True,
               window=0, softcap=0.0, scale=0.0, route=viscosity.SW,
-              kv_out=False, kv_chunk=0):
-    """Full-sequence attention (train / prefill)."""
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
-    if cos is not None:
+              kv_out=False, kv_chunk=0, cross_kv=None, precomputed_kv=None):
+    """Full-sequence attention (train / prefill).
+
+    ``cross_kv``: an encoder output (B, S_enc, D), from which the keys and
+    values are projected instead of from ``x`` (whisper's cross-attention).
+    ``precomputed_kv``: (k, v) already projected (the cross-KV cache of a
+    prefill, so decode does not project the encoder output again)."""
+    q = _project_q_only(p, x, n_heads, head_dim)
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+    else:
+        k, v = project_kv(p, x if cross_kv is None else cross_kv.to(x.dtype),
+                          n_kv, head_dim)
+    if cos is not None and cross_kv is None:
         q = rope_mod.apply_rope(q, cos, sin)
         k = rope_mod.apply_rope(k, cos, sin)
     o = attn_ops.attention(q, k, v, causal=causal, window=window,
@@ -111,7 +148,8 @@ def attn_decode(p, x, cache, layer: int, t: Sequence[int], tpos, cos, sin,
                 scale=0.0):
     """One decode step over B slots.  x (B, 1, D); ``t`` the per-slot
     absolute positions (host ints), ``tpos`` the same as a (B,) device
-    tensor, ``cos``/``sin`` their RoPE tables (B, 1, Dh/2).
+    tensor, ``cos``/``sin`` their RoPE tables (B, 1, Dh/2), or None (no
+    rope: whisper's decoder).
 
     Row i writes slot ``t[i] % Smax`` of its own cache row and attends
     over it with explicit per-slot positions.  Each row is computed on its
@@ -121,8 +159,9 @@ def attn_decode(p, x, cache, layer: int, t: Sequence[int], tpos, cos, sin,
     outs = []
     for i, ti in enumerate(t):
         q, k, v = _project_qkv(p, x[i:i + 1], n_heads, n_kv, head_dim)
-        q = rope_mod.apply_rope(q, cos[i:i + 1], sin[i:i + 1])
-        k = rope_mod.apply_rope(k, cos[i:i + 1], sin[i:i + 1])
+        if cos is not None:
+            q = rope_mod.apply_rope(q, cos[i:i + 1], sin[i:i + 1])
+            k = rope_mod.apply_rope(k, cos[i:i + 1], sin[i:i + 1])
         slot = ti % smax
         cache["k"][layer, i, slot] = k[0, 0].to(cache["k"].dtype)
         cache["v"][layer, i, slot] = v[0, 0].to(cache["v"].dtype)

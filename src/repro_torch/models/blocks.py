@@ -35,7 +35,7 @@ _checkpoint_name.register_autograd(
     lambda ctx, grad: (grad, None),
     setup_context=lambda ctx, inputs, output: None)
 
-# the op remat_policy="collectives" saves (models/transformer.py _remat)
+# the op remat_policy="collectives" saves (models/stack.py remat)
 CHECKPOINT_NAME = torch.ops.repro_torch.checkpoint_name.default
 
 
@@ -93,11 +93,14 @@ def init_attn_layers(gen, n, cfg: ModelConfig, dtype, norm_dtype, device):
     return p
 
 
-def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
+def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, ropes, routes,
                cache=None, layer=None, t=None, tpos=None, step=False):
     """Returns (x after one block, aux): ``aux`` holds the MoE FFN's
     metrics (``aux_loss``, ``z_loss``, ``drop_frac``) of a prefill or
-    train forward, and is None for a gated MLP and in decode.  Prefill
+    train forward, and is None for a gated MLP and in decode.  ``ropes``
+    is {"global", "local"} -> (cos, sin) at the positions of ``x``; a
+    layer with ``meta.local`` (gemma3's local theta) takes "local", in
+    prefill and in decode.  Prefill
     (``cache`` given, ``step`` False) writes the layer's KV into
     ``cache``; decode (``step``) reads and writes it, per slot.  With
     ``cfg.post_norms`` the attention and FFN outputs are normed before
@@ -107,7 +110,7 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, rope, routes,
     kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
               head_dim=cfg.resolved_head_dim, window=meta.window,
               softcap=cfg.attn_softcap, scale=cfg.attn_scale)
-    cos, sin = rope
+    cos, sin = ropes["local" if meta.local else "global"]
     if step:
         h = L.per_row(lambda r: L.norm(p["ln1"], r, eps=cfg.norm_eps), x)
         attn_out = attn_mod.attn_decode(p["attn"], h, cache, layer, t, tpos,

@@ -1,5 +1,5 @@
-"""Shared layers: norms, embeddings, the gated MLP (via the SwiGLU stage)
-and the chunked cross-entropy.  Port of the reference's
+"""Shared layers: norms (RMSNorm and LayerNorm), embeddings, the MLP (gated
+through the SwiGLU stage, or plain) and the chunked cross-entropy.  Port of the reference's
 ``models/layers.py``; params are nested dicts of tensors."""
 from __future__ import annotations
 
@@ -25,9 +25,12 @@ def per_row(fn, x):
 
 
 # ---------------------------------------------------------------- norms
-def init_norm(d, dtype, device, lead=()):
-    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
-                                device=device)}
+def init_norm(d, dtype, device, lead=(), layernorm=False):
+    shape = tuple(lead) + (d,)
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if layernorm:
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
 
 
 def norm(p, x, *, eps=1e-6, layernorm=False):
@@ -43,7 +46,8 @@ def norm(p, x, *, eps=1e-6, layernorm=False):
 
 
 def rms_norm_simple(x, *, eps=1e-6):
-    """RMS norm without a scale, computed in f32 (the Mamba2 gated norm)."""
+    """RMS norm without a scale, computed in f32 (the Mamba2 gated norm,
+    and qk-norm before its scale)."""
     xf = x.float()
     return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
             ).to(x.dtype)
@@ -81,18 +85,26 @@ def lm_head(p, x, *, softcap=0.0):
     return out
 
 
-# -------------------------------------------------------------- gated MLP
-def init_mlp(gen, L, d, f, dtype, device):
-    return {"w1": _he(gen, (L, d, f), d, dtype, device),
-            "w2": _he(gen, (L, f, d), f, dtype, device),
-            "w3": _he(gen, (L, d, f), d, dtype, device)}
+# -------------------------------------------------------------------- MLP
+def init_mlp(gen, L, d, f, dtype, device, *, gated=True):
+    p = {"w1": _he(gen, (L, d, f), d, dtype, device),
+         "w2": _he(gen, (L, f, d), f, dtype, device)}
+    if gated:
+        p["w3"] = _he(gen, (L, d, f), d, dtype, device)
+    return p
 
 
 def mlp(p, x, *, act="silu", route=viscosity.SW,
         row_independent: bool = False):
-    """Gated MLP through the Viscosity SwiGLU stage (dense family: the
-    plain ungated MLP waits for the whisper slice)."""
+    """Gated MLP through the Viscosity SwiGLU stage; without ``w3`` the
+    plain MLP (whisper's: ``w1``, tanh-gelu, ``w2``), two plain products
+    as in the reference, whatever the route."""
     cd = x.dtype
+    if "w3" not in p:
+        h = x @ p["w1"].to(cd)
+        h = (torch.nn.functional.gelu(h, approximate="tanh")
+             if act.startswith("gelu") else torch.nn.functional.silu(h))
+        return h @ p["w2"].to(cd)
     lead = x.shape[:-1]
     act_name = "gelu" if act in ("gelu", "gelu_plain") else "silu"
     y = swiglu_ops.swiglu(

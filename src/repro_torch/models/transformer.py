@@ -1,4 +1,4 @@
-"""Decoder-only LM of the dense, MoE, hybrid and SSM families: train
+"""Decoder-only LM of the dense, MoE, VLM, hybrid and SSM families: train
 forward (loss), prefill, decode, caches.
 
 Port of the reference's ``models/transformer.py``.  Params are a nested
@@ -14,9 +14,14 @@ and global layers, as gemma2-2b does, with the attention and final
 softcaps, post-norms and the sqrt(d) embedding scale.  The hybrid family
 (Zamba2) is a Mamba2 backbone with one shared (tied) attention+MLP block
 applied after every ``shared_attn_every`` Mamba2 layers; the SSM family
-(RWKV-6) is a stack of attention-free RWKV-6 layers.  Other families
-(VLM, audio) and the variants these slices do not need (a local rope
-theta, LayerNorm, qk-norm) raise ``NotImplementedError``.
+(RWKV-6) is a stack of attention-free RWKV-6 layers.  gemma3-1b adds
+qk-norm and a second rope theta for its local layers (five local to one
+global, a two-layer tail at 26 layers); the VLM family (qwen2-vl) is
+uniform global attention with M-RoPE over (t, h, w) positions, whose stub
+frontend hands in precomputed embeddings (``batch["embeds"]``,
+``batch["positions3"]``) in place of tokens.  The audio family (whisper)
+is ``models/encdec.py``'s; LayerNorm in a decoder-only model raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,8 +29,6 @@ import functools
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6,
                                      ModelConfig)
@@ -37,24 +40,25 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rope as rope_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import stack
 
 PyTree = Any
 # Subtrees and leaves that keep the param dtype in ``compute_params``: the
-# norm scales (the norms compute in f32), the MoE router (its logits are
+# norms' scales and biases (the norms compute in f32; whisper's ``ln_x``,
+# ``enc_norm`` and ``dec_norm`` too), the MoE router (its logits are
 # f32), the Mamba2 scalars and conv, and the RWKV-6 decay params and bonus,
 # which the reference reads in f32 and never casts to the compute dtype.
 _KEEP_DTYPE = ("ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "router",
                "A_log", "D", "dt_bias", "conv_w", "conv_b", "w0", "w_lora_a",
-               "w_lora_b", "u")
-_PATTERN = {"dense": ATTN_GLOBAL, "moe": ATTN_GLOBAL, "hybrid": MAMBA2,
-            "ssm": RWKV6}
+               "w_lora_b", "u", "ln_x", "enc_norm", "dec_norm")
+_PATTERN = {"dense": ATTN_GLOBAL, "moe": ATTN_GLOBAL, "vlm": ATTN_GLOBAL,
+            "hybrid": MAMBA2, "ssm": RWKV6}
 
 
 def _unsupported(cfg: ModelConfig):
     if cfg.family not in _PATTERN:
         return f"family {cfg.family!r}"
-    for flag in ("use_layernorm", "qk_norm", "rope_theta_local",
-                 "mrope_sections", "stub_frontend", "is_encdec"):
+    for flag in ("use_layernorm", "is_encdec"):
         if getattr(cfg, flag):
             return f"{flag}={getattr(cfg, flag)!r}"
     kinds = set(cfg.layer_pattern or (ATTN_GLOBAL,))
@@ -72,55 +76,6 @@ def _unsupported(cfg: ModelConfig):
     if not cfg.gated_mlp and cfg.family != "ssm":
         return "gated_mlp=False"
     return None
-
-
-def _tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked (L, ...) param tree (views, no copies)."""
-    return _tree_map(lambda a: a[i], tree)
-
-
-def _unstack(tree, n: int):
-    """The ``n`` layers of a stacked (L, ...) param tree, as views.  One
-    ``unbind`` a leaf: its backward stacks the layers' grads once, where
-    indexing each layer would scatter each layer's grad into a zero
-    tensor of the whole stack (L times the stack's bytes a step)."""
-    per = _tree_map(lambda a: a.unbind(0), tree)
-    return [_tree_map(lambda t: t[i], per) for i in range(n)]
-
-
-def _remat(cfg: ModelConfig, body, x: torch.Tensor):
-    """Activation checkpointing of a layer (group) body, the reference's
-    ``remat_wrap``, when autograd records ``x`` (serving, whose params
-    never require grad, runs the body as it is).  ``full`` recomputes
-    everything in the backward; ``dots`` saves the matmul outputs without
-    batch dims (``mm``/``addmm``, as JAX's
-    ``dots_with_no_batch_dims_saveable``); ``collectives`` saves the
-    attention and MLP block outputs (``blocks.checkpoint_name``)."""
-    if not (cfg.remat and cfg.remat_policy != "none"
-            and torch.is_grad_enabled() and x.requires_grad):
-        return body
-    saved = {"dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
-             "collectives": (B.CHECKPOINT_NAME,)}.get(cfg.remat_policy)
-    kw = {}
-    if saved is not None:
-        def policy(ctx, op, *args, **kwargs):
-            return (CheckpointPolicy.MUST_SAVE if op in saved
-                    else CheckpointPolicy.PREFER_RECOMPUTE)
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, policy)
-    elif cfg.remat_policy != "full":
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-
-    def wrapped(*args):
-        return checkpoint(body, *args, use_reentrant=False, **kw)
-    return wrapped
 
 
 def compute_params(params: PyTree, dtype: torch.dtype,
@@ -149,9 +104,9 @@ class LMModel:
         why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
-                f"{cfg.name}: {why} is not ported yet (the port covers the "
-                "dense, MoE, hybrid zamba2-1.2b and ssm rwkv6-1.6b paths; "
-                "see ROADMAP queue 1 item 12)")
+                f"{cfg.name}: {why} is not a decoder-only model of the "
+                "dense, MoE, VLM, hybrid or SSM family (encoder-decoder "
+                "models are models/encdec.py's EncDecModel)")
         self.cfg = cfg
         self.routes = as_routes(routes)
         if cfg.family == "hybrid":
@@ -192,7 +147,7 @@ class LMModel:
         }
         if cfg.family == "hybrid":
             params["layers"] = B.init_mamba_block(gen, n, cfg, dt, dev)
-            params["shared"] = _layer(B.init_attn_layers(gen, 1, cfg, dt,
+            params["shared"] = stack.layer(B.init_attn_layers(gen, 1, cfg, dt,
                                                          pdt, dev), 0)
         elif cfg.family == "ssm":
             params["layers"] = B.init_rwkv_block(gen, n, cfg, dt, dev)
@@ -254,7 +209,7 @@ class LMModel:
     def cache_lane(cache: PyTree, i: int) -> PyTree:
         """Slot ``i``'s lane of a cache: views (slot axis kept, size 1) of
         every leaf, which a prefill writes in place."""
-        return _tree_map(lambda c: c[:, i:i + 1], cache)
+        return stack.tree_map(lambda c: c[:, i:i + 1], cache)
 
     @staticmethod
     def clear_lane(lane: PyTree) -> PyTree:
@@ -272,16 +227,38 @@ class LMModel:
         return lane
 
     # --------------------------------------------------------- backbone
-    def _rope(self, positions):
-        """cos/sin tables for ``positions`` (one theta: no local layers);
+    def _ropes(self, positions, positions3=None):
+        """{"global", "local"} -> the cos/sin tables at ``positions`` (B,
+        S): "local" at ``rope_theta_local`` where the config has one
+        (gemma3), else the global tables.  With ``mrope_sections``
+        (qwen2-vl) both are the M-RoPE tables at ``positions3`` (B, S, 3),
+        the 1-D positions repeated three times where none are given.
         None for the attention-free SSM family."""
-        if self.cfg.attn_free:
+        cfg = self.cfg
+        if cfg.attn_free:
             return None
-        return rope_mod.rope_tables(positions, self.cfg.resolved_head_dim,
-                                    self.cfg.rope_theta)
+        hd = cfg.resolved_head_dim
+        if cfg.mrope_sections:
+            if positions3 is None:
+                positions3 = positions[..., None].expand(
+                    *positions.shape, 3)
+            cs = rope_mod.mrope_tables(positions3, hd, cfg.rope_theta,
+                                       cfg.mrope_sections)
+            return {"global": cs, "local": cs}
+        ropes = {"global": rope_mod.rope_tables(positions, hd,
+                                                cfg.rope_theta)}
+        ropes["local"] = (rope_mod.rope_tables(positions, hd,
+                                               cfg.rope_theta_local)
+                          if cfg.rope_theta_local else ropes["global"])
+        return ropes
 
-    def _embed_in(self, params, tokens):
-        return L.embed(params["embed"], tokens,
+    def _embed_in(self, params, batch):
+        """The input activations: ``batch["embeds"]`` (the stub modality
+        frontend's precomputed embeddings) when present, else the embedded
+        ``batch["tokens"]``."""
+        if "embeds" in batch:
+            return batch["embeds"].to(self.compute_dtype)
+        return L.embed(params["embed"], batch["tokens"],
                        scale_by_dim=self.cfg.embed_scale,
                        compute_dtype=self.compute_dtype)
 
@@ -293,17 +270,17 @@ class LMModel:
                                        softcap=cfg.final_softcap)
         return L.lm_head(params["lm_head"], h, softcap=cfg.final_softcap)
 
-    def _run_layers(self, params, x, rope, cache=None, t=None, tpos=None,
+    def _run_layers(self, params, x, ropes, cache=None, t=None, tpos=None,
                     step=False):
         """Every layer over ``x``; returns (x, aux): the MoE metrics summed
         over layers (None without MoE, and in decode).  Under autograd each
-        layer is one remat body (``_remat``), as each pattern group is in
+        layer is one remat body (``stack.remat``), as each pattern group is in
         the reference."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            return self._run_hybrid(params, x, rope, cache, t, tpos,
+            return self._run_hybrid(params, x, ropes, cache, t, tpos,
                                     step), None
-        layers = _unstack(params["layers"], cfg.num_layers)
+        layers = stack.unstack(params["layers"], cfg.num_layers)
         aux = None
         for i, p in enumerate(layers):
             if cfg.family == "ssm":
@@ -313,7 +290,7 @@ class LMModel:
                 def body(x, p=p, state=state):
                     return B.rwkv_block(p, x, cfg, self.routes, state=state,
                                         step=step)
-                x = _remat(cfg, body, x)(x)
+                x = stack.remat(cfg, body, x)(x)
                 continue
 
             name, j = self._kv_at[i]
@@ -321,22 +298,22 @@ class LMModel:
 
             def body(x, p=p, kv=kv, j=j,
                      meta=self.metas[i % len(self.metas)]):
-                return B.attn_block(p, x, cfg, meta, rope, self.routes,
+                return B.attn_block(p, x, cfg, meta, ropes, self.routes,
                                     cache=kv, layer=j, t=t, tpos=tpos,
                                     step=step)
-            x, aux_i = _remat(cfg, body, x)(x)
+            x, aux_i = stack.remat(cfg, body, x)(x)
             if aux_i is not None:
                 aux = aux_i if aux is None else {
                     k: aux[k] + aux_i[k] for k in aux}
         return x, aux
 
-    def _run_hybrid(self, params, x, rope, cache, t, tpos, step):
+    def _run_hybrid(self, params, x, ropes, cache, t, tpos, step):
         """Zamba2: groups of ``shared_attn_every`` Mamba2 layers, each
         followed by the shared block (its KV in cache layer ``g``), then
         the tail of ``num_layers % shared_attn_every`` Mamba2 layers."""
         cfg = self.cfg
         per = cfg.shared_attn_every
-        layers = _unstack(params["layers"], cfg.num_layers)
+        layers = stack.unstack(params["layers"], cfg.num_layers)
 
         def mamba(li, x):
             state = (None if cache is None else
@@ -348,11 +325,11 @@ class LMModel:
             for j in range(per):
                 x = mamba(g * per + j, x)
             return B.attn_block(params["shared"], x, cfg, self.metas[0],
-                                rope, self.routes,
+                                ropes, self.routes,
                                 cache=None if cache is None else cache["attn"],
                                 layer=g, t=t, tpos=tpos, step=step)[0]
         for g in range(self.n_groups):      # the reference's remat'd scan
-            x = _remat(cfg, functools.partial(group, g=g), x)(x)
+            x = stack.remat(cfg, functools.partial(group, g=g), x)(x)
         for j in range(self.n_tail):        # its unrolled tail: no remat
             x = mamba(self.n_groups * per + j, x)
         return x
@@ -363,10 +340,11 @@ class LMModel:
         the SW route only: every other lowering refuses to run under
         autograd (the kernels have no backward, as in the reference)."""
         cfg = self.cfg
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         Bt, S = x.shape[:2]
-        x, aux = self._run_layers(params, x, self._rope(
-            rope_mod.positions_default(Bt, S, x.device)))
+        x, aux = self._run_layers(params, x, self._ropes(
+            rope_mod.positions_default(Bt, S, x.device),
+            batch.get("positions3")))
         h = L.norm(params["final_norm"], x, eps=cfg.norm_eps)
         tied = cfg.tie_embeddings
         w = params["embed"]["table"] if tied else params["lm_head"]["w"]
@@ -385,21 +363,23 @@ class LMModel:
 
     def logits_all(self, params, batch) -> torch.Tensor:
         """Full (B, S, V) teacher-forced logits (tests / tiny models)."""
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         Bt, S = x.shape[:2]
-        x, _ = self._run_layers(params, x, self._rope(
-            rope_mod.positions_default(Bt, S, x.device)))
+        x, _ = self._run_layers(params, x, self._ropes(
+            rope_mod.positions_default(Bt, S, x.device),
+            batch.get("positions3")))
         return self._logits(params, x)
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, PyTree]:
         """Run the prompt; returns (last-token logits, cache).  The cache
         in ``batch['cache']`` (allocated to the serving max length) is
         written in place."""
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         Bt, S = x.shape[:2]
         cache = batch["cache"]
-        x, _ = self._run_layers(params, x, self._rope(
-            rope_mod.positions_default(Bt, S, x.device)), cache=cache)
+        x, _ = self._run_layers(params, x, self._ropes(
+            rope_mod.positions_default(Bt, S, x.device),
+            batch.get("positions3")), cache=cache)
         return self._logits(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, tokens,
@@ -415,8 +395,10 @@ class LMModel:
         t = [int(t)] * Bt if isinstance(t, int) else [int(v) for v in t]
         if len(t) != Bt:
             raise ValueError(f"{len(t)} positions for {Bt} slots")
-        x = self._embed_in(params, tokens)
+        x = self._embed_in(params, {"tokens": tokens})
         tpos = torch.tensor(t, dtype=torch.int32, device=x.device)
-        x, _ = self._run_layers(params, x, self._rope(tpos[:, None]),
+        # M-RoPE decodes at positions3 = (t, t, t), as the reference does
+        # (after an image prefill too)
+        x, _ = self._run_layers(params, x, self._ropes(tpos[:, None]),
                                 cache=cache, t=t, tpos=tpos, step=True)
         return L.per_row(lambda r: self._logits(params, r), x), cache

@@ -237,14 +237,17 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     monkeypatch.setattr(chip_smoke, "RING_PROMPT", 40)
     monkeypatch.setattr(chip_smoke, "RING_MAX_LEN", 56)
-    configs = [(dataclasses.replace(get_config(c.name + "-smoke"),
-                                    vocab_size=c.vocab_size), stage)
-               for c, stage in chip_smoke.zoo_configs()]
+    # gemma3-1b-smoke's three layers are all local: eight give the 5:1
+    # pattern's local and global layers and its two-layer tail
+    configs = [(dataclasses.replace(
+        get_config(c.name + "-smoke"), vocab_size=c.vocab_size,
+        **({"num_layers": 8} if c.name == "gemma3-1b" else {})), stage)
+        for c, stage in chip_smoke.zoo_configs()]
     entries, launches = chip_smoke.zoo_phase(configs, torch.device("cpu"),
                                              counters)
     assert list(entries) == [c.name for c, _ in configs]
     L = {c.name: c.num_layers for c, _ in configs}
-    mistral, mixtral, llama4, gemma = L
+    mistral, mixtral, llama4, gemma, gemma3, qwen_vl = L
     # the schedule of each serve, the same on the card at its depth
     # (python3 chip_smoke.py on an H100: 480 and 650, 74 and 8, 58): per
     # mode one launch a layer for each prefill and (SwiGLU) each tick while
@@ -258,10 +261,15 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     assert launches["flash_attention"] == {
         mistral: 2 * 6 * L[mistral], mixtral: 2 * (4 * L[mixtral] + 5),
         f"{mixtral} ring": L[mixtral], llama4: 2 * (4 * L[llama4] + 5),
-        gemma: 2 * (4 * L[gemma] + 5), f"{gemma} ring": L[gemma]}
+        gemma: 2 * (4 * L[gemma] + 5), f"{gemma} ring": L[gemma],
+        gemma3: 2 * 6 * L[gemma3], f"{gemma3} ring": L[gemma3],
+        qwen_vl: 2 * (4 * L[qwen_vl] + 5),
+        f"{qwen_vl} image prefill": L[qwen_vl]}
     assert launches["swiglu_mlp"] == {
         mistral: 2 * (8 * L[mistral] + 5), gemma: 2 * (6 + 26) * L[gemma],
-        f"{gemma} ring": L[gemma]}
+        f"{gemma} ring": L[gemma], gemma3: 2 * (8 * L[gemma3] + 5),
+        f"{gemma3} ring": L[gemma3], qwen_vl: 2 * (6 + 26) * L[qwen_vl],
+        f"{qwen_vl} image prefill": L[qwen_vl]}
     assert entries[mistral]["hw_vs_sw_logits"].get("router") is None
     for name in (mixtral, llama4):
         router = entries[name]["hw_vs_sw_logits"]["router"]
@@ -279,3 +287,58 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
         "local": {"layers": 2, "slots": 16, "wraps": True},
         "global": {"layers": 1, "slots": 56, "wraps": False}}
     assert entries[gemma]["hw_vs_sw_logits"].get("router") is None
+    # gemma3: the seven local rings of 16 wrap, the global cache keeps 56
+    ring = entries[gemma3]["ring"]
+    assert ring["bit_identical"] and ring["caches"] == {
+        "local": {"layers": 7, "slots": 16, "wraps": True},
+        "global": {"layers": 1, "slots": 56, "wraps": False}}
+    image = entries[qwen_vl]["image_prefill"]
+    assert image["tokens"] == 2 * chip_smoke.VL_TEXT + chip_smoke.VL_GRID ** 2
+    assert image["positions3_last"] == [2 * chip_smoke.VL_TEXT
+                                        + chip_smoke.VL_GRID - 1] * 3
+    assert image["max_rel"] <= chip_smoke.LOGITS_REL
+    assert "ring" not in entries[qwen_vl]
+
+
+def test_encdec_phase_on_the_cpu(monkeypatch):
+    """Phase 12 (``encdec_phase``) at whisper-base-smoke's width with the
+    full vocabulary and 64 frames: the canary, the f32 SW decode against
+    teacher-forced logits to 2e-4 over every step to max_target_len (32),
+    HW against SW prefill logits, the attention launches (2 + 2 * 2 a
+    prefill, 2 a step: 2 + 2 layers here, 6 + 2 * 6 and 6 on the card), and
+    the persistent fault's SW rebuild bit-identical to the healthy SW run,
+    with the wrapper counting its calls."""
+    counters = {name: types.SimpleNamespace(launches=0)
+                for name in ("checksum", "flash_attention", "swiglu_mlp")}
+
+    def counted(fn, name):
+        def call(*a, **kw):
+            counters[name].launches += 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(attention_ops, "flash_attention_bhsd", counted(
+        attention_ops.flash_attention_bhsd, "flash_attention"))
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda *a, **kw: 0.0)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    full = get_config("whisper-base")
+    cfg = dataclasses.replace(get_config("whisper-base-smoke"),
+                              vocab_size=full.vocab_size)
+    entry, launches = chip_smoke.encdec_phase(cfg, torch.device("cpu"),
+                                              counters, frames=64)
+    T, P, Ld = cfg.max_target_len, chip_smoke.ENCDEC_PROMPT, cfg.dec_layers
+    steps = T - P - 1
+    assert entry["f32_decode_vs_teacher_forced"]["steps"] == T - P
+    assert entry["launches"] == {"prefill": 2 + 2 * Ld, "per_step": [Ld],
+                                 "steps": steps}
+    failover = entry["failover"]
+    assert failover["bit_identical_to_sw"]
+    assert failover["plan"] == {"flash_attention": "sw"}
+    assert failover["verdict"]["transient"] is False
+    # the HW greedy run, the faulted run's prefill and 4 steps, its probes
+    assert launches == {"flash_attention": (2 + 2 * Ld) * 2 + Ld * (
+        steps + chip_smoke.FAULT_STEP) + failover["verdict"]["probes"]}
+    assert failover["verdict"]["probes"] == 3
+    assert all(entry["canaries"]["flash_attention"]["faults_caught"]
+               .values())

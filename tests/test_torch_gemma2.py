@@ -82,8 +82,9 @@ def test_config_and_layout():
                                                                       26)
     assert build_model(cfg)._kv_at == (("local", 0), ("global", 0),
                                        ("local", 1))
-    with pytest.raises(NotImplementedError, match="12.1"):
-        get_config("gemma3-1b")
+    # the 5:1 sibling takes the same local/global caches
+    assert build_model(get_config("gemma3-1b"))._kv_at[4:7] == (
+        ("local", 4), ("global", 0), ("local", 5))
 
 
 @pytest.mark.parametrize("route", ["sw", "interpret", "hw"])

@@ -137,17 +137,36 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                                   "mixtral-8x7b", "mixtral-8x7b-smoke",
                                   "llama4-scout-17b-a16e",
                                   "llama4-scout-17b-a16e-smoke",
-                                  "gemma2-2b", "gemma2-2b-smoke"])
+                                  "gemma2-2b", "gemma2-2b-smoke",
+                                  "gemma3-1b", "gemma3-1b-smoke",
+                                  "qwen2-vl-7b", "qwen2-vl-7b-smoke",
+                                  "whisper-base", "whisper-base-smoke"])
 def test_config_copy_matches_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(ref_configs.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2-vl-7b",
-                                  "gemma3-1b-smoke", "whisper-base"])
-def test_unported_arch_names_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_NAMES)
+def test_every_reference_arch_builds_on_the_cpu(arch):
+    """The registry holds every reference architecture; each builds and
+    initialises at its reduced config on the CPU; the serve CLI refuses
+    the stub-frontend and encoder-decoder ones, as the reference's does."""
+    from repro.train.runner import model_stage_names as ref_stage_names
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.train.runner import canary_stages, model_stage_names
+    assert set(ARCH_NAMES) == set(ref_configs.ARCH_NAMES)
+    cfg = get_config(arch + "-smoke")
+    params = build_model(cfg).init(0, device="cpu")
+    assert params["embed"]["table"].shape == (cfg.vocab_size, cfg.d_model)
+    # the stages each arch exercises, and its canaries, as the reference's
+    names = model_stage_names(get_config(arch))
+    assert names == ref_stage_names(ref_configs.get_config(arch))
+    assert [st.name for st in canary_stages(cfg, device="cpu")] == names
+    if cfg.is_encdec or cfg.stub_frontend:
+        with pytest.raises(SystemExit, match="decoder-only"):
+            serve_cli.main(["--arch", arch, "--device", "cpu"])
 
 
 def test_metrics_copy_matches_reference():
