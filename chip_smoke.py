@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, multi-process fleet, chaos,
-model-zoo and encoder-decoder paths on one NVIDIA GPU and check them.
+model-zoo, encoder-decoder and tuning paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -99,7 +100,11 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              invisible when 32 of its 64 bytes have bit 6 set), the
              rerouted run and ``run_resident`` under every single-stage
              mask equal the healthy output, and the checksum kernel runs
-             22 times per 11-stage AES sweep and 6 per 3-stage sweep;
+             22 times per 11-stage AES sweep and 6 per 3-stage sweep.  The
+             paper's latency model (``core/latency.py``) prints its healthy
+             and one-fault ``speedup_vs_sw`` beside each case study's HW,
+             all-SW and rerouted run times on the card (information only:
+             here a stage's HW and SW paths run the same code);
 4. serve   — each model at full width (random weights from a seeded
              torch.Generator).  First its canary stages on the card: every
              healthy stage passes on HW (``max|hw - sw|`` printed beside its
@@ -295,13 +300,41 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              equal the healthy SW run's bit for bit; prefill and decode
              step ms, peak memory (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
+13. tuning — the autotuner (``kernels/tuning``) on the card.  From its
+             start the script points the process's tuning cache at a fresh
+             temporary directory (``REPRO_TUNING_CACHE``), so every earlier
+             phase runs today's default plans.  qwen1.5-4b on the HW route
+             over phase 4's seeded weights and 6 requests on 4 slots,
+             served with an empty cache: every launch is the default plan.
+             Then every admissible hw config (``sweep_plans``) at the main
+             path's shapes (``TUNE_CASES``: attention at qwen1.5-4b P =
+             128 and 2048, zamba2-1.2b P = 384, gemma2-2b P = 4200 at head
+             dim 256, where one config is admissible; SwiGLU at qwen1.5-4b
+             M = 4 and 128, zamba2-1.2b M = 384, qwen2-vl-7b M = 288; the
+             SSD at zamba2-1.2b S = 384; the WKV at rwkv6-1.6b S = 512)
+             and at the serve's prefill shapes: its shared memory (or the
+             scans' whole plan) against the compiled library's before any
+             launch, then a launch healthy and under a lane fault, bit-equal
+             to the default plan (attention, SwiGLU) or within phase 2's
+             tolerances of the plain version at that chunk (the scans).
+             ``tune_kernel`` with ``cuda_measure`` tunes each shape into a
+             fresh cache (a line per shape: default and tuned configs and
+             ms, configs tried; every admissible config must measure).
+             The serve runs again with the tuned cache and with every
+             entry set to a non-default config: the three give the same
+             tokens, the last two hit the cache, and every launch the
+             wrappers recorded carries its entry's knobs (a
+             row-independent decode SwiGLU keeps one warpgroup).  The
+             cache is reset at the end (rehearsed on the CPU by
+             ``test_torch_chip_smoke.py``, plans only).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
 case studies, the fleet runs, the two ranks of phase 9, the chaos
 campaigns, each phase-11 model's serve, ring prefill and image
-prefill, and phase 12's decode, faulted run and probes);
+prefill, phase 12's decode, faulted run and probes, and phase 13's three
+serves);
 the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -312,9 +345,11 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2560,23 +2595,453 @@ def encdec_phase(cfg, dev, wrappers, *, frames: int = ENCDEC_FRAMES,
     return entry, counts
 
 
+# ---------------------------------------------------------- 13. tuning
+# phase 4's qwen1.5-4b workload (6 requests on 4 slots), which phase 13
+# serves three times
+QWEN_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
+                     arrival_every=2, per_arrival=2)
+# (kernel, model, tokens or rows): phase 13's sweep at the main path's
+# shapes; the prefill shapes of the three serves join them
+TUNE_CASES = (("flash_attention", "qwen1.5-4b", 128),
+              ("flash_attention", "qwen1.5-4b", 2048),
+              ("flash_attention", "zamba2-1.2b", 384),
+              ("flash_attention", "gemma2-2b", 4200),
+              ("swiglu_mlp", "qwen1.5-4b", 4),
+              ("swiglu_mlp", "qwen1.5-4b", 128),
+              ("swiglu_mlp", "zamba2-1.2b", 384),
+              ("swiglu_mlp", "qwen2-vl-7b", 288),
+              ("mamba2_ssd", "zamba2-1.2b", 384),
+              ("rwkv6_wkv", "rwkv6-1.6b", 512))
+
+
+def tune_shape(kernel: str, cfg, n: int):
+    """The canonical tuning shape (``kernels/tuning/space.py``) of
+    ``kernel`` in the model ``cfg`` at ``n`` tokens (a batch of one) or,
+    for SwiGLU, ``n`` rows."""
+    if kernel == "flash_attention":
+        return (1, n, n, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim)
+    if kernel == "swiglu_mlp":
+        return (n, cfg.d_model, cfg.d_ff)
+    if kernel == "mamba2_ssd":
+        from repro_torch.models.mamba2 import dims
+        return (1, n, dims(cfg)[1], cfg.ssm.head_dim, cfg.ssm.state_dim)
+    from repro_torch.models.rwkv6 import dims
+    H, K = dims(cfg)
+    return (1, n, H, K, K)
+
+
+def sweep_plans(kernel: str, shape):
+    """(config, launch plan) for every admissible hw config of ``kernel``
+    at the canonical ``shape``: the plan the wrapper makes with those
+    knobs (the scans: S padded to the chunk as their ops pad it), held to
+    carry them.  The space's default is among them and is today's plan."""
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.flash_attention.kernel import plan as fa_plan
+    from repro_torch.kernels.mamba2_scan.kernel import plan as ssd_plan
+    from repro_torch.kernels.rwkv6_scan.kernel import plan as wkv_plan
+    from repro_torch.kernels.swiglu.kernel import plan as sw_plan
+
+    space = tuning.space_for(kernel, "hw")
+    plans = []
+    for cfg in space.configs(shape):
+        if kernel == "flash_attention":
+            B, Sq, Skv, H, Hkv, D = shape
+            p = fa_plan(B, H, Hkv, Sq, Skv, D, D, **cfg)
+            today = fa_plan(B, H, Hkv, Sq, Skv, D, D)
+        elif kernel == "swiglu_mlp":
+            M, D, F = shape
+            p, today = sw_plan(M, D, F, D, **cfg), sw_plan(M, D, F, D)
+        else:
+            B, S, H = shape[:3]
+            L = min(cfg["chunk"], S)
+            plan_fn = ssd_plan if kernel == "mamba2_ssd" else wkv_plan
+            p = plan_fn(B, -(-S // L) * L, H, L)
+        check(kernel not in ("flash_attention", "swiglu_mlp")
+              or p.knobs() == cfg, f"{kernel} {shape}: plan {p} for {cfg}")
+        plans.append((cfg, p))
+    default = space.default(shape)
+    check(default in [c for c, _ in plans], f"{kernel} {shape}: the "
+          f"default {default} is not admissible")
+    if kernel in ("flash_attention", "swiglu_mlp"):
+        check(today.knobs() == default, f"{kernel} {shape}: the space's "
+              f"default {default} is not today's plan {today}")
+    return plans
+
+
+def tune_cases(shapes, measure_for):
+    """``tune_kernel`` each (kernel, shape) of ``shapes`` into the process
+    cache, scored by ``measure_for(kernel, shape)(cfg) -> us``.  Every
+    admissible config must be measured (one that raised fails the phase).
+    Returns a row per shape: the default and tuned configs and their us,
+    the configs tried and each one's us, and whether the operands stayed in L2 from rep to
+    rep (``cuda_measure``'s ``warm_l2``; None for another measure)."""
+    import torch
+
+    from repro_torch.kernels import tuning
+    rows = []
+    for kernel, shape in shapes:
+        space = tuning.space_for(kernel, "hw")
+        scored = {}
+        base = measure_for(kernel, shape)
+
+        def measure(cfg, base=base, scored=scored):
+            us = base(cfg)
+            scored[tuple(sorted(cfg.items()))] = us
+            return us
+
+        best, best_us = tuning.tune_kernel(kernel, "hw", shape,
+                                           torch.bfloat16, measure=measure)
+        configs = list(space.configs(shape))
+        check(len(scored) == len(configs), f"tune {kernel} {shape}: "
+              f"measured {len(scored)} of {len(configs)} admissible "
+              "configs (a config raised)")
+        default = space.default(shape)
+        rows.append({"kernel": kernel, "shape": list(shape),
+                     "default": default,
+                     "default_us": scored[tuple(sorted(default.items()))],
+                     "tuned": best, "tuned_us": best_us,
+                     "tried": len(scored),
+                     "scored": {" ".join(f"{k}={v}" for k, v in c): us
+                                for c, us in scored.items()},
+                     "warm_l2": getattr(base, "warm_l2", None)})
+    return rows
+
+
+def non_default_entries(shapes, cache):
+    """Per (kernel, shape), an admissible config other than the default,
+    and other than the cached (tuned) entry where a third exists; shapes
+    whose space holds one config (attention at head dim 256) have none."""
+    import torch
+
+    from repro_torch.kernels import tuning
+    picks = {}
+    for kernel, shape in shapes:
+        space = tuning.space_for(kernel, "hw")
+        others = [c for c in space.configs(shape)
+                  if c != space.default(shape)]
+        if others:
+            tuned = cache.get(kernel, "hw", shape, torch.bfloat16)
+            picks[(kernel, tuple(shape))] = next(
+                (c for c in others if c != tuned), others[0])
+    return picks
+
+
+def expected_knobs(kernel: str, record_shape, cache):
+    """The knobs a launch of ``record_shape`` (a wrapper's ``plans`` key:
+    attention (B, Sq, Skv, H, Hkv, D, Dv), SwiGLU (M, D, F, Do,
+    row_independent)) must carry under ``cache``: its admissible entry
+    where the wrapper's ``plan`` takes it, else the default plan's (a
+    row-independent SwiGLU call keeps one warpgroup; a narrowed width can
+    refuse an entry).  Returns (knobs, whether an entry set them)."""
+    import torch
+
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.flash_attention.kernel import plan as fa_plan
+    from repro_torch.kernels.swiglu.kernel import plan as sw_plan
+    if kernel == "flash_attention":
+        B, Sq, Skv, H, Hkv, D, Dv = record_shape
+        shape = (B, Sq, Skv, H, Hkv, D)
+
+        def make(**knobs):
+            return fa_plan(B, H, Hkv, Sq, Skv, D, Dv, **knobs)
+    else:
+        M, D, F, Do, ri = record_shape
+        shape = (M, D, F)
+
+        def make(**knobs):
+            return sw_plan(M, D, F, Do, ri, **knobs)
+    entry = cache.get(kernel, "hw", shape, torch.bfloat16)
+    if entry and tuning.admissible(kernel, "hw", entry, shape):
+        try:
+            return make(**entry).knobs(), True
+        except ValueError:
+            pass
+    return make().knobs(), False
+
+
+def check_launched_plans(records, cache, tag):
+    """Every launch in ``records`` ({kernel: wrapper.plans}) carried the
+    knobs ``expected_knobs`` gives under ``cache``.  Returns the launches
+    whose knobs came from an entry, by kernel."""
+    from_entries = {}
+    for kernel, plans in records.items():
+        from_entries[kernel] = 0
+        for (shape, knobs), n in plans.items():
+            want, hit = expected_knobs(kernel, shape, cache)
+            check(dict(knobs) == want, f"{tag}: {kernel} {shape} launched "
+                  f"{dict(knobs)}, want {want}")
+            from_entries[kernel] += n if hit else 0
+    return from_entries
+
+
+def tuning_phase(dev, wrappers, tuning_dir):
+    """Phase 13: the autotuner on the card.  Serve qwen1.5-4b on the HW
+    route over phase 4's seeded weights and requests with an empty cache
+    (every launch today's plan); sweep every admissible hw config of each
+    ``TUNE_CASES`` shape and of the serve's prefill shapes (the compiled
+    shared memory first, then a launch; attention and SwiGLU bit-equal to
+    the default plan, healthy and under a lane fault; the scans within
+    phase 2's tolerances of their plain version at each chunk);
+    ``tune_kernel`` each shape into a fresh cache with ``cuda_measure``;
+    serve again with the tuned cache and with every entry set to a
+    non-default config.  The three serves give the same tokens; the last
+    two hit the cache, and every launch carries its entry's knobs.
+    Returns (its report entry, the serves' launches)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.kernel import \
+        smem_bytes as fa_smem
+    from repro_torch.kernels.mamba2_scan import (ssd_chunked_cuda,
+                                                 ssd_ref_blocked)
+    from repro_torch.kernels.mamba2_scan.kernel import c_plan as ssd_c_plan
+    from repro_torch.kernels.rwkv6_scan import (wkv6_chunked_cuda,
+                                                wkv6_ref_blocked)
+    from repro_torch.kernels.rwkv6_scan.kernel import c_plan as wkv_c_plan
+    from repro_torch.kernels.swiglu import swiglu_fused
+    from repro_torch.kernels.swiglu.kernel import smem_bytes as sw_smem
+    from repro_torch.kernels.tuning.cache import TuningCache
+    from repro_torch.kernels.tuning.tuner import cuda_measure
+    from repro_torch.serve import (RECOMPILE, ServeConfig, ServeEngine,
+                                   synthetic_workload)
+    from repro_torch.viscosity import HW
+    from repro_torch.viscosity.lanefault import KINDS, LaneFault
+
+    t_phase = time.perf_counter()
+    qwen = get_config("qwen1.5-4b")
+    params, _, init_s = init_weights(qwen, dev)
+    reqs = synthetic_workload(qwen.vocab_size, 6, np.random.default_rng(0),
+                              **QWEN_WORKLOAD)
+    max_len = QWEN_WORKLOAD["max_prompt"] + QWEN_WORKLOAD["max_new"]
+    recorded = {"flash_attention": flash_attention_bhsd,
+                "swiglu_mlp": swiglu_fused}
+    launches = dict.fromkeys(wrappers, 0)
+
+    def serve(tag):
+        eng = ServeEngine(qwen, params, ServeConfig(
+            max_len=max_len, max_slots=4, hw_route=HW, failover=RECOMPILE),
+            device=dev)
+        for w in wrappers.values():
+            w.launches = 0
+        for w in recorded.values():
+            w.plans.clear()
+        s0 = tuning.stats()
+        t0 = time.perf_counter()
+        done, stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, w in wrappers.items():
+            launches[name] += w.launches
+        st = {k: v - s0[k] for k, v in tuning.stats().items()}
+        records = {k: dict(w.plans) for k, w in recorded.items()}
+        from_entries = check_launched_plans(records, tuning.get_cache(),
+                                            f"tuning serve {tag}")
+        out(f"[tuning] serve {tag}: {len(done)}/{len(reqs)} done in "
+            f"{stats['steps']} steps, {wall:.2f} s; lookups {st}; launches "
+            f"from cache entries {from_entries} of "
+            f"{ {k: sum(v.values()) for k, v in records.items()} }")
+        check(sorted(done) == sorted(r.rid for r in reqs),
+              f"tuning serve {tag}: not every request completed")
+        return ({rid: list(c.tokens) for rid, c in done.items()}, st,
+                from_entries, records, wall)
+
+    # 1. an empty cache: every launch is today's plan
+    tuning.set_cache(TuningCache(os.path.join(tuning_dir, "empty")))
+    tokens0, st0, hits0, records, wall0 = serve("empty cache")
+    check(st0["hits"] == 0 and not any(hits0.values()),
+          f"tuning: the empty cache hit {st0}")
+    served = {("flash_attention", shp[:6]) for shp, _ in
+              records["flash_attention"]}
+    served |= {("swiglu_mlp", shp[:3]) for shp, _ in records["swiglu_mlp"]
+               if not shp[4]}
+    shapes = [(k, tune_shape(k, get_config(m), n)) for k, m, n in TUNE_CASES]
+    shapes += sorted(s for s in served if s not in shapes)
+
+    # 2. the sweep
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def inputs(kernel, shape):
+        if kernel == "flash_attention":
+            B, Sq, Skv, H, Hkv, D = shape
+            q, k, v = randn(B, Sq, H, D), randn(B, Skv, Hkv, D), \
+                randn(B, Skv, Hkv, D)
+            return tuple(t.transpose(1, 2) for t in (q, k, v))
+        if kernel == "swiglu_mlp":
+            M, D, Fd = shape
+            return (randn(M, D), randn(D, Fd, scale=D ** -0.5),
+                    randn(D, Fd, scale=D ** -0.5),
+                    randn(Fd, D, scale=Fd ** -0.5))
+        if kernel == "mamba2_ssd":
+            B, S, H, P, N = shape
+            return (randn(B, S, H, P),
+                    F.softplus(randn(B, S, H, dtype=torch.float32) - 1.0),
+                    -torch.linspace(1.0, 16.0, H, device=dev),
+                    randn(B, S, N, scale=0.1), randn(B, S, N, scale=0.1))
+        B, S, H, K, V = shape
+        lw = torch.rand((B, S, H, K), generator=gen, device=dev) \
+            * (4.0 - 1e-4) - 4.0
+        return (randn(B, S, H, K, scale=0.2), randn(B, S, H, K, scale=0.2),
+                randn(B, S, H, V, scale=0.5), lw.to(torch.bfloat16),
+                randn(H, K, scale=0.5, dtype=torch.float32))
+
+    def call(kernel, args, cfg, fault=None):
+        if kernel == "flash_attention":
+            return flash_attention_bhsd(*args, causal=True, knobs=cfg,
+                                        lane_fault=fault)
+        if kernel == "swiglu_mlp":
+            return swiglu_fused(*args, knobs=cfg, lane_fault=fault)
+        fn = ssd_chunked_cuda if kernel == "mamba2_ssd" else \
+            wkv6_chunked_cuda
+        return fn(*args, chunk=cfg["chunk"], lane_fault=fault,
+                  with_state=True)
+
+    def close(tag, got, want, tol):
+        d = (got.float() - want.float()).abs().max().item()
+        rel = d / max(want.float().abs().max().item(), 1e-30)
+        check(bool(torch.isfinite(got.float()).all()) and d <= tol[0]
+              and rel <= tol[1], f"{tag}: max_abs {d:.3e} max_rel "
+              f"{rel:.3e} (tol {tol})")
+        return d
+
+    sweep = {}
+    t0 = time.perf_counter()
+    for kernel, shape in shapes:
+        args = inputs(kernel, shape)
+        width = shape[{"swiglu_mlp": 1, "mamba2_ssd": 3}.get(kernel, -1)]
+        faults = (None, LaneFault(KINDS[0], (3, width - 5), width))
+        default = tuning.space_for(kernel, "hw").default(shape)
+        want = {f: call(kernel, args, default, f) for f in faults}
+        errs, plans = [], sweep_plans(kernel, shape)
+        for cfg, p in plans:
+            tag = f"tuning sweep {kernel} {shape} {cfg}"
+            if kernel == "flash_attention":     # before any launch
+                check(fa_smem(p.nwg, p.kd, p.vb, p.stages) == p.smem,
+                      f"{tag}: compiled shared memory differs from {p}")
+            elif kernel == "swiglu_mlp":
+                check((sw_smem(p.nwg, 0), sw_smem(p.nwg, p.nsub))
+                      == p.smem, f"{tag}: compiled rings differ from {p}")
+            else:
+                B, S, H = shape[:3]
+                c_plan = ssd_c_plan if kernel == "mamba2_ssd" else \
+                    wkv_c_plan
+                check(c_plan(B, S, H, cfg["chunk"]) == p,
+                      f"{tag}: the compiled plan differs from {p}")
+            for f in faults:
+                got = call(kernel, args, cfg, f)
+                torch.cuda.synchronize()
+                if kernel in ("flash_attention", "swiglu_mlp"):
+                    check(torch.equal(got, want[f]), f"{tag} fault="
+                          f"{f and f.kind}: bits differ from the default "
+                          f"plan {default}")
+                    continue
+                plain = (ssd_ref_blocked if kernel == "mamba2_ssd" else
+                         wkv6_ref_blocked)(*args, chunk=cfg["chunk"],
+                                           lane_fault=f)
+                tol = SSD_TOL if kernel == "mamba2_ssd" else WKV_TOL
+                errs += [close(f"{tag} fault={f and f.kind} {part}", g, w,
+                               tol)
+                         for part, g, w in zip(("out", "state"), got, plain)]
+        sweep[f"{kernel} {shape}"] = {
+            "configs": [c for c, _ in plans],
+            **({"max_abs_vs_plain": max(errs)} if errs else {})}
+        out(f"[tuning] sweep {kernel} {shape}: {len(plans)} configs "
+            f"launched, healthy and under a {KINDS[0]} lane fault, "
+            + (f"each within phase 2's tolerance of the plain version at "
+               f"its chunk (max_abs {max(errs):.3e})" if errs else
+               f"each bit-equal to the default plan {default}"))
+    sweep_s = time.perf_counter() - t0
+
+    # 3. tune each shape into a fresh cache
+    tuned_cache = TuningCache(os.path.join(tuning_dir, "tuned"))
+    tuning.set_cache(tuned_cache)
+
+    def measure_for(kernel, shape):
+        args = inputs(kernel, shape)
+        return cuda_measure(lambda cfg: lambda *a: call(kernel, a, cfg),
+                            args)
+
+    t0 = time.perf_counter()
+    rows = tune_cases(shapes, measure_for)
+    tune_s = time.perf_counter() - t0
+    for r in rows:
+        out(f"[tuning] tune {r['kernel']} {tuple(r['shape'])}: default "
+            f"{r['default']} {r['default_us'] / 1e3:.4f} ms, tuned "
+            f"{r['tuned']} {r['tuned_us'] / 1e3:.4f} ms, "
+            f"{r['tried']} configs tried, operands "
+            f"{'warm in L2' if r['warm_l2'] else 'read from HBM'} each rep")
+
+    # 4. serve with the tuned cache, then with non-default entries
+    tokens1, st1, hits1, _, wall1 = serve("tuned cache")
+    picks = non_default_entries(shapes, tuned_cache)
+    forced = TuningCache(os.path.join(tuning_dir, "non_default"))
+    for (kernel, shape), cfg in picks.items():
+        forced.put(kernel, "hw", shape, torch.bfloat16, cfg)
+    tuning.set_cache(forced)
+    tokens2, st2, hits2, _, wall2 = serve("non-default entries")
+    check(tokens1 == tokens0 and tokens2 == tokens0,
+          "tuning: the serves' tokens differ across caches")
+    for tag, st, hits in (("tuned", st1, hits1),
+                          ("non-default", st2, hits2)):
+        check(st["hits"] > 0 and all(hits.values()), f"tuning serve {tag}:"
+              f" no launch took an entry ({st}, {hits})")
+    tuning.reset()
+    phase_s = time.perf_counter() - t_phase
+    out(f"[tuning] phase {phase_s:.2f} s (weights {init_s:.1f} s, sweep "
+        f"{sweep_s:.1f} s, tune {tune_s:.1f} s); the three serves' tokens "
+        "equal")
+    return ({"rows": rows, "sweep": sweep,
+             "serves": {"empty": {"wall_s": wall0, "lookups": st0},
+                        "tuned": {"wall_s": wall1, "lookups": st1,
+                                  "launches_from_entries": hits1},
+                        "non_default": {
+                            "wall_s": wall2, "lookups": st2,
+                            "launches_from_entries": hits2,
+                            "entries": {f"{k} {s}": c for (k, s), c in
+                                        picks.items()}}},
+             "phase_s": phase_s, "sweep_s": sweep_s, "tune_s": tune_s},
+            launches)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from the root of a checkout "
                          "(src/repro_torch is missing)")
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(SRC))
+    # a hermetic tuning cache: no phase reads a cache file left in the
+    # checkout (the worker processes of phase 9 inherit the variable)
+    with tempfile.TemporaryDirectory(prefix="repro_tuning_") as tuning_dir:
+        os.environ["REPRO_TUNING_CACHE"] = tuning_dir
+        from repro_torch.kernels import tuning
+        tuning.reset()
+        return run(tuning_dir)
+
+
+def run(tuning_dir: str) -> int:
+    """The phases, in order; ``tuning_dir`` is the process's tuning-cache
+    directory (empty)."""
+    import numpy as np
+    import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.core import (CanaryChecker, FaultState,
                                   StagedAccelerator, inject)
     from repro_torch.core import casestudies as cs
+    from repro_torch.core import latency
     from repro_torch.core.stage import Stage
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -3094,7 +3559,8 @@ def main() -> int:
         name, n = acc.name, len(acc.stages)
         healthy = acc.run(x)
         entry = {"input": f"{tuple(x.shape)} {x.dtype}",
-                 "run_ms": time_ms(torch, lambda: acc.run(x), 3)}
+                 "run_ms": time_ms(torch, lambda: acc.run(x), 3),
+                 "sw_ms": time_ms(torch, lambda: acc.run_reference(x), 3)}
         check(torch.equal(healthy, acc.run_reference(x)),
               f"{name}: the HW run differs from run_reference")
         if reference is not None:
@@ -3119,9 +3585,11 @@ def main() -> int:
             check(sweep == (2 * n if stages[idx].tol == 0.0 else 0),
                   f"{name} {label}: {sweep} checksum launches in a sweep")
             if found:
-                check(torch.equal(broken.run(
-                    x, state.signature(broken.stage_names)), healthy),
-                    f"{name} {label}: the rerouted run differs")
+                sig = state.signature(broken.stage_names)
+                check(torch.equal(broken.run(x, sig), healthy),
+                      f"{name} {label}: the rerouted run differs")
+                entry.setdefault("rerouted_ms", time_ms(
+                    torch, lambda: broken.run(x, sig), 3))
                 mask = [i != idx for i in range(n)]
                 check(torch.equal(broken.run_resident(x, mask), healthy),
                       f"{name} {label}: the resident reroute differs")
@@ -3178,6 +3646,22 @@ def main() -> int:
              ("or_0x40", idx, aes_fault(lambda o: o | 0x40))],
             expect=popcount_rule)
     launches["checksum"]["casestudies"] = checksum_popcount.launches
+    # the paper's latency model beside the card's times (information, not
+    # a check: on the card a stage's HW and SW paths run the same code)
+    for name, model, idx in (("fft", latency.fft_model(), 3),
+                             ("dct", latency.dct_model(), 4),
+                             ("aes11", latency.aes_model(11), 5),
+                             ("aes3", latency.aes_model(3), 1)):
+        e = cases[name]
+        e["latency_model"] = {
+            "speedup_vs_sw": latency.speedup_vs_sw(model),
+            "speedup_vs_sw_one_fault": latency.speedup_vs_sw(model, [idx])}
+        out(f"[cases] {name}: latency model speedup_vs_sw healthy "
+            f"{e['latency_model']['speedup_vs_sw']:.3f}, one fault (stage "
+            f"{idx}) {e['latency_model']['speedup_vs_sw_one_fault']:.3f}; "
+            f"on the card: HW run {e['run_ms']:.3f} ms, all-SW run "
+            f"{e['sw_ms']:.3f} ms, rerouted run "
+            f"{e.get('rerouted_ms', float('nan')):.3f} ms")
     report["casestudies"] = cases
     out(f"[cases] checksum launches in the case studies: "
         f"{checksum_popcount.launches} (22 per 11-stage AES sweep, 6 per "
@@ -3245,8 +3729,7 @@ def main() -> int:
 
     Lq, G = qwen.num_layers, zamba.num_layers // zamba.shared_attn_every
     report["qwen1.5-4b"] = served(
-        qwen, dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
-                   arrival_every=2, per_arrival=2), "swiglu_mlp",
+        qwen, QWEN_WORKLOAD, "swiglu_mlp",
         per_prefill={"flash_attention": Lq, "swiglu_mlp": Lq},
         per_tick={"flash_attention": 0, "swiglu_mlp": Lq}, prefill_len=128)
     torch.cuda.empty_cache()
@@ -3614,6 +4097,15 @@ def main() -> int:
     for name, n in encdec_launches.items():
         launches[name][whisper.name] = n
     report["encdec"]["nvidia_smi"] = smi
+
+    # --------------------------------------------------------- 13. tuning
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["tuning"], tuning_launches = tuning_phase(dev, wrappers,
+                                                     tuning_dir)
+    for name, n in tuning_launches.items():
+        launches[name]["tuning"] = n
+    report["tuning"]["nvidia_smi"] = smi
     for kn in kernels:                   # the new paths' launches too
         kn["launches"] = sum(launches[kn["name"]].values())
     for kn in kernels:

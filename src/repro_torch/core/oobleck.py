@@ -12,8 +12,9 @@ the paper:
     HW or SW lowering; failover flips a bit and rebuilds nothing (the
     reference's ``lax.cond`` on a traced mask).
 
-There is no tuning scope yet (Hopper tuning spaces are ROADMAP queue 1
-item 13).
+The Dispatcher builds each plan under ``tuning.plan_scope`` and returns the
+build scoped to the plan's key, so the kernels it runs look up launch
+knobs tuned for that plan first (a degraded plan can carry its own).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Callable, Hashable, List, Optional, Sequence
 from repro_torch.core.fault import FaultSignature
 from repro_torch.core.routing import RoutingPlan
 from repro_torch.core.stage import Stage
+from repro_torch.kernels import tuning
 from repro_torch.obs import metrics
 from repro_torch.viscosity.lang import HW, SW
 
@@ -99,9 +101,12 @@ class _Entry:
 class Dispatcher:
     """Build-per-plan LRU cache (the paper's reconfiguration engine).
 
-    ``build(key) -> callable`` is user-supplied.  A key exposing
-    ``compile_key()`` is canonicalized through it.  Eviction is LRU at
-    ``capacity``.
+    ``build(key) -> callable`` is user-supplied (a function, or a model
+    whose methods are called).  A key exposing ``compile_key()`` is
+    canonicalized through it.  The build runs under
+    ``tuning.plan_scope(cache_key)`` and is returned ``tuning.scoped`` to
+    it: every call of it, or of its methods, looks up tuned launch knobs
+    under this plan's key first.  Eviction is LRU at ``capacity``.
     """
 
     def __init__(self, build: Callable[[Hashable], Callable],
@@ -125,7 +130,8 @@ class Dispatcher:
         metrics.inc("dispatch_cache_misses_total",
                     key=_key_digest(cache_key))
         t0 = time.perf_counter()
-        fn = self.build(key)
+        with tuning.plan_scope(cache_key):
+            fn = tuning.scoped(cache_key, self.build(key))
         metrics.observe("dispatch_compile_seconds",
                         time.perf_counter() - t0,
                         key=_key_digest(cache_key))

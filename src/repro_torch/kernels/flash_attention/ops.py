@@ -7,7 +7,11 @@ is the stage entry point the models call; the route selects the lowering:
                  to the tiles, on CPU tensors)
   * INTERPRET -> the kernel's blocked algorithm in PyTorch, CPU only
   * SW        -> the chunked online-softmax oracle
-There is no tuning cache yet: the tiles are the reference's defaults.
+On a CUDA tensor the kernel's plan comes from the tuning cache
+(``kernel.resolve``).  The plain version and the INTERPRET replica on CPU
+tensors keep the reference's default 128 x 128 tiles: Pallas tiles have no
+Hopper meaning, so they look nothing up.  The SW oracle's ``kv_chunk`` is
+looked up, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import viscosity
+from repro_torch.kernels import tuning
 from repro_torch.kernels.flash_attention import ref as _ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro_torch.viscosity import lanefault
@@ -78,7 +83,13 @@ def _lane_slicer(args, kw, keep):
 
 def _sw_path(q, k, v, *, kv_chunk=None, bq=128, bk=128, interpret=False,
              **kw):
-    return _ref.attention_chunked(q, k, v, kv_chunk=kv_chunk or 512, **kw)
+    if not kv_chunk:
+        B, Sq, H, D = q.shape
+        cfg = tuning.lookup_once("flash_attention", "sw",
+                                 (B, Sq, k.shape[1], H, k.shape[2], D),
+                                 q.dtype) or {}
+        kv_chunk = cfg.get("kv_chunk") or 512
+    return _ref.attention_chunked(q, k, v, kv_chunk=kv_chunk, **kw)
 
 
 ATTENTION = viscosity.defop(

@@ -1,8 +1,9 @@
 """Wrapper + Viscosity registration for the Mamba2 SSD stage.
 
-Port of the reference's ``kernels/mamba2_scan/ops.py``.  There is no
-tuning cache yet (Hopper tuning spaces are ROADMAP queue 1 item 13): the
-chunk is the reference's default, 128.
+Port of the reference's ``kernels/mamba2_scan/ops.py``.  The chunk is
+the tuning cache's (``_tuned_chunk``) for the SW lowering and for the HW
+lowering on CUDA tensors, else the reference's default, 128; the plain
+version and the INTERPRET replica on CPU tensors keep the default.
 
 Both full lowerings take ``with_state``: the HW lowering then also returns
 the final state from the kernel's state pass, the SW lowering the one its
@@ -15,6 +16,7 @@ import functools
 import torch.nn.functional as F
 
 from repro_torch import viscosity
+from repro_torch.kernels import tuning
 from repro_torch.kernels.mamba2_scan import ref as _ref
 from repro_torch.kernels.mamba2_scan.kernel import ssd_chunked_cuda
 from repro_torch.viscosity import lanefault
@@ -22,15 +24,27 @@ from repro_torch.viscosity import lanefault
 CHUNK = 128
 
 
+def _tuned_chunk(kind, x, B_, default):
+    cfg = tuning.lookup_once(
+        "mamba2_ssd", kind,
+        (x.shape[0], x.shape[1], x.shape[2], x.shape[3], B_.shape[-1]),
+        x.dtype) or {}
+    return cfg.get("chunk") or default
+
+
 def _sw(x, dt, A, B_, C, *, chunk=None, with_state: bool = False):
-    y, state = _ref.ssd_chunked(x, dt, A, B_, C, chunk=chunk or CHUNK)
+    chunk = chunk or _tuned_chunk("sw", x, B_, CHUNK)
+    y, state = _ref.ssd_chunked(x, dt, A, B_, C, chunk=chunk)
     return (y, state) if with_state else y
 
 
 def _hw(x, dt, A, B_, C, *, chunk=None, interpret: bool = False,
         with_state: bool = False):
+    if not chunk:
+        chunk = (_tuned_chunk("hw", x, B_, CHUNK)
+                 if x.device.type == "cuda" and not interpret else CHUNK)
     S = x.shape[1]
-    L = min(chunk or CHUNK, S)
+    L = min(chunk, S)
     if S % L:
         # zero tokens with dt = 0 change neither the real tokens' y nor the
         # final state (decay exp(0) = 1, update 0)

@@ -1,8 +1,10 @@
 """Wrapper + Viscosity registration for the RWKV-6 WKV stage.
 
-Port of the reference's ``kernels/rwkv6_scan/ops.py``.  There is no
-tuning cache yet (Hopper tuning spaces are ROADMAP queue 1 item 13): the
-chunk is the reference's default, 16.
+Port of the reference's ``kernels/rwkv6_scan/ops.py``.  The chunk is
+the tuning cache's (``_tuned_chunk``; at most 16, the f32 range bound) for
+the SW lowering and for the HW lowering on CUDA tensors, else the
+reference's default, 16; the plain version and the INTERPRET replica on
+CPU tensors keep the default.
 
 Both full lowerings take ``with_state``: the HW lowering then also returns
 the final state from the kernel's state pass, the SW lowering the one its
@@ -15,6 +17,7 @@ import functools
 import torch.nn.functional as F
 
 from repro_torch import viscosity
+from repro_torch.kernels import tuning
 from repro_torch.kernels.rwkv6_scan import ref as _ref
 from repro_torch.kernels.rwkv6_scan.kernel import plan, wkv6_chunked_cuda
 from repro_torch.viscosity import lanefault
@@ -22,15 +25,27 @@ from repro_torch.viscosity import lanefault
 CHUNK = 16
 
 
+def _tuned_chunk(kind, r, v, default):
+    cfg = tuning.lookup_once(
+        "rwkv6_wkv", kind,
+        (r.shape[0], r.shape[1], r.shape[2], r.shape[3], v.shape[-1]),
+        r.dtype) or {}
+    return cfg.get("chunk") or default
+
+
 def _sw(r, k, v, lw, u, *, chunk=None, with_state: bool = False):
-    o, state = _ref.wkv6_chunked(r, k, v, lw, u, chunk=chunk or CHUNK)
+    chunk = chunk or _tuned_chunk("sw", r, v, CHUNK)
+    o, state = _ref.wkv6_chunked(r, k, v, lw, u, chunk=chunk)
     return (o, state) if with_state else o
 
 
 def _hw(r, k, v, lw, u, *, chunk=None, interpret: bool = False,
         with_state: bool = False):
+    if not chunk:
+        chunk = (_tuned_chunk("hw", r, v, CHUNK)
+                 if r.device.type == "cuda" and not interpret else CHUNK)
     S = r.shape[1]
-    L = min(chunk or CHUNK, S)
+    L = min(chunk, S)
     if S % L:
         # zero tokens (k = v = 0, lw = 0) change neither the real tokens' o
         # nor the final state (decay e^0 = 1, update 0)

@@ -10,25 +10,32 @@ at prefill its operations.
 
 ``plan`` is the launch plan in plain Python, the same on every device:
 tiles, slices, shared memory and grids from ``(M, D, F, Do,
-row_independent)``.  The K tiling and the slice count depend on the widths
-only, never on M, so a row's bits do not depend on how many rows share the
-call.  On a CUDA tensor the wrapper pads the widths to the tile, allocates
-the output, takes its scratch from a buffer kept per stream, and launches,
-or raises; on a CPU tensor it runs the plain version,
-``swiglu_ref_blocked``.
-``swiglu_fused.launches`` counts one per call that launched the kernels.
+row_independent)`` and, optionally, the tuned knobs (``nwg``, ``nsub``;
+the ``swiglu_mlp`` hw space of ``kernels/tuning``).  The K tiling and the
+slice count depend on the widths only, never on M or a knob, so a row's
+bits do not depend on how many rows share the call or how.  ``resolve``
+gives a CUDA call's plan: the tuning cache's entry where one is admissible
+at the call's real Do (a row-independent call keeps one warpgroup a
+block), else the default; once per call signature and plan key.  On a
+CUDA tensor the wrapper pads the widths to the tile, allocates the output,
+takes its scratch from a buffer kept per stream, and launches, or raises;
+on a CPU tensor it runs the plain version, ``swiglu_ref_blocked``, with the
+reference's tiles and no tuning lookup.
+``swiglu_fused.launches`` counts one per call that launched the kernels;
+``swiglu_fused.plans`` counts them by (shape, knobs).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.swiglu.ref import swiglu_ref_blocked
 
 _NAME = "swiglu"
@@ -89,6 +96,10 @@ class Plan:
     grid_a: Tuple[int, int, int]
     grid_b: Tuple[int, int, int]  # z: the slices (summed by a 3rd kernel)
 
+    def knobs(self) -> Dict[str, int]:
+        """The tunable knobs this plan was made with."""
+        return {"nwg": self.nwg, "nsub": self.nsub}
+
 
 def _warpgroups(M: int, row_independent: bool) -> int:
     """64-row consumer warpgroups a block: one for decode and for every
@@ -100,30 +111,58 @@ def _warpgroups(M: int, row_independent: bool) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(M: int, D: int, F: int, Do: int,
-         row_independent: bool = False) -> Plan:
+def plan(M: int, D: int, F: int, Do: int, row_independent: bool = False, *,
+         nwg: Optional[int] = None, nsub: Optional[int] = None) -> Plan:
     """The launch plan of one call.  Every M takes the same MMAs (m64n128k16
     in phase A, m64n64k16 in phase B, K in order 16 at a time) and the same
-    slices; M picks only how many rows and columns share a block, which
-    changes no row's arithmetic.  A ``row_independent`` call keeps one
-    warpgroup a block whatever its M."""
+    slices; M and the knobs pick only how many rows and columns share a
+    block, which changes no row's arithmetic.  A ``row_independent`` call
+    keeps one warpgroup a block whatever its M.
+
+    Knobs come both or neither, and must be ones the kernel takes:
+    ``nwg`` 1-3 (1 for a row-independent call), ``nsub`` 2 only with
+    ``nwg`` > 1 and a padded Do of whole 128s; anything else raises
+    ValueError."""
     if min(M, D, F, Do) < 1:
         raise ValueError(f"swiglu: empty shape {(M, D, F, Do)}")
     Dp, Fp, Dop = (_ceil(n, TILE) * TILE for n in (D, F, Do))
-    nwg = _warpgroups(M, row_independent)
+    if (nwg, nsub) != (None, None) and not (
+            nwg in (1, 2, 3) and nsub in (1, 2)
+            and (nwg == 1 or not row_independent)
+            and (nsub == 1 or (nwg > 1 and Dop % (2 * TILE) == 0))):
+        raise ValueError(f"swiglu: knobs nwg={nwg} nsub={nsub} do not fit "
+                         f"M={M} Do={Do} (row_independent="
+                         f"{row_independent})")
+    if nwg is None:
+        nwg = _warpgroups(M, row_independent)
     bm = TILE * nwg
     mt = _ceil(M, bm)
     splits = split_count(D, F, Do)
-    # 128 columns a phase-B block where that still covers the SMs
-    wide = (nwg > 1 and Dop % (2 * TILE) == 0
-            and mt * Dop // (2 * TILE) * splits >= 0.9 * SM_COUNT)
-    nsub = 2 if wide else 1
+    if nsub is None:
+        # 128 columns a phase-B block where that still covers the SMs
+        wide = (nwg > 1 and Dop % (2 * TILE) == 0
+                and mt * Dop // (2 * TILE) * splits >= 0.9 * SM_COUNT)
+        nsub = 2 if wide else 1
     return Plan(path="wgmma", nwg=nwg, nsub=nsub, bm=bm, bk=TILE,
                 dims=(Dp, Fp, Dop), splits=splits,
                 k_per_split=_ceil(Fp // TILE, splits),
                 smem=(ring_bytes(nwg), ring_bytes(nwg, nsub)),
                 grid_a=(mt, Fp // TILE, 1),
                 grid_b=(mt, Dop // (TILE * nsub), splits))
+
+
+def resolve(M: int, D: int, F: int, Do: int, row_independent: bool = False,
+            dtype=torch.bfloat16) -> Plan:
+    """The plan of a CUDA call: the tuning cache's ``swiglu_mlp`` hw entry
+    for (M, D, F), the dtype and the active routing-plan key, where
+    ``plan`` takes it at the call's real Do (a DEGRADED_REDUCED w2 can
+    refuse it); else the default plan.  A ``row_independent`` call keeps
+    one warpgroup a block whatever an entry says (``plan`` refuses more).
+    Memoized until the cache changes."""
+    return tuning.resolve_plan(
+        "swiglu_mlp", (M, D, F), dtype,
+        functools.partial(plan, M, D, F, Do, row_independent),
+        (Do, row_independent))
 
 
 # per (device, stream): the G and partials scratch of calls up to
@@ -149,7 +188,7 @@ def _pad(t, rows, cols):
     return t if r == 0 and c == 0 else F.pad(t, (0, c, 0, r))
 
 
-def _launch(x, w1, w3, w2, *, act, lane_fault, row_independent):
+def _launch(x, w1, w3, w2, *, act, lane_fault, row_independent, knobs):
     # checks first, messages only on failure: this runs once a layer
     ts = (x, w1, w3, w2)
     if not (all(t.dtype == torch.bfloat16 and t.dim() == 2 for t in ts)
@@ -167,7 +206,8 @@ def _launch(x, w1, w3, w2, *, act, lane_fault, row_independent):
         raise ValueError(
             f"swiglu: shapes x {tuple(x.shape)} w1 {tuple(w1.shape)} "
             f"w3 {tuple(w3.shape)} w2 {tuple(w2.shape)} do not agree")
-    p = plan(M, D, Fd, Do, row_independent)
+    p = (plan(M, D, Fd, Do, row_independent, **knobs) if knobs else
+         resolve(M, D, Fd, Do, row_independent))
     Dp, Fp, Dop = p.dims
     # zero rows and columns add nothing (silu(0) * 0 = gelu(0) * 0 = 0) and
     # the padded output lanes are sliced away
@@ -194,6 +234,8 @@ def _launch(x, w1, w3, w2, *, act, lane_fault, row_independent):
         stream)
     _build.check(lib, _NAME, rc)
     swiglu_fused.launches += 1
+    swiglu_fused.plans[((M, D, Fd, Do, row_independent),
+                        (("nsub", p.nsub), ("nwg", p.nwg)))] += 1
     return out if Dop == Do else out[:, :Do]
 
 
@@ -205,15 +247,18 @@ def smem_bytes(nwg: int, nsub: int = 0) -> int:
 
 def swiglu_fused(x, w1, w3, w2, *, act: str = "silu", bm: int = 128,
                  bf: int = 512, bs: int = 128, lane_fault=None,
-                 row_independent: bool = False):
+                 row_independent: bool = False,
+                 knobs: Optional[Dict[str, int]] = None):
     """x (M, D); w1/w3 (D, F); w2 (F, Do) -> (M, Do).
 
-    CUDA tensors: the Hopper kernels, bf16 only, tiled by ``plan`` (``bm``
-    / ``bf`` / ``bs`` shape only the plain version); any M.  CPU tensors:
-    the plain blocked version."""
+    CUDA tensors: the Hopper kernels, bf16 only, tiled by ``plan`` with
+    ``knobs`` ({nwg, nsub}: explicit knobs win, ValueError if the kernel
+    does not take them) or by the ``resolve``d plan (``bm`` / ``bf`` /
+    ``bs`` shape only the plain version); any M.  CPU tensors: the plain
+    blocked version."""
     if x.device.type == "cuda":
         return _launch(x, w1, w3, w2, act=act, lane_fault=lane_fault,
-                       row_independent=row_independent)
+                       row_independent=row_independent, knobs=knobs)
     if x.device.type != "cpu":
         raise ValueError(f"swiglu: unsupported device {x.device}")
     return swiglu_ref_blocked(x, w1, w3, w2, act=act, bm=bm, bf=bf, bs=bs,
@@ -221,3 +266,4 @@ def swiglu_fused(x, w1, w3, w2, *, act: str = "silu", bm: int = 128,
 
 
 swiglu_fused.launches = 0
+swiglu_fused.plans = collections.Counter()

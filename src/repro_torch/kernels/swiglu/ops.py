@@ -1,8 +1,10 @@
 """Wrapper + Viscosity registration for the fused gated-MLP stage.
 
-Port of the reference's ``kernels/swiglu/ops.py``.  There is no tuning
-cache yet (Hopper tuning spaces are ROADMAP queue 1 item 13): the tiles
-are the reference's hardcoded defaults.
+Port of the reference's ``kernels/swiglu/ops.py``.  On a CUDA tensor the
+kernel's plan comes from the tuning cache (``kernel.resolve``).  The plain
+version and the INTERPRET replica on CPU tensors keep the reference's
+hardcoded (bm, bf, bs) tiles: Pallas tiles have no Hopper meaning, so they
+look nothing up.
 """
 from __future__ import annotations
 

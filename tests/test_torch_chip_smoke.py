@@ -342,3 +342,135 @@ def test_encdec_phase_on_the_cpu(monkeypatch):
     assert failover["verdict"]["probes"] == 3
     assert all(entry["canaries"]["flash_attention"]["faults_caught"]
                .values())
+
+
+def test_tuning_phase_plans_on_the_cpu(tmp_path):
+    """Phase 13's sweep, tune and non-default-entry logic on the CPU, with
+    plans only (nothing launches) and a synthetic ``measure``: the main
+    path's shapes and their admissible configs, each a plan carrying its
+    knobs with today's plan among them; the tuner's pick per shape; the
+    non-default entries; and the check of the wrappers' launch records
+    against a cache, on the records the serve's prefills and decode
+    ticks would leave (phase 4's prompt lengths)."""
+    import numpy as np
+
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.flash_attention.kernel import plan as fa_plan
+    from repro_torch.kernels.swiglu.kernel import plan as sw_plan
+    from repro_torch.kernels.tuning.cache import TuningCache
+    from repro_torch.serve import synthetic_workload
+
+    qwen = get_config("qwen1.5-4b")
+    prompts = [len(r.prompt) for r in synthetic_workload(
+        qwen.vocab_size, 6, np.random.default_rng(0),
+        **chip_smoke.QWEN_WORKLOAD)]
+    assert prompts == [112, 117, 120, 124, 36, 105]
+    shapes = [(k, chip_smoke.tune_shape(k, get_config(m), n))
+              for k, m, n in chip_smoke.TUNE_CASES]
+    served = sorted({(k, chip_smoke.tune_shape(k, qwen, P)) for P in prompts
+                     for k in ("flash_attention", "swiglu_mlp")})
+    shapes += served
+    assert shapes[:10] == [
+        ("flash_attention", (1, 128, 128, 20, 20, 128)),
+        ("flash_attention", (1, 2048, 2048, 20, 20, 128)),
+        ("flash_attention", (1, 384, 384, 32, 32, 64)),
+        ("flash_attention", (1, 4200, 4200, 8, 4, 256)),
+        ("swiglu_mlp", (4, 2560, 6912)), ("swiglu_mlp", (128, 2560, 6912)),
+        ("swiglu_mlp", (384, 2048, 8192)), ("swiglu_mlp", (288, 3584, 18944)),
+        ("mamba2_ssd", (1, 384, 64, 64, 64)),
+        ("rwkv6_wkv", (1, 512, 32, 64, 64))]
+    plans = {(k, s): chip_smoke.sweep_plans(k, s) for k, s in shapes}
+    assert [len(plans[ks]) for ks in shapes[:10]] == [7, 7, 9, 1, 5, 5, 5,
+                                                      5, 4, 2]
+    assert [c["chunk"] for c, _ in plans[shapes[8]]] == [16, 32, 64, 128]
+    assert [p.chunks for _, p in plans[shapes[8]]] == [24, 12, 6, 3]
+    assert [c["chunk"] for c, _ in plans[shapes[9]]] == [8, 16]
+
+    def measure_for(kernel, shape):
+        by_cfg = {tuple(sorted(c.items())): p for c, p in plans[kernel,
+                                                                shape]}
+
+        def measure(cfg):            # a cost read off the plan
+            p = by_cfg[tuple(sorted(cfg.items()))]
+            if kernel == "flash_attention":
+                return p.smem / 1e3 + p.grid / (p.nwg * p.blocks_per_sm)
+            if kernel == "swiglu_mlp":
+                return float(p.grid_a[0] * p.nwg + p.grid_b[1])
+            return float(p.chunks + cfg["chunk"])
+        return measure
+
+    tuning.reset()
+    cache = TuningCache(str(tmp_path / "tuned"),
+                        fingerprint="torch-test/cpu/cpu")
+    tuning.set_cache(cache)
+    try:
+        rows = chip_smoke.tune_cases(shapes, measure_for)
+        for (kernel, shape), row in zip(shapes, rows):
+            m = measure_for(kernel, shape)
+            assert row["tuned_us"] == m(row["tuned"]) == min(
+                m(c) for c, _ in plans[kernel, shape])
+            assert row["default_us"] == m(row["default"])
+            assert row["tried"] == len(plans[kernel, shape])
+            assert cache.get(kernel, "hw", shape, torch.bfloat16) == \
+                row["tuned"]
+        assert tuning.stats()["tuned"] == len(shapes)
+
+        # a config whose measurement raises fails the phase
+        def crashing(kernel, shape):
+            def measure(cfg):
+                if cfg["chunk"] == 16:
+                    raise RuntimeError("launch failed")
+                return 1.0
+            return measure
+        with pytest.raises(SystemExit, match="measured 1 of 2"):
+            chip_smoke.tune_cases([shapes[9]], crashing)
+
+        picks = chip_smoke.non_default_entries(shapes, cache)
+        assert ("flash_attention", shapes[3][1]) not in picks
+        assert len(picks) == len(shapes) - 1
+        forced = TuningCache(str(tmp_path / "forced"),
+                             fingerprint="torch-test/cpu/cpu")
+        for (kernel, shape), cfg in picks.items():
+            space = tuning.space_for(kernel, "hw")
+            assert space.admissible(cfg, shape)
+            assert cfg != space.default(shape)
+            if len(list(space.configs(shape))) > 2:
+                assert cfg != cache.get(kernel, "hw", shape, torch.bfloat16)
+            forced.put(kernel, "hw", shape, torch.bfloat16, cfg)
+
+        # the records the serve would leave: a prefill per request, 40
+        # layers each, decode ticks on row-independent SwiGLU (4 rows)
+        def knobs(cfg):
+            return tuple(sorted(cfg.items()))
+        H, D = qwen.num_heads, qwen.resolved_head_dim
+        records = {"flash_attention": {}, "swiglu_mlp": {
+            ((4, qwen.d_model, qwen.d_ff, qwen.d_model, True),
+             (("nsub", 1), ("nwg", 1))): 400}}
+        for P in prompts:
+            records["flash_attention"][
+                (1, P, P, H, H, D, D),
+                knobs(picks["flash_attention", (1, P, P, H, H, D)])] = 40
+            records["swiglu_mlp"][
+                (P, qwen.d_model, qwen.d_ff, qwen.d_model, False),
+                knobs(picks["swiglu_mlp", (P, qwen.d_model, qwen.d_ff)])] = 40
+        assert chip_smoke.check_launched_plans(records, forced, "forced") == {
+            "flash_attention": 240, "swiglu_mlp": 240}
+        # the empty cache wants today's plans, which these are not
+        empty = TuningCache(str(tmp_path / "empty"),
+                            fingerprint="torch-test/cpu/cpu")
+        with pytest.raises(SystemExit, match="launched"):
+            chip_smoke.check_launched_plans(records, empty, "empty")
+        today = {"flash_attention": {
+            ((1, P, P, H, H, D, D), knobs(fa_plan(1, H, H, P, P, D, D)
+                                          .knobs())): 40 for P in prompts}}
+        assert chip_smoke.check_launched_plans(today, empty, "empty") == {
+            "flash_attention": 0}
+        # a narrowed Do (a DEGRADED_REDUCED w2 of 61 lanes) refuses nsub 2
+        M = 128
+        forced.put("swiglu_mlp", "hw", (M, qwen.d_model, qwen.d_ff),
+                   torch.bfloat16, {"nwg": 3, "nsub": 2})
+        narrow = (M, qwen.d_model, qwen.d_ff, 61, False)
+        assert chip_smoke.expected_knobs("swiglu_mlp", narrow, forced) == (
+            sw_plan(*narrow).knobs(), False)
+    finally:
+        tuning.reset()
