@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, multi-process fleet, chaos,
-model-zoo, encoder-decoder and tuning paths on one NVIDIA GPU and check
-them.
+model-zoo, encoder-decoder and tuning paths, its examples and its dry run
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -73,19 +73,26 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              64: the bidirectional encoder over 1500 frames, the
              decoder's causal 4-token prompt, cross-attention of Sq = 4
              and of Sq = 1 over 1500 keys; qwen2-vl-7b's GQA 28 -> 4 at
-             P = 128 and at its image prefill's 288); and its bits: two
+             P = 128 and at its image prefill's 288; phase 14's
+             serve_with_faults, the reduced qwen1.5-4b's 4 heads of 32 at
+             each of its workload's prompt lengths and the shortest it may
+             draw, 6); and its bits: two
              calls, the contiguous (B, H, S, D) copies and
              ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
              zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
              sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
-             x (64, 128) x (128, 64); mistral-nemo-12b 5120 -> 14336: M in
+             x (64, 128) x (128, 64), which is lane_fault_smoke's, and its
+             w2 sliced to 62 lanes, as that example's reduced-width run
+             slices it; serve_with_faults' 128 -> 256: M in {1, 2, 3} and
+             its prompt lengths; mistral-nemo-12b 5120 -> 14336: M in
              {4, 16, 128}; gemma2-2b's GeGLU, the kernel's tanh-gelu,
              2304 -> 9216, and gemma3-1b's GeGLU 1152 -> 6912: M in {4,
              128, 4200}, the last their ring prefill's; qwen2-vl-7b's
              SwiGLU 3584 -> 18944: M in {4, 128, 288}, the last its image
              prefill's), then SwiGLU's bits (qwen1.5-4b, zamba2-1.2b,
-             mistral-nemo-12b, gemma3-1b, qwen2-vl-7b): each row of an
+             mistral-nemo-12b, gemma3-1b, qwen2-vl-7b, serve_with_faults'
+             reduced qwen1.5-4b): each row of an
              M = 4 row-independent call equals that row alone, and two
              runs agree, at decode and at prefill;
 3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
@@ -136,7 +143,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              by layer (each time-mix on HW and SW from the same input),
              and end to end the HW logits must lie within 1.25 times the
              bf16 SW route's distance from the f32 SW model;
-6. fleet   — qwen1.5-4b at full width in ``FleetServeEngine``: 3 logical
+6. fleet   — qwen1.5-4b at full width and 20 of its 40 layers
+             (``FLEET_LAYERS``) in ``FleetServeEngine``: 3 logical
              devices of 4 slots (device 2 the hot spare), every pool on the
              one card, HW route, 16 requests of 16-128 prompt tokens and
              8-16 new, two arriving a step.  ``memory_allocated`` after
@@ -240,7 +248,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              lane fault, a transient and a coordinator stall under 30
              Poisson requests, 4 devices with 2 spares, 3 slots, MAX_LEN
              48) and the closure scenario (24 requests, a device loss on 2
-             devices) on qwen1.5-4b at full width and depth, route hw; the
+             devices) on qwen1.5-4b at full width and 20 of its 40 layers
+             (``FLEET_LAYERS``: phase 9's weights, cut), route hw; the
              train campaign (a device loss, then a host loss with a
              checkpoint restore) on the reduced config on the card, SW
              route; one coordinator stall.  Every invariant must hold and
@@ -259,7 +268,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              rope theta 1e4 to one global of 1e6, a two-layer tail,
              qk-norm, GQA 4 -> 1) and qwen2-vl-7b (28 of 28: M-RoPE, QKV
              biases, an untied head) at full width, each built (weights
-             drawn straight into bf16), served and freed in turn, its
+             drawn straight into bf16 by the port's own init; gemma3-1b's
+             must carry its qk-norm scales), served and freed in turn, its
              peak memory printed.
              Each goes through phases 4-5 and its serve times as above
              (``serve_path``): 6 requests of 16-128 prompt tokens and 8-16
@@ -327,14 +337,28 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              row-independent decode SwiGLU keeps one warpgroup).  The
              cache is reset at the end (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``, plans only).
+14. examples — the six scripts of ``examples_torch/`` (quickstart,
+             serve_with_faults, casestudy_faults, lane_fault_smoke,
+             elastic_train, datacenter_sim), each in a worker process of
+             its own with no ``--device``, so on the card, all at once
+             (``example_worker``): each must exit 0 and print its OK
+             line; its wall time and its kernel launches, counted from 0
+             in its process, are recorded (serve_with_faults must launch
+             attention and SwiGLU, lane_fault_smoke SwiGLU with the lane
+             fault compiled in, casestudy_faults the checksum).
+             Meanwhile the dry run (``launch/dryrun.py``) builds phase
+             8's T1 cell on meta: its param bytes must equal phase 8's
+             and its predicted peak come within 10% of phase 8's
+             ``max_memory_allocated``; the achieved TFLOP/s from its
+             counted FLOPs over phase 8's median step.
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
 set to 0 just before that path: each model's serve, probes included, the
 case studies, the fleet runs, the two ranks of phase 9, the chaos
 campaigns, each phase-11 model's serve, ring prefill and image
-prefill, phase 12's decode, faulted run and probes, and phase 13's three
-serves);
+prefill, phase 12's decode, faulted run and probes, phase 13's three
+serves, and each phase-14 example's process);
 the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -359,8 +383,16 @@ SRC = ROOT / "src"
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound's rates.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# torch.profiler traces a device time takes at most: a trace of short
+# calls can come back empty, and has done so three times running
+PROFILE_TRIES = 6
 
 ATTN_TOL = (2e-2, 1e-2)     # (max abs, max abs / max |plain|)
+# examples_torch/serve_with_faults.py's model ((H, Hkv, D), (d_model,
+# d_ff)), its workload's shortest prompt and its prompts' lengths, and its
+# decode rows (1 to its slots); phase 1 checks them against the example
+SERVE_EXAMPLE = dict(heads=(4, 4, 32), mlp=(128, 256), min_prompt=6,
+                     prompts=(10, 13, 15, 17, 20, 23), slots=3)
 # (B, Sq, Skv, H, Hkv, D, Dv, options): the served shapes at unpadded
 # prompt lengths (qwen1.5-4b H = 20, D = 128; zamba2-1.2b H = 32, D = 64),
 # the two-warpgroup plan at P = 2048, window + softcap, windows without a
@@ -420,6 +452,11 @@ ATTN_CASES = (
     # stub frontend's 288 (16 text, a 16 x 16 image grid, 16 text)
     (1, 128, 128, 28, 4, 128, 128, dict(causal=True)),
     (1, 288, 288, 28, 4, 128, 128, dict(causal=True)),
+    # phase 14's serve_with_faults (the reduced qwen1.5-4b): its
+    # workload's prompt lengths and the shortest it may draw
+    *((1, P, P, *SERVE_EXAMPLE["heads"], SERVE_EXAMPLE["heads"][-1],
+       dict(causal=True))
+      for P in (SERVE_EXAMPLE["min_prompt"],) + SERVE_EXAMPLE["prompts"]),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -554,35 +591,40 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
         params, {"tokens": toks, "cache": cache}), "decode_tick_4": sess.step}
     result = {}
     for name, fn in phases.items():
-        torch.cuda.synchronize()
-        # a trace can lose its first few dozen device events while the
-        # profiler starts up (an attention launch among them): a warm-up
-        # step goes first, and the reported step opens with spin kernels
-        # and a pause, which take that loss and are left out of the rows
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            torch.ones(1, device=dev).add_(1)
+        # a trace that lost even the spins is taken again, while the tick
+        # still has 4 slots
+        for tries in range(1, PROFILE_TRIES + 1):
             torch.cuda.synchronize()
-            prof.step()
-            for _ in range(WARM_SPINS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-            prof.step()
-        # device-side events only (kernels, copies): a CPU op's own
-        # "self device time" would count its kernels a second time, and
-        # the step's own annotation spans the whole step on the device
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not e.key.startswith("ProfilerStep")]
-        spins = sum(n for k, _, n in rows if "spin_kernel" in k)
+            # a trace can lose its first few dozen device events while the
+            # profiler starts up (an attention launch among them): a warm-up
+            # step goes first, and the reported step opens with spin kernels
+            # and a pause, which take that loss and are left out of the rows
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                torch.ones(1, device=dev).add_(1)
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(WARM_SPINS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                prof.step()
+            # device-side events only (kernels, copies): a CPU op's own
+            # "self device time" would count its kernels a second time, and
+            # the step's own annotation spans the whole step on the device
+            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")]
+            spins = sum(n for k, _, n in rows if "spin_kernel" in k)
+            if spins > 0 or eng.occupancy() < 4:
+                break
         check(spins > 0, f"{cfg.name} {name}: the profiler lost all "
               f"{WARM_SPINS} warm-up spins, so the step's own first device "
               "events may be lost too")
@@ -590,7 +632,7 @@ def profile_serving(torch, cfg, hw_model, params, toks, cache, reqs,
                        not in r[0]), key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
         result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                        "warm_spins_kept": spins,
+                        "warm_spins_kept": spins, "trace_tries": tries,
                         "idle_share": (1.0 - busy_ms / wall_ms
                                        if busy_ms else None),
                         "kernels": sum(r[2] for r in rows),
@@ -651,6 +693,11 @@ FLEET_B = {2: [("stage", 0, "flash_attention")],
 # Memory of the fleet beyond one engine: the two extra pools' caches, plus
 # this share of them for the allocator's rounding and small buffers.
 FLEET_MEM_SLACK = 0.05
+# The depth of phase 6's fleet and phase 10's serve campaigns: a fleet
+# step is host-bound ticks whose cost grows with the layers, and nothing
+# either phase checks (migration, requeue, per-device launches, the front
+# end, the invariants, the closure) depends on depth
+FLEET_LAYERS = 20
 
 
 def _drive_session(eng, reqs, events):
@@ -985,12 +1032,15 @@ def train_phase(cfg, dev, wrappers, *, steps: int = TRAIN_STEPS,
                          data, device=dev)
     params, opt, err = runner.init_state(0)
     N = n_params(params)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
     params, opt, err = runner.run(params, opt, err)
     losses = [h["loss"] for h in runner.history]
     dts = [h["dt"] for h in runner.history]
     step_s = float(np.median(dts[1:]))
     peak = torch.cuda.max_memory_allocated() if on_card else None
     t1 = {"layers": cfg.num_layers, "params": N, "losses": losses,
+          "param_bytes": param_bytes,
           "grad_norms": [h["grad_norm"] for h in runner.history],
           "step_ms": [1e3 * d for d in dts],
           "median_step_ms": 1e3 * step_s,
@@ -2369,6 +2419,13 @@ def zoo_phase(configs, dev, wrappers):
         init_peak = torch.cuda.max_memory_allocated()
         out(f"[zoo] {cfg.name}: {cfg.num_layers} layers, weights in bf16 "
             f"ready in {init_s:.1f} s, peak {init_peak / 2**30:.2f} GiB")
+        if cfg.qk_norm:
+            attn = params["layers"]["attn"]
+            check("q_norm" in attn and "k_norm" in attn,
+                  f"{cfg.name}: the port's own init has no qk-norm scales")
+            out(f"[zoo] {cfg.name}: qk-norm scales q_norm "
+                f"{tuple(attn['q_norm'].shape)} and k_norm "
+                f"{tuple(attn['k_norm'].shape)} from the port's own init")
         stages = model_stage_names(cfg)
         L = cfg.num_layers
         entry, counts = serve_path(
@@ -3011,6 +3068,191 @@ def tuning_phase(dev, wrappers, tuning_dir):
             launches)
 
 
+# Phase 14: the six examples of ``examples_torch/``, each a worker process
+# of its own with no ``--device`` (so on the card), all at once; and the
+# dry run of phase 8's T1 cell held against what phase 8 measured
+EXAMPLES = ("quickstart", "serve_with_faults", "casestudy_faults",
+            "lane_fault_smoke", "elastic_train", "datacenter_sim")
+# the kernels each example's path must launch (the others launch none:
+# training runs SW, the fleet sweep is host arithmetic)
+EXAMPLE_KERNELS = {"serve_with_faults": ("flash_attention", "swiglu_mlp"),
+                   "lane_fault_smoke": ("swiglu_mlp",),
+                   "casestudy_faults": ("checksum",)}
+EXAMPLE_TIMEOUT_S = 300
+EX_WORKER = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "sys.exit(chip_smoke.example_worker(sys.argv[2]))")
+EX_LAUNCHES = "[example-launches] "
+DRYRUN_PEAK_REL = 0.10
+
+
+def example_module(name: str):
+    """``examples_torch/<name>.py``, imported (``src`` on the path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_worker(name: str) -> int:
+    """Run ``examples_torch/<name>.py``'s command line with no arguments,
+    the kernels' launch counters from 0, then print them as one
+    ``[example-launches] {json}`` line.  Returns the example's exit code
+    (a failed check raises: a non-zero exit)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.checksum import checksum_popcount
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.mamba2_scan import ssd_chunked_cuda
+    from repro_torch.kernels.rwkv6_scan import wkv6_chunked_cuda
+    from repro_torch.kernels.swiglu import swiglu_fused
+
+    wrappers = {"checksum": checksum_popcount,
+                "flash_attention": flash_attention_bhsd,
+                "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda,
+                "rwkv6_wkv": wkv6_chunked_cuda}
+    mod = example_module(name)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rc = mod.cli([])
+    wall = time.perf_counter() - t0
+    sys.stdout.flush()
+    print(EX_LAUNCHES + json.dumps({
+        "launches": {k: w.launches for k, w in wrappers.items()},
+        "wall_s": wall}), flush=True)
+    return rc
+
+
+def dryrun_t1(cfg, t1):
+    """Phase 8's T1 cell dry-run on meta (``launch/dryrun.analyze_cell``:
+    full depth, B = TRAIN_BATCH, S = TRAIN_SEQ, SW, AdamW, f32 params)
+    against what phase 8 measured in this run: the param bytes exactly,
+    the predicted peak within DRYRUN_PEAK_REL of
+    ``max_memory_allocated``; the achieved TFLOP/s from the counted FLOPs
+    and the median step."""
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.analyze_cell(cfg, ShapeSpec("phase8_T1", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"), 1)
+    step_s = t1["median_step_ms"] / 1e3
+    pred, meas = rec["bytes"]["peak"], t1["peak_bytes"]
+    entry = {"dryrun_s": time.perf_counter() - t0,
+             "param_bytes": rec["bytes"]["params"],
+             "measured_param_bytes": t1["param_bytes"],
+             "predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+             "peak_rel_err": abs(pred - meas) / meas,
+             "counted_flops": rec["flops_per_dev"],
+             "model_flops": rec["model_flops"],
+             "achieved_tflops": rec["flops_per_dev"] / step_s / 1e12,
+             "model_tflops": rec["model_flops"] / step_s / 1e12,
+             "roofline": {k: rec["roofline"][k] for k in
+                          ("compute_s", "memory_s", "dominant")},
+             "hbm_limit_bytes": rec["hbm_limit_bytes"], "fits": rec["fits"],
+             "dryrun_hbm_bytes": dryrun.HBM_BYTES,
+             "card_total_memory": torch.cuda.get_device_properties(0)
+             .total_memory}
+    out(f"[examples] dry run of T1 ({cfg.name}, {cfg.num_layers} layers, "
+        f"B={TRAIN_BATCH} S={TRAIN_SEQ}, SW, AdamW) in "
+        f"{entry['dryrun_s']:.1f} s: param bytes {entry['param_bytes']} "
+        f"predicted, {entry['measured_param_bytes']} measured; peak "
+        f"{pred / 2**30:.3f} GiB predicted, {meas / 2**30:.3f} GiB measured "
+        f"(max_memory_allocated), rel err {entry['peak_rel_err']:.4f} (tol "
+        f"{DRYRUN_PEAK_REL}); counted {rec['flops_per_dev'] / 1e12:.3f} "
+        f"TFLOP a step ({rec['model_flops'] / 1e12:.3f} by 6 N tokens) over "
+        f"the median step {t1['median_step_ms']:.2f} ms: achieved "
+        f"{entry['achieved_tflops']:.2f} TFLOP/s ({entry['model_tflops']:.2f}"
+        f" by 6 N tokens) of {PEAK_BF16_FLOPS / 1e12:.0f}; roofline compute "
+        f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+        f"{rec['roofline']['memory_s'] * 1e3:.2f} ms "
+        f"({rec['roofline']['dominant']}); the card's total_memory "
+        f"{entry['card_total_memory']}, the dry run's {dryrun.HBM_BYTES} "
+        f"less {dryrun.HBM_RESERVE} reserved")
+    check(entry["param_bytes"] == entry["measured_param_bytes"],
+          "examples: the dry run's param bytes differ from phase 8's")
+    check(entry["peak_rel_err"] <= DRYRUN_PEAK_REL,
+          f"examples: the dry run's T1 peak {pred} is not within "
+          f"{DRYRUN_PEAK_REL:.0%} of phase 8's {meas}")
+    return entry
+
+
+def examples_phase(cfg, t1, *, timeout: float = EXAMPLE_TIMEOUT_S):
+    """Phase 14: the six examples as worker processes at once (each must
+    exit 0 and print its OK line; its wall time and kernel launches,
+    counted from 0 in its process), and meanwhile ``dryrun_t1``.  Returns
+    (report entry, launches per kernel and example)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        outputs = {name: (Path(tmp) / f"{name}.out",
+                          Path(tmp) / f"{name}.err") for name in EXAMPLES}
+        entry, ended, rcs = _run_examples(cfg, t1, outputs, t0, timeout)
+        texts = {name: (o.read_text(), e.read_text())
+                 for name, (o, e) in outputs.items()}
+    launches = {}
+    for name, (text, err) in texts.items():
+        lines = text.strip().splitlines()
+        check(rcs[name] == 0 and lines and lines[-1].startswith(
+            EX_LAUNCHES), f"examples: {name} exited {rcs[name]}:\n"
+              + "\n".join((text + err).splitlines()[-20:]))
+        res = json.loads(lines[-1][len(EX_LAUNCHES):])
+        ok_line = lines[-2] if len(lines) > 1 else ""
+        check(ok_line.startswith("OK"),
+              f"examples: {name} did not print its OK line: {ok_line!r}")
+        for k in EXAMPLE_KERNELS.get(name, ()):
+            check(res["launches"][k] > 0,
+                  f"examples: {name} launched no {k}: {res['launches']}")
+        for k, n in res["launches"].items():
+            launches.setdefault(k, {})[f"example {name}"] = n
+        entry["examples"][name] = {"process_s": ended[name],
+                                   "main_s": res["wall_s"],
+                                   "launches": res["launches"],
+                                   "ok_line": ok_line}
+        out(f"[examples] {name}: exit 0 in {ended[name]:.2f} s (its cli "
+            f"{res['wall_s']:.2f} s), launches "
+            f"{ {k: n for k, n in res['launches'].items() if n} }; "
+            f"{ok_line}")
+    entry["phase_s"] = time.perf_counter() - t0
+    out(f"[examples] phase {entry['phase_s']:.2f} s (budget 90 s)")
+    return entry, launches
+
+
+def _run_examples(cfg, t1, outputs, t0, timeout):
+    """Start every example's worker (stdout and stderr to ``outputs``),
+    run ``dryrun_t1`` meanwhile, wait for all.  Returns (the entry with
+    the dry run, seconds each took, exit codes); kills any left."""
+    # six processes and this one's dry run share the host's cores
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = {}
+    try:
+        for name, (o, e) in outputs.items():
+            with open(o, "w") as fo, open(e, "w") as fe:
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-c", EX_WORKER, str(ROOT), name],
+                    cwd=ROOT, stdout=fo, stderr=fe, env=env),
+                    time.perf_counter())
+        entry = {"dryrun_T1": dryrun_t1(cfg, t1), "examples": {}}
+        ended = {}
+        while len(ended) < len(procs):
+            for name, (p, start) in procs.items():
+                if name not in ended and p.poll() is not None:
+                    ended[name] = time.perf_counter() - start
+            check(time.perf_counter() - t0 <= timeout,
+                  f"examples: still running after {timeout} s: "
+                  f"{sorted(set(procs) - set(ended))}")
+            time.sleep(0.05)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return entry, ended, {name: p.returncode for name, (p, _) in procs.items()}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3080,6 +3322,7 @@ def run(tuning_dir: str) -> int:
     from repro_torch.train.runner import model_stage_names
     from repro_torch.viscosity import HW, SW
     from repro_torch.viscosity.lanefault import KINDS, LaneFault
+    from repro_torch.viscosity.lang import tree_map
 
     dev = resolve_device("cuda")
     report = {"device": torch.cuda.get_device_name(0),
@@ -3129,15 +3372,29 @@ def run(tuning_dir: str) -> int:
     # every SwiGLU plan phase 11 launches (mistral-nemo-12b 5120 -> 14336,
     # gemma2-2b 2304 -> 9216, gemma3-1b 1152 -> 6912 and qwen2-vl-7b
     # 3584 -> 18944: prefill rows 16-128, decode rows 1-4, the windowed
-    # models' ring prefill of 4200, qwen2-vl's image prefill of 288) takes
-    # a ring checked above
+    # models' ring prefill of 4200, qwen2-vl's image prefill of 288), and
+    # phase 14's serve_with_faults' (128 -> 256), takes a ring checked above
     zoo = [c for c, _ in zoo_configs()]
     mistral = next(c for c in zoo if "swiglu_mlp" in model_stage_names(c))
     gemma = next(c for c in zoo if c.name == "gemma2-2b")
     gemma3 = next(c for c in zoo if c.name == "gemma3-1b")
     qwen_vl = next(c for c in zoo if c.stub_frontend)
     vl_tokens = 2 * VL_TEXT + VL_GRID ** 2
-    for c in (mistral, gemma, gemma3, qwen_vl):
+    # phase 14's serve_with_faults: the shapes phase 2 holds its kernels
+    # to are its model's and its workload's
+    serve_ex = example_module("serve_with_faults")
+    serve_cfg = get_config(serve_ex.ARCH).reduced()
+    served_ex = dict(
+        heads=(serve_cfg.num_heads, serve_cfg.num_kv_heads,
+               serve_cfg.resolved_head_dim),
+        mlp=(serve_cfg.d_model, serve_cfg.d_ff),
+        min_prompt=serve_ex.WORKLOAD["min_prompt"],
+        prompts=tuple(sorted({len(r.prompt)
+                              for r in serve_ex.requests(serve_cfg)})),
+        slots=serve_ex.SLOTS)
+    check(served_ex == SERVE_EXAMPLE, f"serve_with_faults serves "
+          f"{served_ex}, the parity cases hold {SERVE_EXAMPLE}")
+    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg):
         rows_ = list(range(1, ZOO_WORKLOAD["max_prompt"] + 1))
         for M in rows_ + ([vl_tokens] if c.stub_frontend else []) + (
                 [RING_PROMPT] if c.window else []):
@@ -3526,6 +3783,13 @@ def run(tuning_dir: str) -> int:
     # stage's (64, 64) x (64, 128) x (128, 64)
     swiglu_parity(qwen.d_model, qwen.d_ff, (4, 200), Do=61, tag=" (narrow)")
     swiglu_parity(64, 128, (64,), tag=" (canary)")
+    # lane_fault_smoke's reduced-width run: lanes 3 and 7 of 64 sliced out
+    swiglu_parity(64, 128, (64,), Do=62, tag=" (lane_fault_smoke reduced)")
+    # serve_with_faults: its decode rows and prompt lengths
+    sd, sf = SERVE_EXAMPLE["mlp"]
+    swiglu_parity(sd, sf, tuple(range(1, SERVE_EXAMPLE["slots"] + 1))
+                  + SERVE_EXAMPLE["prompts"], tag=" (serve_with_faults)")
+    swiglu_bits(serve_cfg, max(SERVE_EXAMPLE["prompts"]))
     swiglu_bits(qwen, 200)
     swiglu_bits(zamba, 384)
     swiglu_parity(mistral.d_model, mistral.d_ff, (4, 16, ZOO_PREFILL))
@@ -3752,7 +4016,12 @@ def run(tuning_dir: str) -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 6. fleet
-    report["fleet"], fleet_launches = fleet_phase(qwen, dev, wrappers)
+    t0 = time.perf_counter()
+    report["fleet"], fleet_launches = fleet_phase(
+        dataclasses.replace(qwen, num_layers=FLEET_LAYERS), dev, wrappers)
+    report["fleet"]["phase_s"] = time.perf_counter() - t0
+    out(f"[fleet] phase {report['fleet']['phase_s']:.2f} s "
+        f"({FLEET_LAYERS} layers)")
     for name, n in fleet_launches.items():
         launches[name]["fleet"] = n
     check(launches["checksum"]["fleet"] == 0, "the fleet launched the "
@@ -3780,7 +4049,7 @@ def run(tuning_dir: str) -> int:
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):   # a trace of short calls can come back empty
+        for _ in range(PROFILE_TRIES):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
@@ -4068,8 +4337,10 @@ def run(tuning_dir: str) -> int:
 
     # ---------------------------------------------------------- 10. chaos
     t0 = time.perf_counter()
-    report["chaos"], chaos_launches = chaos_phase(qwen, dev, wrappers,
-                                                  fleet_params)
+    report["chaos"], chaos_launches = chaos_phase(
+        dataclasses.replace(qwen, num_layers=FLEET_LAYERS), dev, wrappers,
+        {**fleet_params, "layers": tree_map(lambda t: t[:FLEET_LAYERS],
+                                            fleet_params["layers"])})
     report["chaos"]["phase_s"] = time.perf_counter() - t0
     out(f"[chaos] phase {report['chaos']['phase_s']:.2f} s")
     del fleet_params
@@ -4106,6 +4377,15 @@ def run(tuning_dir: str) -> int:
     for name, n in tuning_launches.items():
         launches[name]["tuning"] = n
     report["tuning"]["nvidia_smi"] = smi
+
+    # ------------------------------------------------------- 14. examples
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["examples"], example_launches = examples_phase(
+        qwen, report["train"]["T1"])
+    for name, by_example in example_launches.items():
+        launches[name].update(by_example)
+    report["examples"]["nvidia_smi"] = smi
     for kn in kernels:                   # the new paths' launches too
         kn["launches"] = sum(launches[kn["name"]].values())
     for kn in kernels:

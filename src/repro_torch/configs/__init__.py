@@ -14,6 +14,8 @@ from repro_torch.configs.mixtral_8x7b import CONFIG as _MIXTRAL_8X7B
 from repro_torch.configs.qwen1p5_4b import CONFIG as _QWEN1P5_4B
 from repro_torch.configs.qwen2_vl_7b import CONFIG as _QWEN2_VL_7B
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _RWKV6_1P6B
+from repro_torch.configs.shapes import (SHAPES, SMOKE_SHAPES, ShapeSpec,
+                                        applicable)
 from repro_torch.configs.whisper_base import CONFIG as _WHISPER_BASE
 from repro_torch.configs.zamba2_1p2b import CONFIG as _ZAMBA2_1P2B
 
@@ -35,4 +37,5 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_CONFIGS)}")
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config"]
+__all__ = ["ARCH_NAMES", "SHAPES", "SMOKE_SHAPES", "ModelConfig", "ShapeSpec",
+           "applicable", "get_config"]

@@ -14,6 +14,7 @@ Products take bf16/f32 inputs and accumulate in float32.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
@@ -22,6 +23,25 @@ from repro_torch.viscosity.lanefault import apply_fault
 
 NEG_INF = -1e30
 Positions = Union[torch.Tensor, Sequence[int], None]
+# (Sq, C) of each ``attention_chunked`` call in progress, innermost last:
+# its score tensors are (..., Sq, C).  ``launch/op_analysis.py`` reads it
+# to tell the score tensors from the other ops' results.
+_SCORE_GEOMETRY: list = []
+
+
+def score_geometry():
+    """(Sq, C) of the innermost ``attention_chunked`` call in progress,
+    or None outside one."""
+    return _SCORE_GEOMETRY[-1] if _SCORE_GEOMETRY else None
+
+
+@contextlib.contextmanager
+def _scores_of(Sq: int, C: int):
+    _SCORE_GEOMETRY.append((Sq, C))
+    try:
+        yield
+    finally:
+        _SCORE_GEOMETRY.pop()
 
 
 def _softcap(scores, cap: float):
@@ -121,22 +141,24 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=q.device)
     neg = torch.tensor(NEG_INF, device=q.device)
-    for ci in range(nC):
-        kb = kr[:, ci * C:(ci + 1) * C].float()
-        vb = vr[:, ci * C:(ci + 1) * C]
-        scores = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kb), softcap)
-        k_pos = (ci * C + torch.arange(C, dtype=torch.int32,
-                                       device=q.device))[None, :].expand(B, C)
-        mask = _mask(q_pos, k_pos, causal=causal, window=window,
-                     kv_len=kv_len)
-        scores = torch.where(mask[:, None], scores, neg)
-        m_new = torch.maximum(m, scores.amax(dim=-1))
-        p = torch.exp(scores - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(vb.dtype).float(), vb.float())
-        m = m_new
+    with _scores_of(Sq, C):
+        for ci in range(nC):
+            kb = kr[:, ci * C:(ci + 1) * C].float()
+            vb = vr[:, ci * C:(ci + 1) * C]
+            scores = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kb),
+                              softcap)
+            k_pos = (ci * C + torch.arange(
+                C, dtype=torch.int32, device=q.device))[None, :].expand(B, C)
+            mask = _mask(q_pos, k_pos, causal=causal, window=window,
+                         kv_len=kv_len)
+            scores = torch.where(mask[:, None], scores, neg)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            p = torch.exp(scores - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vb.dtype).float(), vb.float())
+            m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 

@@ -1,0 +1,343 @@
+"""Dry run on the H100: every (arch x shape x chips) cell's step, built on
+``torch.device("meta")``, so nothing is allocated and no card is needed.
+
+The port's counterpart of the reference's compile-only dry run over a
+TPU pod.  For each cell the step runs eagerly on meta tensors under
+``launch/op_analysis.py``'s dispatch mode, on the SW route (``build_model
+(cfg)``, routes None), and records:
+
+  * the parameter and active-parameter counts and ``model_flops`` (the
+    reference's formulas);
+  * the counted FLOPs, the HBM-traffic proxy and the SW attention's
+    score-tensor bytes, per device;
+  * bytes: params, optimiser state, cache, and the peak of live tensors,
+    against the card's memory less a reserve (``HBM_LIMIT``): ``fits``;
+  * the roofline terms in seconds with the dominant one, and the HW-route
+    projection (the traffic less the score tensors, which the Hopper
+    attention kernel keeps in shared memory).
+
+The step of each kind:
+  * train: ``value_and_grad(model.forward)`` then ``optim.update`` (the
+    port's ``TrainRunner`` step, called directly: its NaN guard reads the
+    loss on the host) with f32 params and AdamW.  With k > 1 microbatches
+    the grads of each microbatch are summed into an f32 accumulator, as
+    the reference's dry run does; k follows its rule: start at
+    max(1, rows / 4) and double until the peak fits or k reaches the
+    rows.  On meta every microbatch is the same, so two run and the rest
+    are counted as the second;
+  * prefill: ``model.prefill`` on the params as the serving engine holds
+    them (``compute_params``: the compute dtype) and a cache of
+    ``seq_len`` slots;
+  * decode: one ``decode_step`` at the last position of a ``seq_len``
+    cache.
+
+``--chips`` 1 or 4 replaces the reference's ``--mesh single|multi``: the
+port's fleet is data-parallel, so every device holds the whole model and
+the global batch is split over the chips (max(1, B // chips) rows a
+device).  The collective term is what that fleet moves between devices in
+a step: nothing (``COLLECTIVE_REASON``).
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
+  python -m repro_torch.launch.dryrun --all [--chips 1|4|both] [--force]
+
+Records are cached as JSON under ``artifacts/dryrun_torch/``;
+``launch/reanalyze.py`` recomputes their roofline and ``fits`` when a
+constant changes.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+from repro_torch import optim
+from repro_torch.configs import ARCH_NAMES, SHAPES, applicable, get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch.op_analysis import OpAnalysis, OpStats
+from repro_torch.models import (build_model, compute_params,
+                                decode_state_specs, params_specs,
+                                prefill_batch_specs, train_batch_specs)
+from repro_torch.obs.logging import configure as obs_configure, get_logger
+from repro_torch.train.runner import value_and_grad
+from repro_torch.viscosity.lang import tree_leaves, tree_map
+
+log = get_logger("launch.dryrun")
+
+ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "artifacts", "dryrun_torch")
+
+# The card (NVIDIA data sheet, H100 SXM5, dense): the roofline's rates
+DEVICE = "NVIDIA H100 80GB HBM3"
+POWER_LIMIT_W = 700.0
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s
+HBM_BW = 3.35e12              # bytes/s
+# the card's memory as torch reports it (``torch.cuda.get_device_properties
+# (0).total_memory`` on an H100 80GB HBM3: 79.18 GiB)
+HBM_BYTES = 85_017_493_504
+# what it leaves a step: 4 GiB go to the CUDA context, cuBLAS workspaces
+# and the caching allocator's free blocks
+HBM_RESERVE = 4 * 2 ** 30
+HBM_LIMIT = HBM_BYTES - HBM_RESERVE
+COLLECTIVE_REASON = (
+    "0: the port's data-parallel fleet runs no collective; its logical "
+    "devices run one after another and sum their shard grads into one "
+    "accumulator (train/runner.py FleetTrainRunner), and launch/"
+    "distributed.py exchanges only plans and completions, not tensors")
+HW_ROUTE_TRAIN = ("none: the HW route is forward-only (the kernels have "
+                  "no backward), so training runs SW")
+
+
+class SkipCell(Exception):
+    pass
+
+
+def _count(tree) -> int:
+    return int(sum(t.numel() for t in tree_leaves(tree)))
+
+
+def _nbytes(tree) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor)))
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def _active_params(cfg, params) -> int:
+    """The reference's rule: MoE expert weights (a ``w1``/``w2``/``w3``
+    under ``moe``) count top_k / num_experts of their size."""
+    total = _count(params)
+    if cfg.moe is None:
+        return total
+    expert = sum(leaf.numel() for keys, leaf in _paths(params)
+                 if "moe" in keys and keys[-1] in ("w1", "w2", "w3"))
+    return total - expert + expert * cfg.moe.top_k // cfg.moe.num_experts
+
+
+def model_flops(cfg, shape: ShapeSpec, params) -> float:
+    n = _active_params(cfg, params)
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch  # decode: one token per sequence
+
+
+def roofline_terms(flops: float, hbm_bytes: float, score_bytes: float,
+                   n_chips: int, mfl: float, kind: str) -> Dict[str, Any]:
+    """Per-device seconds of compute, memory and collectives, the
+    dominant term, and the HW-route projection (train: none)."""
+    def terms(mem_bytes):
+        t = {"compute_s": flops / PEAK_FLOPS_BF16,
+             "memory_s": mem_bytes / HBM_BW, "collective_s": 0.0}
+        bound = max(t.values())
+        return {**t, "dominant": max(t, key=t.get),
+                "roofline_fraction": (mfl / n_chips / PEAK_FLOPS_BF16) / bound
+                if bound > 0 else 0.0}
+    sw = terms(hbm_bytes)
+    sw["useful_flops_ratio"] = (mfl / n_chips) / max(flops, 1.0)
+    sw["collective_reason"] = COLLECTIVE_REASON
+    sw["score_bytes_per_dev"] = score_bytes
+    sw["hw_route"] = (HW_ROUTE_TRAIN if kind == "train" else
+                      terms(max(hbm_bytes - score_bytes, 0.0)))
+    return sw
+
+
+def _rows(shape: ShapeSpec, chips: int) -> int:
+    return max(1, shape.global_batch // chips)
+
+
+def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k):
+    """k microbatches of rows / k; returns the step's OpStats."""
+    ocfg = optim.AdamWConfig()
+    mb = train_batch_specs(cfg, rows // k, S)
+
+    def grads_of():
+        with oa.counting() as st:
+            oa.read_once(params)
+            _, grads = value_and_grad(model.forward, params, mb)
+        return st, grads
+
+    st1, grads = grads_of()
+    total = st1
+    if k > 1:
+        with oa.counting() as st:
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device), params)
+            torch._foreach_add_(tree_leaves(acc), tree_leaves(grads))
+        total = total.scaled_add(st)
+        del grads
+        st2, grads = grads_of()
+        with oa.counting() as st:
+            torch._foreach_add_(tree_leaves(acc), tree_leaves(grads))
+        del grads
+        total = total.scaled_add(st2.scaled_add(st), k - 1)
+        with oa.counting() as st:
+            torch._foreach_div_(tree_leaves(acc), float(k))
+        total = total.scaled_add(st)
+        grads = acc
+        del acc
+    with oa.counting() as st:
+        optim.update(ocfg, grads, opt, params)
+    return total.scaled_add(st)
+
+
+def analyze_cell(cfg, shape: ShapeSpec, chips: int = 1,
+                 microbatch: Optional[int] = None) -> Dict[str, Any]:
+    """One cell's record (no cache, no status): the step of
+    ``shape.kind`` at ``max(1, B // chips)`` rows on meta."""
+    ok, why = applicable(cfg, shape)
+    if not ok:
+        raise SkipCell(why)
+    model = build_model(cfg)
+    rows, S = _rows(shape, chips), shape.seq_len
+    p_meta = params_specs(model)
+    rec: Dict[str, Any] = {
+        "kind": shape.kind, "seq_len": S, "global_batch": shape.global_batch,
+        "chips": chips, "rows_per_device": rows,
+        "fleet": "data-parallel: every device holds the whole model, the "
+                 "global batch is split over the chips",
+        "device": DEVICE, "power_limit_w": POWER_LIMIT_W,
+        "params": _count(p_meta),
+        "active_params": _active_params(cfg, p_meta),
+        "model_flops": model_flops(cfg, shape, p_meta),
+        "microbatch": None}
+    k = microbatch or max(1, rows // 4)
+    while True:
+        # the inputs are made outside the mode and held: what a deployment
+        # keeps resident (nothing of how it was built counts)
+        opt = cache = None
+        if shape.kind == "train":
+            params = p_meta
+            opt = optim.init(params)
+            inputs = (params, opt)
+        else:
+            params = compute_params(p_meta, model.compute_dtype)
+            if shape.kind == "prefill":
+                batch = prefill_batch_specs(cfg, model, rows, S)
+                cache = batch["cache"]
+                inputs = (params, batch)
+            else:
+                cache, tok, t = decode_state_specs(cfg, model, rows, S)
+                inputs = (params, cache, tok)
+        with OpAnalysis() as oa:
+            oa.hold(inputs)
+            if shape.kind == "train":
+                st = _train_step(oa, model, params, opt, cfg, rows, S, k)
+            else:
+                with oa.counting() as st:
+                    oa.read_once(params)
+                    if shape.kind == "prefill":
+                        model.prefill(params, batch)
+                    else:
+                        model.decode_step(params, cache, tok, t)
+        peak = oa.peak_bytes
+        if (shape.kind != "train" or peak <= HBM_LIMIT or k >= rows
+                or microbatch):
+            break
+        k = min(rows, 2 * k)
+    if shape.kind == "train":
+        rec["microbatch"] = k
+    rec["bytes"] = {"params": _nbytes(params),
+                    "opt_state": _nbytes(opt) if opt is not None else 0,
+                    "cache": _nbytes(cache) if cache is not None else 0,
+                    "peak": peak}
+    rec.update(_derived(rec, st))
+    return rec
+
+
+def _derived(rec: Mapping[str, Any], st: OpStats) -> Dict[str, Any]:
+    return {
+        "flops_per_dev": st.flops,
+        "traffic": {"hbm_bytes_per_dev": st.bytes_hbm,
+                    "score_bytes_per_dev": st.score_bytes,
+                    "n_ops": st.n_ops,
+                    "top_ops": [[name, b] for name, b in st.top_ops()]},
+        "hbm_limit_bytes": HBM_LIMIT,
+        "fits": rec["bytes"]["peak"] <= HBM_LIMIT,
+        "roofline": roofline_terms(st.flops, st.bytes_hbm, st.score_bytes,
+                                   rec["chips"], rec["model_flops"],
+                                   rec["kind"])}
+
+
+def cell_path(out_dir: str, arch: str, shape_name: str, chips: int) -> str:
+    return os.path.join(out_dir, f"{arch}__{shape_name}__{chips}chip.json")
+
+
+def run_cell(arch: str, shape_name: str, chips: int = 1,
+             out_dir: str = ART_DIR, force: bool = False,
+             shapes: Mapping[str, ShapeSpec] = SHAPES) -> Dict[str, Any]:
+    """The cell's record, from the cache unless ``force`` (a failed cell
+    runs again); ``arch`` may be a ``-smoke`` name."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = cell_path(out_dir, arch, shape_name, chips)
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            cached = json.load(f)
+        if cached.get("status") != "fail":
+            return cached
+    t0 = time.time()
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
+                           "chips": chips}
+    try:
+        rec.update(analyze_cell(get_config(arch), shapes[shape_name], chips))
+        rec["status"] = "ok"
+    except SkipCell as e:
+        rec.update({"status": "skip", "reason": str(e)})
+    except Exception as e:  # noqa: BLE001 — record the failure, keep going
+        rec.update({"status": "fail", "error": f"{type(e).__name__}: {e}",
+                    "trace": traceback.format_exc()[-4000:]})
+    rec["wall_s"] = round(time.time() - t0, 2)
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None):
+    obs_configure(stream=sys.stdout)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, choices=list(ARCH_NAMES))
+    ap.add_argument("--shape", default=None, choices=list(SHAPES))
+    ap.add_argument("--chips", default="both", choices=["1", "4", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=ART_DIR)
+    args = ap.parse_args(argv)
+    archs = ARCH_NAMES if (args.all or not args.arch) else [args.arch]
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    chips = [1, 4] if args.chips == "both" else [int(args.chips)]
+    cells = [(a, s, c) for a in archs for s in shapes for c in chips]
+    t0 = time.time()
+    n = {"ok": 0, "skip": 0, "fail": 0}
+    for i, (arch, shape, c) in enumerate(cells):
+        rec = run_cell(arch, shape, c, out_dir=args.out, force=args.force)
+        n[rec["status"]] += 1
+        log.info("cell", i=f"{i + 1}/{len(cells)}", arch=arch, shape=shape,
+                 chips=c, status=rec["status"], wall_s=rec["wall_s"],
+                 fits=rec.get("fits", "-"),
+                 peak_gib=(round(rec["bytes"]["peak"] / 2 ** 30, 2)
+                           if "bytes" in rec else "-"),
+                 microbatch=rec.get("microbatch") or "-",
+                 dom=rec.get("roofline", {}).get("dominant", "-"))
+        if rec["status"] == "fail":
+            log.error("cell_failed", arch=arch, shape=shape,
+                      error=rec["error"][:300])
+    log.info("done", wall_s=round(time.time() - t0), **n)
+    if n["fail"]:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

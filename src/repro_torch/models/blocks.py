@@ -79,7 +79,8 @@ def init_attn_layers(gen, n, cfg: ModelConfig, dtype, norm_dtype, device):
     p = {"ln1": L.init_norm(cfg.d_model, norm_dtype, device, lead=(n,)),
          "attn": attn_mod.init_attention(
              gen, n, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-             cfg.resolved_head_dim, dtype, device, qkv_bias=cfg.qkv_bias),
+             cfg.resolved_head_dim, dtype, device, qkv_bias=cfg.qkv_bias,
+             qk_norm=cfg.qk_norm),
          "ln2": L.init_norm(cfg.d_model, norm_dtype, device, lead=(n,))}
     if cfg.moe is not None:
         p["moe"] = moe_mod.init_moe(gen, n, cfg.d_model, cfg.d_ff,

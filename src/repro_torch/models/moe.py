@@ -92,11 +92,15 @@ def moe_ffn(p, x, *, top_k: int, capacity_factor: float, act: str = "silu",
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
 
     # the (B, E, C) slot table: a kept (s, k) writes s; dropped ones write
-    # nowhere; empty slots keep S, which reads a zero row below
-    slot_tok = torch.full((B, E, C), S, dtype=torch.long, device=dev)
+    # column C of a (B, E, C + 1) table, which is cut off (a static-shape
+    # scatter, as the reference's mode="drop"); empty slots keep S, which
+    # reads a zero row below.  Kept slots are unique, so the order of the
+    # writes does not matter
+    slot_tok = torch.full((B, E, C + 1), S, dtype=torch.long, device=dev)
     b_idx = torch.arange(B, device=dev)[:, None, None].expand(B, S, top_k)
     s_idx = torch.arange(S, device=dev)[None, :, None].expand(B, S, top_k)
-    slot_tok[b_idx[keep], gate_idx[keep], pos_k[keep]] = s_idx[keep]
+    slot_tok[b_idx, gate_idx, torch.where(keep, pos_k, C)] = s_idx
+    slot_tok = slot_tok[..., :C]
     x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
     rows = torch.arange(B, device=dev)[:, None]
     xe = x_pad[rows, slot_tok.reshape(B, E * C)].reshape(B, E, C, D)

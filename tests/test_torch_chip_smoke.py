@@ -153,9 +153,9 @@ def test_chaos_phase_on_the_cpu(monkeypatch, tmp_path):
     assert entry["invariants"] == {"ok": True, "failed": []}
     assert entry["events_total"] == 3 + 3 + 2 + 1
     # the card's schedule and launches (python3 chip_smoke.py on an H100):
-    # a serve mode ran 31 attention prefills of 40 layers plus 2 canary
-    # probes (1,242 launches) and 80 SwiGLU calls plus 3 probes (3,203);
-    # the closure 27 and 66 calls (1,080 and 2,640)
+    # a serve mode ran 31 attention prefills of its 20 layers plus 2
+    # canary probes (622 launches) and 80 SwiGLU calls plus 3 probes
+    # (1,603); the closure 27 and 66 calls (540 and 1,320)
     L = cfg.num_layers
     for mode in ("recompile", "resident"):
         row = entry[f"serve_{mode}"]

@@ -1,0 +1,295 @@
+"""The port's dry run (``configs/shapes.py``, ``models/model.py``'s specs,
+``launch/op_analysis.py``, ``launch/dryrun.py``, ``launch/reanalyze.py``)
+against the reference, and the MoE dispatch on meta.
+
+The reference's ``launch/dryrun.py`` sets ``XLA_FLAGS`` for 512 host
+devices when imported, which every later subprocess of the test process
+would inherit, so no test imports it: its ``model_flops`` and active-param
+rule are restated here over ``repro.models.params_specs``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import (SHAPES as REF_SHAPES,
+                           SMOKE_SHAPES as REF_SMOKE_SHAPES,
+                           applicable as ref_applicable,
+                           get_config as ref_get_config)
+from repro.launch import hlo_analysis
+from repro.models import build_model as ref_build_model
+from repro.models import input_specs as ref_input_specs
+from repro.models import params_specs as ref_params_specs
+
+from repro_torch.configs import (ARCH_NAMES, SHAPES, SMOKE_SHAPES, applicable,
+                                 get_config)
+from repro_torch.launch import dryrun, op_analysis, reanalyze
+from repro_torch.models import build_model, input_specs, params_specs
+from repro_torch.models.moe import init_moe, moe_ffn
+from _torch_threads import one_torch_thread  # noqa: F401
+
+META = torch.device("meta")
+
+
+def _ref_leaves(tree):
+    return [(tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in p),
+             tuple(x.shape), str(x.dtype))
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    elif isinstance(tree, torch.Tensor):
+        yield prefix, tuple(tree.shape), str(tree.dtype).split(".")[-1]
+
+
+def _bytes_by_dtype(leaves):
+    out = {}
+    for _, shape, dt in leaves:
+        size = jnp.dtype(dt).itemsize * int(np.prod(shape))
+        out[dt] = out.get(dt, 0) + size
+    return out
+
+
+def test_shapes_and_applicable_equal_the_reference():
+    for mine, ref in ((SHAPES, REF_SHAPES), (SMOKE_SHAPES, REF_SMOKE_SHAPES)):
+        assert list(mine) == list(ref)
+        for name in ref:
+            a, b = mine[name], ref[name]
+            assert (a.name, a.seq_len, a.global_batch, a.kind) == \
+                (b.name, b.seq_len, b.global_batch, b.kind)
+    assert sorted(ARCH_NAMES) == sorted(
+        __import__("repro.configs", fromlist=["x"]).ARCH_NAMES)
+    for arch in ARCH_NAMES:
+        for name in SHAPES:
+            assert applicable(get_config(arch), SHAPES[name]) == \
+                ref_applicable(ref_get_config(arch), REF_SHAPES[name])
+
+
+@pytest.fixture(scope="module")
+def specs():
+    """Per arch at full width: the reference's model and param specs, the
+    port's model and meta params."""
+    out = {}
+    for arch in ARCH_NAMES:
+        rm = ref_build_model(ref_get_config(arch))
+        pm = build_model(get_config(arch))
+        out[arch] = (rm, ref_params_specs(rm), pm, params_specs(pm))
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_params_specs_equal_the_reference_leaf_for_leaf(arch, specs):
+    """Full width: every leaf's path, shape and dtype (gemma3-1b's qk-norm
+    scales included)."""
+    _, ref, _, mine = specs[arch]
+    assert list(_leaves(mine)) == sorted(_ref_leaves(ref))
+    assert all(t.device.type == "meta" for _, t in _flat(mine))
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_input_specs_equal_the_reference(arch, specs):
+    """Every applicable cell: the batch leaves equal the reference's; the
+    cache (and whisper's cross-KV) hold the same bytes per dtype; decode's
+    tokens equal, its ``t`` a host int at the cache's last position."""
+    rm, _, pm, _ = specs[arch]
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    for name, shape in SHAPES.items():
+        if not applicable(cfg, shape)[0]:
+            continue
+        mine, ref = input_specs(cfg, shape, pm), \
+            ref_input_specs(rcfg, REF_SHAPES[name], rm)
+        if shape.kind == "decode":
+            assert list(_leaves(mine["tokens"])) == [
+                ((), (shape.global_batch, 1), "int32")]
+            assert mine["t"] == min(shape.seq_len,
+                                    cfg.max_target_len if cfg.is_encdec
+                                    else shape.seq_len) - 1
+            caches = mine["cache"], ref["cache"]
+        else:
+            batch = {k: v for k, v in mine["batch"].items() if k != "cache"}
+            rbatch = {k: v for k, v in ref["batch"].items() if k != "cache"}
+            assert list(_leaves(batch)) == sorted(_ref_leaves(rbatch))
+            if shape.kind == "train":
+                continue
+            caches = mine["batch"]["cache"], ref["batch"]["cache"]
+        assert _bytes_by_dtype(_leaves(caches[0])) == \
+            _bytes_by_dtype(_ref_leaves(caches[1])), (arch, name)
+
+
+def _ref_active_params(cfg, p_sds) -> int:
+    """The reference dry run's ``_active_params``, restated."""
+    total = int(sum(np.prod(x.shape) for x in jax.tree_util.tree_leaves(
+        p_sds)))
+    if cfg.moe is None:
+        return total
+    expert = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(p_sds)[0]:
+        keys = [str(getattr(p, "key", "")) for p in path]
+        if "moe" in keys and keys[-1] in ("w1", "w2", "w3"):
+            expert += int(np.prod(leaf.shape))
+    return total - expert + expert * cfg.moe.top_k // cfg.moe.num_experts
+
+
+def _ref_model_flops(cfg, shape, p_sds) -> float:
+    n = _ref_active_params(cfg, p_sds)
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_model_flops_and_active_params_equal_the_reference(arch, specs):
+    _, ref, _, mine = specs[arch]
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    assert dryrun._active_params(cfg, mine) == _ref_active_params(rcfg, ref)
+    for name, shape in SHAPES.items():
+        assert dryrun.model_flops(cfg, shape, mine) == \
+            _ref_model_flops(rcfg, REF_SHAPES[name], ref)
+
+
+def test_op_analysis_flops_match_hlo_analysis():
+    """Reduced qwen1.5-4b, SW prefill of 2 x 64 tokens into a 64-slot
+    cache: the dot FLOPs the dispatch mode counts on meta against
+    ``hlo_analysis`` over the reference's compiled single-device HLO."""
+    B, S = 2, 64
+    rm = ref_build_model(ref_get_config("qwen1.5-4b-smoke"))
+    batch = {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32),
+             "cache": jax.eval_shape(lambda: rm.init_cache(B, S))}
+    txt = jax.jit(rm.prefill).lower(
+        jax.eval_shape(rm.init, jax.random.PRNGKey(0)), batch
+    ).compile().as_text()
+    want = hlo_analysis.analyze(txt).flops
+    pm = build_model(get_config("qwen1.5-4b-smoke"))
+    params = params_specs(pm)
+    batch = {"tokens": torch.empty((B, S), dtype=torch.int32, device=META),
+             "cache": pm.init_cache(B, S, device=META)}
+    with op_analysis.OpAnalysis() as oa:
+        oa.hold((params, batch))
+        with oa.counting() as st:
+            pm.prefill(params, batch)
+    assert want > 0 and abs(st.flops - want) <= 0.02 * want
+    assert st.bytes_hbm > 0 and st.score_bytes > 0
+    assert oa.peak_bytes > dryrun._nbytes(params)
+
+
+def test_op_analysis_score_bytes_do_not_depend_on_call_depth():
+    """``attention_chunked`` publishes its (Sq, C) while it runs, so its
+    score tensors count the same however deep it is called, and the
+    geometry is gone once it returns."""
+    from repro_torch.kernels.flash_attention import ref as attn_ref
+
+    q = torch.empty((2, 24, 4, 32), device=META)
+    kv = torch.empty((2, 40, 2, 32), device=META)
+
+    def nested(depth):
+        if depth == 0:
+            return attn_ref.attention_chunked(q, kv, kv, kv_chunk=16)
+        return nested(depth - 1)
+
+    counted = []
+    for depth in (0, 12):
+        with op_analysis.OpAnalysis() as oa, oa.counting() as st:
+            nested(depth)
+        counted.append(st.score_bytes)
+    # per chunk: the QK product, the mask's where, the subtraction and
+    # its exp, each (2, 4, 24, 16) f32, 2x; three chunks of 16
+    assert counted == [3 * 4 * 2 * (2 * 4 * 24 * 16 * 4)] * 2
+    assert attn_ref.score_geometry() is None
+
+
+def test_op_analysis_tracks_live_bytes():
+    """The peak is what was alive at once, allocator-rounded; a freed
+    tensor leaves the count."""
+    with op_analysis.OpAnalysis() as oa:
+        a = torch.empty(1000, device=META)           # 4000 -> 4096
+        b = torch.empty(100, device=META)            # 400 -> 512
+        del a
+        c = torch.empty(10, device=META)             # 40 -> 512
+        assert oa.live_bytes == 1024
+        with oa.counting() as st:
+            (b[:10] + c).sum()
+    assert oa.peak_bytes == 4096 + 512
+    assert st.flops == 0 and st.n_ops >= 2 and st.bytes_hbm == 2 * (40 + 4)
+    del b, c
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_run_cell_record_and_reanalyze(shape, tmp_path):
+    """One cell per kind at the smoke shapes (qwen1.5-4b-smoke; its
+    long_500k is a skip): a complete record, cached, and ``reanalyze``
+    gives it back unchanged."""
+    rec = dryrun.run_cell("qwen1.5-4b-smoke", shape, 1, out_dir=str(tmp_path),
+                          shapes=SMOKE_SHAPES)
+    if shape == "long_500k":
+        assert rec["status"] == "skip" and "full-attention" in rec["reason"]
+        return
+    assert rec["status"] == "ok", rec.get("error")
+    for key in ("params", "active_params", "model_flops", "flops_per_dev",
+                "bytes", "fits", "microbatch", "roofline", "traffic",
+                "device", "power_limit_w", "hbm_limit_bytes", "chips"):
+        assert key in rec
+    assert set(rec["bytes"]) == {"params", "opt_state", "cache", "peak"}
+    assert rec["fits"] and rec["flops_per_dev"] > 0
+    assert rec["roofline"]["dominant"] in ("compute_s", "memory_s")
+    assert rec["roofline"]["collective_s"] == 0.0
+    assert "no collective" in rec["roofline"]["collective_reason"]
+    if rec["kind"] == "train":
+        assert rec["microbatch"] == 1 and rec["bytes"]["opt_state"] > 0
+        assert "forward-only" in rec["roofline"]["hw_route"]
+    else:
+        assert rec["bytes"]["cache"] > 0
+        assert rec["roofline"]["hw_route"]["memory_s"] <= \
+            rec["roofline"]["memory_s"]
+    assert dryrun.run_cell("qwen1.5-4b-smoke", shape, 1,
+                           out_dir=str(tmp_path), shapes=SMOKE_SHAPES) == rec
+    path = dryrun.cell_path(str(tmp_path), "qwen1.5-4b-smoke", shape, 1)
+    assert reanalyze.reanalyze(rec) == rec
+    assert reanalyze.reanalyze_one(path)
+    assert dryrun.run_cell("qwen1.5-4b-smoke", shape, 1,
+                           out_dir=str(tmp_path), shapes=SMOKE_SHAPES) == rec
+
+
+def test_train_microbatches_split_the_rows():
+    """k microbatches: the same counted FLOPs as one (the microbatches'
+    sum), a larger peak for the f32 grad accumulator."""
+    cfg = get_config("qwen1.5-4b-smoke")
+    shape = SMOKE_SHAPES["train_4k"]
+    one = dryrun.analyze_cell(cfg, shape, 1, microbatch=1)
+    two = dryrun.analyze_cell(cfg, shape, 1, microbatch=2)
+    assert two["microbatch"] == 2
+    assert abs(two["flops_per_dev"] - one["flops_per_dev"]) <= \
+        1e-6 * one["flops_per_dev"]
+    assert two["bytes"]["peak"] > one["bytes"]["params"] * 4
+
+
+@pytest.mark.parametrize("top_k, shared", [(2, False), (1, True)])
+def test_moe_ffn_runs_on_meta(top_k, shared):
+    """No data-dependent shape: the dispatch runs on meta tensors."""
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v[0] if not isinstance(v, dict) else
+         {n: t[0] for n, t in v.items()}
+         for k, v in init_moe(gen, 1, 32, 64, 4, torch.float32, META,
+                              shared=shared).items()}
+    x = torch.empty((2, 16, 32), dtype=torch.bfloat16, device=META)
+    y, aux = moe_ffn(p, x, top_k=top_k, capacity_factor=1.25)
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert y.dtype == torch.bfloat16
+    assert set(aux) == {"aux_loss", "z_loss", "drop_frac"}

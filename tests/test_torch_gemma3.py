@@ -237,3 +237,25 @@ def test_step0_grads_match_jax(ref):
         rel = np.abs(got.numpy() - g).max() / np.abs(g).max()
         assert rel <= 1e-4, (jax.tree_util.keystr(path), rel)
     assert float(pg["layers"]["attn"]["q_norm"].abs().max()) > 0
+
+
+def test_own_init_has_qk_norm_and_matches_the_reference(ref):
+    """The port's own init carries ``q_norm`` and ``k_norm`` ((L, head
+    dim) ones, drawing nothing, so every other leaf keeps its bits): fed
+    to the reference as numpy, its SW logits equal the port's in f32."""
+    own = ref["pm"].init(0, device="cpu")
+    attn = own["layers"]["attn"]
+    for name in ("q_norm", "k_norm"):
+        assert attn[name].shape == (LAYERS, 32)
+        assert torch.equal(attn[name], torch.ones_like(attn[name]))
+    host = jax.tree_util.tree_map(lambda t: t.numpy(), own)
+    want = jax.tree_util.tree_flatten_with_path(ref["host"])[0]
+    got = jax.tree_util.tree_flatten_with_path(host)[0]
+    assert [(p, a.shape, a.dtype) for p, a in got] == \
+        [(p, a.shape, a.dtype) for p, a in want]
+    toks = _tokens(4, (2, 24))
+    _close(ref["pm"].logits_all(own, {"tokens": torch.from_numpy(toks)
+                                      .long()}),
+           jax.jit(ref["rm"].logits_all)(
+               jax.tree_util.tree_map(jnp.asarray, host),
+               {"tokens": jnp.asarray(toks)}))
