@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, multi-process fleet, chaos,
-model-zoo, encoder-decoder and tuning paths, its examples and its dry run
-on one NVIDIA GPU and check them.
+model-zoo, encoder-decoder, tuning and tensor-parallel paths, its examples
+and its dry run on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -76,10 +76,13 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              P = 128 and at its image prefill's 288; phase 14's
              serve_with_faults, the reduced qwen1.5-4b's 4 heads of 32 at
              each of its workload's prompt lengths and the shortest it may
-             draw, 6); and its bits: two
+             draw, 6; phase 15's tensor-parallel rank, qwen1.5-4b's 5 of 20
+             heads at P = 16, 77 and 128); and its bits: two
              calls, the contiguous (B, H, S, D) copies and
              ``_kernel_path`` agree.
-             Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200};
+             Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200}; its
+             tensor-parallel rank's 2560 -> 1728 -> 2560 partial sum
+             (phase 15): M in {1, 4, 128};
              zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
              sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
              x (64, 128) x (128, 64), which is lane_fault_smoke's, and its
@@ -128,7 +131,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              launch counter rose by exactly its launches per prefill and
              per decode tick while its stage was healthy, plus the probes'
              own canary launches (2 + 3 on the fault stage's kernel).
-             qwen1.5-4b (40 layers): 6 requests of 16-128 prompt tokens,
+             qwen1.5-4b (20 of its 40 layers, ``SERVE_LAYERS``; phase 9
+             serves all 40): 6 requests of 16-128 prompt tokens,
              fault on ``swiglu_mlp``.  zamba2-1.2b (38 Mamba2 layers, the
              shared block 6 times): 6 requests of 96-384 prompt tokens, so
              prefill crosses chunk boundaries, fault on ``mamba2_ssd``.
@@ -205,14 +209,14 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              grads and moments), and the device idle share of one step
              under torch.profiler.  T2: on route hw the first step raises
              the forward-only error, at attention and (attention
-             quarantined to SW) at SwiGLU.  T3 (2 layers, 0.94 B params):
+             quarantined to SW) at SwiGLU.  T3 (1 layer, 0.86 B params):
              a checkpoint at step 3 (the disk's free space printed first,
              then each write's seconds and bytes), NaN in the embedding
              row of the next batch's first token trips the StepGuard,
              which restores it and continues; a SW reroute of
              ``swiglu_mlp`` builds nothing; a fresh runner restores the
              second checkpoint onto the card, equal to the live state bit
-             for bit, and continues.  T4 (2 layers): FleetTrainRunner, 3
+             for bit, and continues.  T4 (1 layer): FleetTrainRunner, 3
              devices with one spare: poison migrates device 1 to the
              spare; with probation a transient recovers with no
              quarantine; on HostTopology(2, 2) a host loss restores the
@@ -259,15 +263,16 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              repro_torch.obs.report``, whose MTTR and goodput must equal
              the campaigns' own summaries (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
-11. zoo    — mistral-nemo-12b (40 of 40 layers), mixtral-8x7b (8 of 32:
+11. zoo    — mistral-nemo-12b (20 of 40 layers), mixtral-8x7b (8 of 32:
              8 experts top-2, a 4096-token window on every layer),
              llama4-scout-17b-a16e (6 of 48: 16 experts top-1 and a
-             shared expert), gemma2-2b (26 of 26: head dim 256, local
+             shared expert), gemma2-2b (14 of 26: head dim 256, local
              and global layers in turn, both softcaps, post-norms, GeGLU),
-             gemma3-1b (26 of 26: five local layers of window 512 and
-             rope theta 1e4 to one global of 1e6, a two-layer tail,
-             qk-norm, GQA 4 -> 1) and qwen2-vl-7b (28 of 28: M-RoPE, QKV
-             biases, an untied head) at full width, each built (weights
+             gemma3-1b (12 of 26: two groups of five local layers of
+             window 512 and rope theta 1e4 to one global of 1e6, qk-norm,
+             GQA 4 -> 1) and qwen2-vl-7b (14 of 28: M-RoPE, QKV biases,
+             an untied head) at full width (PRs 22-24 served the dense
+             ones at full depth), each built (weights
              drawn straight into bf16 by the port's own init; gemma3-1b's
              must carry its qk-norm scales), served and freed in turn, its
              peak memory printed.
@@ -351,6 +356,32 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              and its predicted peak come within 10% of phase 8's
              ``max_memory_allocated``; the achieved TFLOP/s from its
              counted FLOPs over phase 8's median step.
+15. tp     — tensor-parallel serving (``launch/spmd.py``,
+             ``launch/tp_serve.py``): qwen1.5-4b at full width and
+             ``TP_LAYERS`` (8) of its 40 layers over a (1, 4) ("data",
+             "model") mesh, four gloo ranks on the one card (NCCL refuses
+             ranks that share it), each serving its shard (seeded bf16
+             weights cut by ``partition.shard_tree``: 5 of 20 heads, 1728
+             of 6912 d_ff columns, a quarter of the vocab and of the KV
+             heads) through ``ServeEngine`` on route hw: 4 requests of
+             16-128 prompt tokens on 4 slots; a lane fault on rank 1's
+             ``swiglu_mlp`` at step 6, found by its canary and agreed
+             through ``EventChannel``.  First this process serves the same
+             workload on one unsharded HW engine of the same weights.
+             Checks: every rank emits the same tokens; each rank's
+             gathered logits within ``LOGITS_REL`` of the unsharded
+             engine's at every prefill and tick before the fault (the
+             ranks are fed the unsharded run's tokens until then, so a
+             near-tie cannot fork the streams compared); every rank
+             demotes the stage at step 6; each rank launches attention
+             (at 5 heads) once a layer a prefill and SwiGLU (2560 -> 1728
+             -> 2560) once a layer a call until the fault (the faulted
+             rank's canary once more); each tick's collective bytes on the
+             process group equal the dry run's counting stub for the same
+             cell and depth.  Each rank's prefill and tick ms print with
+             the card's name and power limit (rehearsed on the CPU by
+             ``test_torch_chip_smoke.py``).  Then the seconds of every
+             phase.
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
@@ -358,7 +389,9 @@ set to 0 just before that path: each model's serve, probes included, the
 case studies, the fleet runs, the two ranks of phase 9, the chaos
 campaigns, each phase-11 model's serve, ring prefill and image
 prefill, phase 12's decode, faulted run and probes, phase 13's three
-serves, and each phase-14 example's process);
+serves, each phase-14 example's process, and phase 15's ranks and its
+unsharded run; the attention and SwiGLU entries also carry the shard
+shapes' times, ``tp_shapes``, and the ranks' launches, ``tp_launches``);
 the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -457,6 +490,12 @@ ATTN_CASES = (
     *((1, P, P, *SERVE_EXAMPLE["heads"], SERVE_EXAMPLE["heads"][-1],
        dict(causal=True))
       for P in (SERVE_EXAMPLE["min_prompt"],) + SERVE_EXAMPLE["prompts"]),
+    # phase 15: a tensor-parallel rank of qwen1.5-4b over a 4-way model
+    # axis (5 of its 20 heads) at its workload's shortest and longest
+    # prompts and a ragged one
+    (1, 16, 16, 5, 5, 128, 128, dict(causal=True)),
+    (1, 77, 77, 5, 5, 128, 128, dict(causal=True)),
+    (1, 128, 128, 5, 5, 128, 128, dict(causal=True)),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -957,11 +996,11 @@ def fleet_phase(cfg, dev, wrappers, *, n_requests: int = 16,
 
 # The training phase (phase 8): qwen1.5-4b at full width.  T1 at full
 # depth, T2-T4 with the layers cut to TRAIN_CUT_LAYERS (the embedding and
-# the head, 0.78 B of its 0.94 B params, keep their size); SyntheticLM
+# the head, 0.78 B of its 0.86 B params, keep their size); SyntheticLM
 # batches of B x S tokens; AdamW at TRAIN_LR after 2 warmup steps.
 TRAIN_STEPS = 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 128
-TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_LAYERS = 1
 TRAIN_LR = 1e-3
 # T5: the same first step on the card and on the CPU, in float32
 TRAIN_CPU_REL = 1e-4
@@ -2216,12 +2255,16 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
 # at full width on one card, depth cut where the weights would not fit:
 # (arch, layers served, fault stage).  Each is built, served and freed in
 # turn.
-ZOO = (("mistral-nemo-12b", 40, "swiglu_mlp"),
+# (arch, layers served, fault stage): since PR 27 the dense models at
+# about half their depth (full depth ran in PRs 22-24): their ticks are
+# host-bound and scale with it; gemma2-2b keeps its alternation and
+# gemma3-1b two whole 5:1 groups
+ZOO = (("mistral-nemo-12b", 20, "swiglu_mlp"),
        ("mixtral-8x7b", 8, "flash_attention"),
        ("llama4-scout-17b-a16e", 6, "flash_attention"),
-       ("gemma2-2b", 26, "flash_attention"),
-       ("gemma3-1b", 26, "swiglu_mlp"),
-       ("qwen2-vl-7b", 28, "flash_attention"))
+       ("gemma2-2b", 14, "flash_attention"),
+       ("gemma3-1b", 12, "swiglu_mlp"),
+       ("qwen2-vl-7b", 14, "flash_attention"))
 ZOO_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                     arrival_every=2, per_arrival=2)
 ZOO_PREFILL = 128
@@ -2655,6 +2698,8 @@ def encdec_phase(cfg, dev, wrappers, *, frames: int = ENCDEC_FRAMES,
 # ---------------------------------------------------------- 13. tuning
 # phase 4's qwen1.5-4b workload (6 requests on 4 slots), which phase 13
 # serves three times
+# phase 4's qwen1.5-4b serve: 20 of its 40 layers
+SERVE_LAYERS = 20
 QWEN_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                      arrival_every=2, per_arrival=2)
 # (kernel, model, tokens or rows): phase 13's sweep at the main path's
@@ -3253,6 +3298,159 @@ def _run_examples(cfg, t1, outputs, t0, timeout):
     return entry, ended, {name: p.returncode for name, (p, _) in procs.items()}
 
 
+# Phase 15: tensor-parallel serving.  qwen1.5-4b at full width and
+# TP_LAYERS of its 40 layers over a (1, 4) ("data", "model") mesh: four
+# gloo ranks on the one card, each serving its shard (5 of 20 heads, 1728
+# of 6912 d_ff columns, a quarter of the vocab) through ``ServeEngine``
+# under ``launch/spmd.py``; a lane fault on rank TP_FAULT_RANK's
+# ``swiglu_mlp`` at step TP_FAULT_STEP, found by its canary and agreed
+# through ``EventChannel``.
+TP_MESH = (1, 4)
+TP_LAYERS = 8
+TP_FAULT_STEP, TP_FAULT_RANK = 6, 1
+TP_WORKLOAD = dict(requests=4, slots=4, min_prompt=16, max_prompt=128,
+                   min_new=8, max_new=14, arrival_every=1, per_arrival=2)
+TP_TIMEOUT_S = 300
+
+
+def tp_spec():
+    from repro_torch.launch.tp_serve import TPServeSpec
+    from repro_torch.viscosity import HW
+    return TPServeSpec(arch="qwen1.5-4b", full=True, layers=TP_LAYERS,
+                       dtype="bfloat16", seed=0, hw_route=HW,
+                       fault_step=TP_FAULT_STEP, fault_rank=TP_FAULT_RANK,
+                       **TP_WORKLOAD)
+
+
+def tp_collectives_stub(spec):
+    """The dry run's counting stub for one tick of the same cell and
+    depth: a decode step over the pool's slots at its max_len, one rank
+    of the (1, 4) mesh on meta.  Returns its bytes by kind."""
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    rec = dryrun.analyze_cell(
+        spec.config(), ShapeSpec("tp_tick", spec.max_len, spec.slots,
+                                 "decode"),
+        mesh=make_mesh(TP_MESH, ("data", "model"),
+                       devices=[torch.device("meta")] * 4))
+    return rec["collectives"]["bytes_by_kind"]
+
+
+def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
+             count: str = "launches"):
+    """Phase 15 (see the constants above).  The unsharded HW engine of the
+    same weights serves the same workload in this process first; its
+    logits, call by call, are what each rank's gathered logits are held to
+    before the fault.  Returns (report entry, launches of the ranks and of
+    the unsharded run).  ``count`` is what each rank's kernel counts are
+    read from: its wrappers' ``launches``, or on the CPU (where nothing
+    launches) its recorded ``kernel_calls``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import tp_serve
+    from repro_torch.viscosity import HW, SW
+
+    t0 = time.perf_counter()
+    spec = tp_spec()
+    cfg = spec.config()
+    L, m = cfg.num_layers, TP_MESH[1]
+    H, F_ = cfg.num_heads // m, cfg.d_ff // m
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        ref = tp_serve.reference_run(spec, device=dev.type, path=ref_path)
+        ref_launches = {n: w.launches for n, w in wrappers.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ranks = time.perf_counter()
+        res = tp_serve.launch_ranks(spec, TP_MESH, device=dev.type,
+                                    backend=MH_BACKEND, ref_logits=ref_path,
+                                    timeout=timeout, src=str(SRC))
+        ranks_s = time.perf_counter() - t_ranks
+    stub = tp_collectives_stub(spec)
+    bad = tp_serve.check_agreement(res)
+    check(not bad, "tp: " + "; ".join(bad))
+    entry = {"mesh": list(TP_MESH), "layers": L, "backend": MH_BACKEND,
+             "fault": [TP_FAULT_STEP, TP_FAULT_RANK, spec.fault_stage],
+             "stub_tick_bytes": stub, "ranks": [],
+             "reference_launches": ref_launches, "nvidia_smi": smi}
+    for r in res:
+        before = [c for c in r["calls"] if c["step"] < TP_FAULT_STEP]
+        rels = r["logits_rel"][:len(before)]
+        check(r["world"] == 4 and r["backend"] == MH_BACKEND,
+              f"tp: rank {r['rank']} is not one of four gloo ranks")
+        check(r["fault_applied_step"] == TP_FAULT_STEP
+              and r["routes"][:TP_FAULT_STEP] == [HW] * TP_FAULT_STEP
+              and set(r["routes"][TP_FAULT_STEP:]) == {SW},
+              f"tp: rank {r['rank']} demoted {spec.fault_stage} at step "
+              f"{r['fault_applied_step']}: routes {r['routes']}")
+        check(len(rels) == len(before) > 0 and max(rels) <= LOGITS_REL,
+              f"tp: rank {r['rank']}'s gathered logits against the "
+              f"unsharded engine's before the fault: {rels}")
+        n_pre = sum(c["kind"] == "prefill" for c in r["calls"])
+        # a layer's kernel a prefill (attention) or a call (SwiGLU, until
+        # the fault); the faulted rank's canary probe launches SwiGLU once
+        want = {"flash_attention": L * n_pre,
+                "swiglu_mlp": L * len(before)
+                + (r["rank"] == TP_FAULT_RANK)}
+        check(r[count] == want,
+              f"tp: rank {r['rank']} launched {r[count]}, want {want}")
+        shapes = r["kernel_shapes"]
+        check(shapes["flash_attention"] and all(
+                  q[1] == H and k[1] == H
+                  for q, k in shapes["flash_attention"]),
+              f"tp: attention ran at {shapes['flash_attention']}, not at "
+              f"{H} heads")
+        served = [sh for sh in shapes["swiglu_mlp"]
+                  if sh[0][1] == cfg.d_model]     # not the canary's probe
+        check(served and all(w1 == [cfg.d_model, F_]
+                             and w2 == [F_, cfg.d_model]
+                             for _, w1, w2 in served),
+              f"tp: SwiGLU ran at {shapes['swiglu_mlp']}")
+        ticks = [c for c in r["calls"] if c["kind"] == "tick"]
+        check(ticks and all(c["bytes"] == stub for c in ticks),
+              f"tp: rank {r['rank']}'s collective bytes a tick "
+              f"{[c['bytes'] for c in ticks][:2]} differ from the dry "
+              f"run's counting stub {stub}")
+        pre_ms = [c["ms"] for c in r["calls"] if c["kind"] == "prefill"]
+        tick_ms = [c["ms"] for c in ticks]
+        row = {"coords": r["coords"], "prefill_ms": pre_ms,
+               "tick_ms": tick_ms,
+               "tick_ms_median": float(np.median(tick_ms)),
+               "process_s": r["process_s"], "peak_gib": r["peak_gib"],
+               "launches": r["launches"], "logits_rel_max": max(rels),
+               "local_bytes": r["local_bytes"],
+               "collectives": r["collectives"]}
+        entry["ranks"].append(row)
+        out(f"[tp] rank {r['rank']} {r['coords']}: prefill ms "
+            f"{[round(x, 2) for x in pre_ms]}, tick ms median "
+            f"{row['tick_ms_median']:.2f} (of {len(tick_ms)}), logits "
+            f"within {max(rels):.3e} of the unsharded engine's before the "
+            f"fault, launches {r['launches']}, params "
+            f"{r['local_bytes']['params'] / 2**30:.3f} GiB, cache "
+            f"{r['local_bytes']['cache'] / 2**20:.1f} MiB, peak "
+            f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 2)}"
+            f" GiB; {smi}")
+    entry["tokens"] = res[0]["tokens"]
+    entry["steps"] = res[0]["steps"]
+    entry["ranks_s"] = ranks_s
+    entry["phase_s"] = time.perf_counter() - t0
+    launches = {n: sum(r[count].get(n, 0) for r in res) for n in wrappers}
+    out(f"[tp] {len(res)} ranks agree on {sum(map(len, entry['tokens'].values()))}"
+        f" tokens over {entry['steps']} steps; {spec.fault_stage} demoted on "
+        f"every rank at step {TP_FAULT_STEP}; collective bytes a tick "
+        f"{stub} on every rank, as the dry run counts them; attention at "
+        f"{H} heads, SwiGLU {cfg.d_model} -> {F_} -> {cfg.d_model}; "
+        f"launches {launches} (unsharded run {ref_launches}); ranks "
+        f"{ranks_s:.2f} s, phase {entry['phase_s']:.2f} s")
+    return entry, launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3334,6 +3532,14 @@ def run(tuning_dir: str) -> int:
                 "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda,
                 "rwkv6_wkv": wkv6_chunked_cuda}
 
+    phase_s, lap_t = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Record the seconds since the last lap as phase ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - lap_t[0]
+        lap_t[0] = now
+
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
     built = _build.build()
@@ -3394,7 +3600,13 @@ def run(tuning_dir: str) -> int:
         slots=serve_ex.SLOTS)
     check(served_ex == SERVE_EXAMPLE, f"serve_with_faults serves "
           f"{served_ex}, the parity cases hold {SERVE_EXAMPLE}")
-    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg):
+    # phase 15's rank: qwen1.5-4b's d_ff cut four ways (2560 -> 1728)
+    qwen_tp = dataclasses.replace(
+        get_config("qwen1.5-4b"), name="qwen1.5-4b tp4",
+        num_heads=get_config("qwen1.5-4b").num_heads // TP_MESH[1],
+        num_kv_heads=get_config("qwen1.5-4b").num_kv_heads // TP_MESH[1],
+        d_ff=get_config("qwen1.5-4b").d_ff // TP_MESH[1])
+    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg, qwen_tp):
         rows_ = list(range(1, ZOO_WORKLOAD["max_prompt"] + 1))
         for M in rows_ + ([vl_tokens] if c.stub_frontend else []) + (
                 [RING_PROMPT] if c.window else []):
@@ -3416,6 +3628,9 @@ def run(tuning_dir: str) -> int:
     attn_shapes = {(B_, H_, Hkv_, Sq_, Skv_, -(-D_ // 8) * 8, -(-Dv_ // 8) * 8)
                    for B_, Sq_, Skv_, H_, Hkv_, D_, Dv_, _ in ATTN_CASES}
     attn_shapes |= {(1, qh, qh, P_, P_, qd, qd) for P_ in range(16, 129)}
+    attn_shapes |= {(1, qwen_tp.num_heads, qwen_tp.num_kv_heads, P_, P_, qd,
+                     qd) for P_ in range(TP_WORKLOAD["min_prompt"],
+                                         TP_WORKLOAD["max_prompt"] + 1)}
     attn_shapes |= {(1, zh, zh, P_, P_, zd, zd) for P_ in range(96, 385)}
     for c in zoo:                       # phase 11's prompts and the ring
         cd = c.resolved_head_dim
@@ -3477,6 +3692,7 @@ def run(tuning_dir: str) -> int:
                 f"{k}: {v}" for k, v in scan_plans[label].items()))
     report["scan_plans"] = scan_plans
 
+    lap("1 build")
     # --------------------------------------------------------- 2. parity
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3778,6 +3994,10 @@ def run(tuning_dir: str) -> int:
     for B_, Sq, Skv, H, Hkv, D, Dv, kw in ATTN_CASES:
         attention_parity(B_, Sq, Skv, H, Hkv, D, Dv, kw)
     swiglu_parity(qwen.d_model, qwen.d_ff, (1, 4, 200))
+    # phase 15's rank: 2560 -> 1728 -> 2560 (a partial sum), its decode
+    # rows and its longest prompt
+    swiglu_parity(qwen_tp.d_model, qwen_tp.d_ff, (1, 4, 128),
+                  tag=" (tp rank)")
     swiglu_parity(zamba.d_model, zamba.d_ff, (4, 384))
     # a narrow w2 (61 lanes, as DEGRADED_REDUCED slices it) and the canary
     # stage's (64, 64) x (64, 128) x (128, 64)
@@ -3791,6 +4011,7 @@ def run(tuning_dir: str) -> int:
                   + SERVE_EXAMPLE["prompts"], tag=" (serve_with_faults)")
     swiglu_bits(serve_cfg, max(SERVE_EXAMPLE["prompts"]))
     swiglu_bits(qwen, 200)
+    swiglu_bits(qwen_tp, 128)
     swiglu_bits(zamba, 384)
     swiglu_parity(mistral.d_model, mistral.d_ff, (4, 16, ZOO_PREFILL))
     swiglu_bits(mistral, ZOO_PREFILL)
@@ -3812,6 +4033,7 @@ def run(tuning_dir: str) -> int:
     report["nvidia_smi"] = smi
     launches = {name: {} for name in wrappers}
 
+    lap("2 parity")
     # ---------------------------------------------------------- 3. cases
     def case_study(acc, x, faults, *, reference=None, expect=None):
         """One accelerator at size: the healthy run against the all-SW run
@@ -3991,9 +4213,13 @@ def run(tuning_dir: str) -> int:
             launches[s][cfg.name] = n
         return entry
 
-    Lq, G = qwen.num_layers, zamba.num_layers // zamba.shared_attn_every
+    lap("3 cases")
+    # qwen1.5-4b at SERVE_LAYERS of its 40 layers (phase 9 serves it at
+    # full depth); its ticks are host-bound and scale with the depth
+    qwen_served = dataclasses.replace(qwen, num_layers=SERVE_LAYERS)
+    Lq, G = SERVE_LAYERS, zamba.num_layers // zamba.shared_attn_every
     report["qwen1.5-4b"] = served(
-        qwen, QWEN_WORKLOAD, "swiglu_mlp",
+        qwen_served, QWEN_WORKLOAD, "swiglu_mlp",
         per_prefill={"flash_attention": Lq, "swiglu_mlp": Lq},
         per_tick={"flash_attention": 0, "swiglu_mlp": Lq}, prefill_len=128)
     torch.cuda.empty_cache()
@@ -4015,6 +4241,7 @@ def run(tuning_dir: str) -> int:
           f"a kernel of the paths never launched: {launches}")
     torch.cuda.empty_cache()
 
+    lap("4-5 serve")
     # ---------------------------------------------------------- 6. fleet
     t0 = time.perf_counter()
     report["fleet"], fleet_launches = fleet_phase(
@@ -4028,6 +4255,7 @@ def run(tuning_dir: str) -> int:
           "checksum (its stages compare with tol > 0)")
     report["launches"] = launches
 
+    lap("6 fleet")
     # ---------------------------------------------------------- 7. times
     def kernel_entry(name, source, replaces, shape, **numbers):
         return {"name": name, "route": "cuda", "source": source,
@@ -4107,6 +4335,8 @@ def run(tuning_dir: str) -> int:
     F_, B4 = ENCDEC_FRAMES, ENCDEC_BATCH
     for cfg, B_, Sq, Skv, W, cap, causal in (
             (qwen, 1, 128, 128, 0, 0, True), (zamba, 1, 384, 384, 0, 0, True),
+            (qwen_tp, 1, 16, 16, 0, 0, True),
+            (qwen_tp, 1, 128, 128, 0, 0, True),
             (qwen, 1, 2048, 2048, 0, 0, True),
             (mistral, 1, 128, 128, 0, 0, True),
             (llama4, 1, 128, 128, 0, 0, True),
@@ -4181,10 +4411,14 @@ def run(tuning_dir: str) -> int:
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:33",
         "B=1 H=20 P=128 D=128 causal", **attn["B=1 H=20 P=128 D=128 causal"]))
+    # phase 15's shard shapes (a rank's 5 heads), beside the main row
+    kernels[-1]["tp_shapes"] = {k_: attn[k_] for k_ in (
+        "B=1 H=5 P=16 D=128 causal", "B=1 H=5 P=128 D=128 causal")}
 
     shapes, swiglu_kernels = {}, {}
     gates = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh")}
-    for cfg, M in ((qwen, 4), (qwen, 128), (zamba, 4), (zamba, 384),
+    for cfg, M in ((qwen, 4), (qwen, 128), (qwen_tp, 4), (qwen_tp, 128),
+                   (zamba, 4), (zamba, 384),
                    (mistral, 4), (mistral, ZOO_PREFILL), (gemma, 4),
                    (gemma, ZOO_PREFILL), (gemma3, 4), (gemma3, ZOO_PREFILL),
                    (gemma3, RING_PROMPT), (qwen_vl, 4),
@@ -4222,6 +4456,8 @@ def run(tuning_dir: str) -> int:
         "swiglu_mlp", "src/repro_torch/csrc/swiglu.cu",
         "src/repro/kernels/swiglu/kernel.py:32",
         "qwen1.5-4b decode M=4 2560->6912->2560", **shapes["qwen1.5-4b M=4"]))
+    kernels[-1]["tp_shapes"] = {k_: shapes[k_] for k_ in (
+        "qwen1.5-4b tp4 M=4", "qwen1.5-4b tp4 M=128")}
     # the SSD at zamba2-1.2b's prefill shape, with the final state (as the
     # prefill calls it): B=1 S=384 H=64 P=N=64, chunk 128; on contiguous
     # tensors, and on the model's strided views of one xbc tensor, where the
@@ -4315,6 +4551,7 @@ def run(tuning_dir: str) -> int:
         **{k_: v_ for k_, v_ in ck["1 GiB bf16"].items() if k_ != "bytes"}))
     report["kernels"] = kernels
 
+    lap("7 times")
     # ---------------------------------------------------------- 8. train
     gc.collect()          # closures of the serve paths hold their weights
     torch.cuda.empty_cache()
@@ -4323,6 +4560,7 @@ def run(tuning_dir: str) -> int:
         launches[name]["train"] = n      # 0: training runs the SW route
     report["train"]["nvidia_smi"] = smi
 
+    lap("8 train")
     # ------------------------------------------------------ 9. multihost
     gc.collect()
     torch.cuda.empty_cache()
@@ -4335,6 +4573,7 @@ def run(tuning_dir: str) -> int:
         launches[name]["multihost"] = n
     report["multihost"]["nvidia_smi"] = smi
 
+    lap("9 multihost")
     # ---------------------------------------------------------- 10. chaos
     t0 = time.perf_counter()
     report["chaos"], chaos_launches = chaos_phase(
@@ -4350,6 +4589,7 @@ def run(tuning_dir: str) -> int:
           "the checksum (its stages compare with tol > 0)")
     report["chaos"]["nvidia_smi"] = smi
 
+    lap("10 chaos")
     # ---------------------------------------------------------- 11. zoo
     gc.collect()
     torch.cuda.empty_cache()
@@ -4361,6 +4601,7 @@ def run(tuning_dir: str) -> int:
         launches[name].update(by_path)
     report["zoo_nvidia_smi"] = smi
 
+    lap("11 zoo")
     # --------------------------------------------------------- 12. encdec
     gc.collect()
     torch.cuda.empty_cache()
@@ -4369,6 +4610,7 @@ def run(tuning_dir: str) -> int:
         launches[name][whisper.name] = n
     report["encdec"]["nvidia_smi"] = smi
 
+    lap("12 encdec")
     # --------------------------------------------------------- 13. tuning
     gc.collect()
     torch.cuda.empty_cache()
@@ -4378,6 +4620,7 @@ def run(tuning_dir: str) -> int:
         launches[name]["tuning"] = n
     report["tuning"]["nvidia_smi"] = smi
 
+    lap("13 tuning")
     # ------------------------------------------------------- 14. examples
     gc.collect()
     torch.cuda.empty_cache()
@@ -4386,6 +4629,23 @@ def run(tuning_dir: str) -> int:
     for name, by_example in example_launches.items():
         launches[name].update(by_example)
     report["examples"]["nvidia_smi"] = smi
+
+    lap("14 examples")
+    # --------------------------------------------------------- 15. tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["tp"], tp_launches = tp_phase(dev, wrappers, smi)
+    for name, n in tp_launches.items():
+        launches[name]["tp"] = n
+    for name, n in report["tp"]["reference_launches"].items():
+        launches[name]["tp unsharded"] = n
+    for kn in kernels:
+        if kn["name"] in ("flash_attention", "swiglu_mlp"):
+            kn["tp_launches"] = launches[kn["name"]]["tp"]
+    lap("15 tp")
+    report["phase_s"] = phase_s
+    out("[times] phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()))
     for kn in kernels:                   # the new paths' launches too
         kn["launches"] = sum(launches[kn["name"]].values())
     for kn in kernels:

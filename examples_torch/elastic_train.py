@@ -3,15 +3,16 @@ logical devices, lose a "pod" of four (FleetPlan device faults), rebuild
 the mesh view from the surviving fleet, restore the checkpoint onto it,
 and continue with the optimiser's step count preserved.
 
-What the reference has and this port does not: it forces 8 host devices
-and jits one SPMD step over a (2, 4) (data, model) mesh, its params
-sharded over "model" by ``launch/partition.py``'s ``params_pspecs``.  The
-port runs no SPMD program and has no partitioner (ROADMAP: the SPMD
-layer), so its fleet is data-parallel: every logical device holds the
-whole model and takes its ``shard_bounds`` slice of the global batch; the
-shards' grads are summed, weighted by their rows, into one step.  The
-mesh is 1-D over "data", (8,) and then (4,), and the 8 logical devices
-all map to the one device this runs on.
+The reference forces 8 host devices and jits one SPMD step over a
+(2, 4) (data, model) mesh, its params sharded over "model" by
+``launch/partition.py``'s ``params_pspecs``.  The port has the same specs
+and a tensor-parallel runtime (``launch/spmd.py``: one process per rank,
+``launch/tp_serve.py`` serves through it), but this example does not run
+its step on it yet (ROADMAP): its fleet is data-parallel, every logical
+device holds the whole model and takes its ``shard_bounds`` slice of the
+global batch, and the shards' grads are summed, weighted by their rows,
+into one step.  The mesh is 1-D over "data", (8,) and then (4,), and the
+8 logical devices all map to the one device this runs on.
 
 Run:  PYTHONPATH=src python examples_torch/elastic_train.py [--device cpu]
 """

@@ -31,23 +31,39 @@ The step of each kind:
   * decode: one ``decode_step`` at the last position of a ``seq_len``
     cache.
 
-``--chips`` 1 or 4 replaces the reference's ``--mesh single|multi``: the
-port's fleet is data-parallel, so every device holds the whole model and
-the global batch is split over the chips (max(1, B // chips) rows a
-device).  The collective term is what that fleet moves between devices in
-a step: nothing (``COLLECTIVE_REASON``).
+``--chips`` 1 or 4: the port's data-parallel fleet, every device holding
+the whole model, the global batch split over the chips (max(1, B //
+chips) rows a device); its collective term is 0 (``COLLECTIVE_REASON``).
+
+``--mesh single|multi|DxM`` (the reference's ``--mesh``: (16, 16)
+("data", "model") or (2, 16, 16) ("pod", "data", "model"), and small
+meshes such as ``1x4``): a sharded cell runs one rank's local step under
+the tensor-parallel runtime (``launch/spmd.py``) with the counting
+communicator on meta: its params, optimiser state and cache are the
+rank's shards (``partition.params_pspecs``, ``make_cache_pspec_fn``),
+its rows the batch over the batch axes, and the collectives the runtime
+calls are counted by kind, axis and bytes.  The collective term prices
+each axis's ring link bytes (all-reduce 2(m-1)/m, all-gather (m-1)/m) at
+NVLink's rate when the axis's group fits one 8-GPU node, else at the
+network's (``launch/mesh.py``).  A family the runtime does not shard yet
+(SSM, hybrid, encoder-decoder), or a cache whose KV heads do not divide
+(the sequence-sharded cache), is a ``skip`` with the reason and its
+spec-derived per-device bytes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--chips 1|4|both] [--force]
+  python -m repro_torch.launch.dryrun --all --mesh 1x4
 
-Records are cached as JSON under ``artifacts/dryrun_torch/``;
+Records are cached as JSON under ``artifacts/dryrun_torch/``
+(``<arch>__<shape>__<chips>chip.json``, ``<arch>__<shape>__<mesh>.json``);
 ``launch/reanalyze.py`` recomputes their roofline and ``fits`` when a
 constant changes.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -55,12 +71,17 @@ import time
 import traceback
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import optim
 from repro_torch.configs import ARCH_NAMES, SHAPES, applicable, get_config
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import partition, spmd
+from repro_torch.launch.mesh import (GPUS_PER_NODE, NET_BW, NVLINK_BW,
+                                     make_mesh, make_production_mesh)
 from repro_torch.launch.op_analysis import OpAnalysis, OpStats
+from repro_torch.launch.sharding import mesh_sizes
 from repro_torch.models import (build_model, compute_params,
                                 decode_state_specs, params_specs,
                                 prefill_batch_specs, train_batch_specs)
@@ -86,7 +107,9 @@ HBM_BYTES = 85_017_493_504
 HBM_RESERVE = 4 * 2 ** 30
 HBM_LIMIT = HBM_BYTES - HBM_RESERVE
 COLLECTIVE_REASON = (
-    "0: the port's data-parallel fleet runs no collective; its logical "
+    "0 (a --chips cell; a --mesh cell counts the tensor-parallel "
+    "runtime's collectives): the port's data-parallel fleet runs no "
+    "collective; its logical "
     "devices run one after another and sum their shard grads into one "
     "accumulator (train/runner.py FleetTrainRunner), and launch/"
     "distributed.py exchanges only plans and completions, not tensors")
@@ -94,8 +117,20 @@ HW_ROUTE_TRAIN = ("none: the HW route is forward-only (the kernels have "
                   "no backward), so training runs SW")
 
 
+SHARDED_REASON = (
+    "the tensor-parallel runtime's collectives, counted on one rank: "
+    "per axis, ring link bytes over NVLink within an 8-GPU node, else "
+    "over the network")
+META = torch.device("meta")
+
+
 class SkipCell(Exception):
-    pass
+    """A cell that does not run; ``extra`` joins its record (a sharded
+    skip's spec-derived bytes)."""
+
+    def __init__(self, reason, extra=None):
+        super().__init__(reason)
+        self.extra = extra or {}
 
 
 def _count(tree) -> int:
@@ -136,38 +171,75 @@ def model_flops(cfg, shape: ShapeSpec, params) -> float:
 
 
 def roofline_terms(flops: float, hbm_bytes: float, score_bytes: float,
-                   n_chips: int, mfl: float, kind: str) -> Dict[str, Any]:
+                   n_chips: int, mfl: float, kind: str,
+                   collectives: Optional[Mapping[str, Any]] = None
+                   ) -> Dict[str, Any]:
     """Per-device seconds of compute, memory and collectives, the
-    dominant term, and the HW-route projection (train: none)."""
+    dominant term, and the HW-route projection (train: none).
+    ``collectives`` (a sharded cell's) prices its link bytes by axis."""
+    coll_s = collective_seconds(collectives) if collectives else 0.0
+
     def terms(mem_bytes):
         t = {"compute_s": flops / PEAK_FLOPS_BF16,
-             "memory_s": mem_bytes / HBM_BW, "collective_s": 0.0}
+             "memory_s": mem_bytes / HBM_BW, "collective_s": coll_s}
         bound = max(t.values())
         return {**t, "dominant": max(t, key=t.get),
                 "roofline_fraction": (mfl / n_chips / PEAK_FLOPS_BF16) / bound
                 if bound > 0 else 0.0}
     sw = terms(hbm_bytes)
     sw["useful_flops_ratio"] = (mfl / n_chips) / max(flops, 1.0)
-    sw["collective_reason"] = COLLECTIVE_REASON
+    sw["collective_reason"] = (SHARDED_REASON if collectives
+                               else COLLECTIVE_REASON)
     sw["score_bytes_per_dev"] = score_bytes
     sw["hw_route"] = (HW_ROUTE_TRAIN if kind == "train" else
                       terms(max(hbm_bytes - score_bytes, 0.0)))
     return sw
 
 
+def collective_seconds(coll: Mapping[str, Any]) -> float:
+    """Seconds of a sharded cell's collectives: each axis's ring link
+    bytes at NVLink's rate within a node, else the network's."""
+    return sum(b / (NVLINK_BW if coll["within_node"][ax] else NET_BW)
+               for ax, b in coll["link_bytes_by_axis"].items())
+
+
 def _rows(shape: ShapeSpec, chips: int) -> int:
     return max(1, shape.global_batch // chips)
 
 
-def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k):
-    """k microbatches of rows / k; returns the step's OpStats."""
+def mesh_for(name: str):
+    """"single", "multi" or "DxM" -> the mesh on meta devices."""
+    if name in ("single", "multi"):
+        return make_production_mesh(multi_pod=name == "multi",
+                                    devices=[META] * 512)
+    shape = tuple(int(v) for v in name.lower().split("x"))
+    if len(shape) != 2:
+        raise ValueError(f"--mesh {name!r}: single, multi or DxM")
+    return make_mesh(shape, ("data", "model"),
+                     devices=[META] * (shape[0] * shape[1]))
+
+
+def _within_node(mesh, axis) -> bool:
+    return len({r // GPUS_PER_NODE
+                for r in spmd.devices_spanned(mesh, axis)}) == 1
+
+
+def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k, *,
+                sync_each: bool = True):
+    """k microbatches of rows / k; returns the step's OpStats.  Under
+    ``spmd`` each microbatch's grads are summed over the batch axes
+    (``sync_each``, the reference's baseline) or the accumulated grads
+    once (its ``grad_unreduced``)."""
     ocfg = optim.AdamWConfig()
     mb = train_batch_specs(cfg, rows // k, S)
+    log = spmd.collective_log()
 
     def grads_of():
         with oa.counting() as st:
             oa.read_once(params)
             _, grads = value_and_grad(model.forward, params, mb)
+            if sync_each:
+                spmd.sync_grads(grads)
         return st, grads
 
     st1, grads = grads_of()
@@ -179,10 +251,13 @@ def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k):
             torch._foreach_add_(tree_leaves(acc), tree_leaves(grads))
         total = total.scaled_add(st)
         del grads
+        before = log.copy() if log is not None else None
         st2, grads = grads_of()
         with oa.counting() as st:
             torch._foreach_add_(tree_leaves(acc), tree_leaves(grads))
         del grads
+        if log is not None:
+            log.repeat_since(before, k - 2)
         total = total.scaled_add(st2.scaled_add(st), k - 1)
         with oa.counting() as st:
             torch._foreach_div_(tree_leaves(acc), float(k))
@@ -190,17 +265,73 @@ def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k):
         grads = acc
         del acc
     with oa.counting() as st:
+        if not sync_each:
+            spmd.sync_grads(grads)
         optim.update(ocfg, grads, opt, params)
     return total.scaled_add(st)
 
 
+def _local(tree, specs, mesh):
+    """Meta tensors at each leaf's local shape under ``specs``."""
+    flat = partition.flatten(specs)
+    return partition.map_with_path(tree, lambda path, t: torch.empty(
+        partition.local_shape(t.shape, flat[path], mesh), dtype=t.dtype,
+        device=META))
+
+
+def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, axes):
+    """The rank's params (and optimiser state) or serving params and
+    cache, as meta shards of the specs; raises ``SkipCell`` with their
+    bytes where the runtime does not shard the cell yet."""
+    p_full = params_specs(model)
+    params = _local(p_full, partition.params_pspecs(p_full, mesh, axes),
+                    mesh)
+    B, S = shape.global_batch, shape.seq_len
+    opt = cache = None
+    if shape.kind == "train":
+        opt = optim.init(params)
+    else:
+        params = compute_params(params, model.compute_dtype)
+        full = (prefill_batch_specs(cfg, model, B, S)["cache"]
+                if shape.kind == "prefill"
+                else decode_state_specs(cfg, model, B, S)[0])
+        cspecs = partition.tree_pspecs(full, mesh, partition.
+                                       make_cache_pspec_fn(
+                                           B, mesh, attn_axis=axes["attn"]))
+        cache = _local(full, cspecs, mesh)
+    spec_bytes = {"params": _nbytes(params),
+                  "opt_state": _nbytes(opt) if opt is not None else 0,
+                  "cache": _nbytes(cache) if cache is not None else 0}
+    why = None
+    if cfg.family not in ("dense", "moe", "vlm"):
+        why = spmd.unsharded_reason(cfg)
+    elif cache is not None:
+        with spmd.spmd(mesh, partition.rules_for(cfg, mesh), axes):
+            try:
+                spmd.cache_specs(model, B, S)
+            except NotImplementedError as e:
+                why = str(e)
+    if why is not None:
+        raise SkipCell(why, {"bytes": spec_bytes, "spec_bytes": spec_bytes})
+    return params, opt, cache, spec_bytes
+
+
 def analyze_cell(cfg, shape: ShapeSpec, chips: int = 1,
-                 microbatch: Optional[int] = None) -> Dict[str, Any]:
+                 microbatch: Optional[int] = None, *, mesh=None,
+                 rules: Optional[Mapping[str, Any]] = None,
+                 axes: Optional[Mapping[str, Any]] = None,
+                 grad_unreduced: bool = False) -> Dict[str, Any]:
     """One cell's record (no cache, no status): the step of
-    ``shape.kind`` at ``max(1, B // chips)`` rows on meta."""
+    ``shape.kind`` at ``max(1, B // chips)`` rows on meta, or with
+    ``mesh`` one rank's local step under the tensor-parallel runtime
+    (``rules``/``axes``: a variant's, else ``rules_for`` and
+    ``DEFAULT_AXES``)."""
     ok, why = applicable(cfg, shape)
     if not ok:
         raise SkipCell(why)
+    if mesh is not None:
+        return _analyze_sharded(cfg, shape, mesh, microbatch, rules, axes,
+                                grad_unreduced)
     model = build_model(cfg)
     rows, S = _rows(shape, chips), shape.seq_len
     p_meta = params_specs(model)
@@ -258,6 +389,89 @@ def analyze_cell(cfg, shape: ShapeSpec, chips: int = 1,
     return rec
 
 
+def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
+                     grad_unreduced) -> Dict[str, Any]:
+    sizes = mesh_sizes(mesh)
+    n_chips = int(np.prod(list(sizes.values())))
+    dp = int(np.prod([sizes[a] for a in ("pod", "data") if a in sizes]))
+    B, S = shape.global_batch, shape.seq_len
+    rows = B // dp if B % dp == 0 else B      # batch_pspec's rule
+    rules = dict(rules if rules is not None
+                 else partition.rules_for(cfg, mesh))
+    axes = dict(axes or partition.DEFAULT_AXES)
+    model = build_model(cfg)
+    p_meta = params_specs(model)
+    rec: Dict[str, Any] = {
+        "kind": shape.kind, "seq_len": S, "global_batch": B,
+        "chips": n_chips, "mesh_shape": sizes, "rows_per_device": rows,
+        "fleet": "tensor-parallel: one rank's shards and local step under "
+                 "launch/spmd.py",
+        "rules": {k: (list(v) if isinstance(v, tuple) else v)
+                  for k, v in rules.items()},
+        "axes": {k: (list(v) if isinstance(v, tuple) else v)
+                 for k, v in axes.items()},
+        "device": DEVICE, "power_limit_w": POWER_LIMIT_W,
+        "params": _count(p_meta),
+        "active_params": _active_params(cfg, p_meta),
+        "model_flops": model_flops(cfg, shape, p_meta),
+        "microbatch": None}
+    try:
+        params, opt, cache, spec_bytes = _sharded_inputs(cfg, model, shape,
+                                                         mesh, axes)
+    except SkipCell as e:
+        e.extra = {**rec, **e.extra}
+        raise
+    coords = {a: 0 for a in sizes}
+    # a variant's microbatch count past the rank's rows takes one row each
+    k = min(microbatch or max(1, rows // 4), rows)
+    while True:
+        comm = spmd.CountingComm(mesh)
+        with spmd.spmd(mesh, rules, axes, coords, comm,
+                       dims=spmd.logical_sizes(cfg)):
+            if shape.kind == "prefill":
+                batch = dict(prefill_batch_specs(cfg, model, rows, S))
+                batch["cache"] = cache
+                inputs = (params, batch)
+            elif shape.kind == "decode":
+                tok = torch.empty((rows, 1), dtype=torch.int32, device=META)
+                inputs = (params, cache, tok)
+            else:
+                inputs = (params, opt)
+            with OpAnalysis() as oa:
+                oa.hold(inputs)
+                if shape.kind == "train":
+                    st = _train_step(oa, model, params, opt, cfg, rows, S, k,
+                                     sync_each=not grad_unreduced)
+                else:
+                    with oa.counting() as st:
+                        oa.read_once(params)
+                        if shape.kind == "prefill":
+                            model.prefill(params, batch)
+                        else:
+                            model.decode_step(params, cache, tok, S - 1)
+        peak = oa.peak_bytes
+        if (shape.kind != "train" or peak <= HBM_LIMIT or k >= rows
+                or microbatch):
+            break
+        k = min(rows, 2 * k)
+    if shape.kind == "train":
+        rec["microbatch"] = k
+    rec["bytes"] = {**spec_bytes, "peak": peak}
+    rec["spec_bytes"] = spec_bytes
+    log = comm.log
+    rec["collectives"] = {
+        "bytes_by_kind": log.by_kind("bytes"),
+        "link_bytes_by_kind": log.by_kind("link_bytes"),
+        "link_bytes_by_axis": log.by_axis("link_bytes"),
+        "n_by_kind": {kd: n for kd, n in log.by_kind("n").items()},
+        "within_node": {ax: _within_node(mesh, tuple(ax.split("+"))
+                                         if "+" in ax else ax)
+                        for ax in log.by_axis()},
+        "entries": log.snapshot()}
+    rec.update(_derived(rec, st))
+    return rec
+
+
 def _derived(rec: Mapping[str, Any], st: OpStats) -> Dict[str, Any]:
     return {
         "flops_per_dev": st.flops,
@@ -269,20 +483,34 @@ def _derived(rec: Mapping[str, Any], st: OpStats) -> Dict[str, Any]:
         "fits": rec["bytes"]["peak"] <= HBM_LIMIT,
         "roofline": roofline_terms(st.flops, st.bytes_hbm, st.score_bytes,
                                    rec["chips"], rec["model_flops"],
-                                   rec["kind"])}
+                                   rec["kind"], rec.get("collectives"))}
 
 
-def cell_path(out_dir: str, arch: str, shape_name: str, chips: int) -> str:
-    return os.path.join(out_dir, f"{arch}__{shape_name}__{chips}chip.json")
+def cell_path(out_dir: str, arch: str, shape_name: str, chips: int,
+              mesh: Optional[str] = None, tag: str = "") -> str:
+    name = (f"{arch}__{shape_name}__{mesh}{tag}" if mesh
+            else f"{arch}__{shape_name}__{chips}chip{tag}")
+    return os.path.join(out_dir, name + ".json")
 
 
 def run_cell(arch: str, shape_name: str, chips: int = 1,
              out_dir: str = ART_DIR, force: bool = False,
-             shapes: Mapping[str, ShapeSpec] = SHAPES) -> Dict[str, Any]:
+             shapes: Mapping[str, ShapeSpec] = SHAPES, *,
+             mesh: Optional[str] = None, mesh_obj=None,
+             rules: Optional[Mapping[str, Any]] = None,
+             axes: Optional[Mapping[str, Any]] = None,
+             overrides: Optional[Mapping[str, Any]] = None,
+             microbatch: Optional[int] = None,
+             grad_unreduced: bool = False,
+             tag: str = "") -> Dict[str, Any]:
     """The cell's record, from the cache unless ``force`` (a failed cell
-    runs again); ``arch`` may be a ``-smoke`` name."""
+    runs again); ``arch`` may be a ``-smoke`` name.  ``mesh`` ("single",
+    "multi", "DxM") runs it sharded (``mesh_obj`` a variant's mesh in its
+    place, named by ``mesh``); ``rules``, ``axes``, ``overrides`` (config
+    fields), ``microbatch`` and ``grad_unreduced`` are a hillclimb
+    variant's, ``tag`` names its records."""
     os.makedirs(out_dir, exist_ok=True)
-    path = cell_path(out_dir, arch, shape_name, chips)
+    path = cell_path(out_dir, arch, shape_name, chips, mesh, tag)
     if os.path.exists(path) and not force:
         with open(path) as f:
             cached = json.load(f)
@@ -291,11 +519,20 @@ def run_cell(arch: str, shape_name: str, chips: int = 1,
     t0 = time.time()
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                            "chips": chips}
+    if mesh:
+        rec["mesh"] = mesh
     try:
-        rec.update(analyze_cell(get_config(arch), shapes[shape_name], chips))
+        cfg = get_config(arch)
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        m = mesh_obj if mesh_obj is not None else (
+            mesh_for(mesh) if mesh else None)
+        rec.update(analyze_cell(cfg, shapes[shape_name], chips,
+                                microbatch, mesh=m, rules=rules, axes=axes,
+                                grad_unreduced=grad_unreduced))
         rec["status"] = "ok"
     except SkipCell as e:
-        rec.update({"status": "skip", "reason": str(e)})
+        rec.update({**e.extra, "status": "skip", "reason": str(e)})
     except Exception as e:  # noqa: BLE001 — record the failure, keep going
         rec.update({"status": "fail", "error": f"{type(e).__name__}: {e}",
                     "trace": traceback.format_exc()[-4000:]})
@@ -311,6 +548,9 @@ def main(argv=None):
     ap.add_argument("--arch", default=None, choices=list(ARCH_NAMES))
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--chips", default="both", choices=["1", "4", "both"])
+    ap.add_argument("--mesh", default=None,
+                    help="single | multi | DxM (e.g. 1x4): run each cell "
+                         "sharded on that mesh instead of --chips")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=ART_DIR)
@@ -318,17 +558,22 @@ def main(argv=None):
     archs = ARCH_NAMES if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     chips = [1, 4] if args.chips == "both" else [int(args.chips)]
+    if args.mesh:
+        mesh_for(args.mesh)                  # a bad name fails here
+        chips = [None]
     cells = [(a, s, c) for a in archs for s in shapes for c in chips]
     t0 = time.time()
     n = {"ok": 0, "skip": 0, "fail": 0}
     for i, (arch, shape, c) in enumerate(cells):
-        rec = run_cell(arch, shape, c, out_dir=args.out, force=args.force)
+        rec = run_cell(arch, shape, c or 1, out_dir=args.out,
+                       force=args.force, mesh=args.mesh)
         n[rec["status"]] += 1
         log.info("cell", i=f"{i + 1}/{len(cells)}", arch=arch, shape=shape,
-                 chips=c, status=rec["status"], wall_s=rec["wall_s"],
+                 chips=rec["chips"], mesh=args.mesh or "-",
+                 status=rec["status"], wall_s=rec["wall_s"],
                  fits=rec.get("fits", "-"),
                  peak_gib=(round(rec["bytes"]["peak"] / 2 ** 30, 2)
-                           if "bytes" in rec else "-"),
+                           if "peak" in rec.get("bytes", {}) else "-"),
                  microbatch=rec.get("microbatch") or "-",
                  dom=rec.get("roofline", {}).get("dominant", "-"))
         if rec["status"] == "fail":

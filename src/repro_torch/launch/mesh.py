@@ -1,5 +1,5 @@
-"""Device meshes and the fleet-health device view (the port's
-``launch/mesh.py``).
+"""Device meshes, the production mesh shapes, the H100 link rates and
+the fleet-health device view (the port's ``launch/mesh.py``).
 
 ``FleetMeshView`` is the fleet layer's device view: a ``FleetPlan``'s
 explicit health mask (serving / quarantined / idle-spare) applied to a
@@ -8,12 +8,11 @@ that are taking traffic, and ``submesh`` only ever builds meshes over
 serving hardware.
 
 ``Mesh`` is the counterpart of the reference's ``jax.sharding.Mesh``: a
-frozen ``(shape, axes, devices)`` grid.  A ``torch.distributed``
-``DeviceMesh`` needs one rank per device, but the port's fleet drives
-several logical devices from one process and runs no SPMD program, so
-the mesh is plain bookkeeping over ``torch.device``s.  The reference's
-``make_production_mesh`` (the TPU pod shapes) belongs with the XLA-only
-tooling (ROADMAP queue 1 item 14).
+frozen ``(shape, axes, devices)`` grid.  The tensor-parallel runtime
+(``launch/spmd.py``) runs one rank per mesh position, each rank holding
+its coordinates and one communicator per axis; several ranks may share a
+device (gloo), and the dry run builds meshes over ``torch.device("meta")``.
+``make_production_mesh`` gives the reference's pod shapes.
 """
 from __future__ import annotations
 
@@ -39,6 +38,11 @@ class Mesh:
     axes: Tuple[str, ...]
     devices: Tuple[torch.device, ...]
 
+    @property
+    def axis_sizes(self):
+        """``{axis: size}``, the reference's ``mesh.shape``."""
+        return dict(zip(self.axes, self.shape))
+
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"mesh shape {self.shape} has {len(self.shape)} "
@@ -58,6 +62,18 @@ def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
             f"mesh {shape} needs {n} devices, have {len(devices)}: short "
             f"{n - len(devices)} device(s)")
     return Mesh(tuple(shape), tuple(axes), tuple(devices[:n]))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[torch.device]] = None
+                         ) -> Mesh:
+    """The reference's production meshes: (16, 16) ("data", "model"), or
+    (2, 16, 16) ("pod", "data", "model") multi-pod.  ``devices`` defaults
+    to every CUDA device of this process (the error names the shortfall);
+    the dry run passes ``torch.device("meta")`` devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, devices)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
@@ -129,3 +145,13 @@ class FleetMeshView:
                     f"quarantine {n % model} more)")
             return _mesh((n // model, model), tuple(axes), devices=devs)
         return _mesh((n,), tuple(axes), devices=devs)
+
+
+# Link rates for the dry run's collective term (datasheet figures, not
+# measured).  NVLink 4 within an 8-GPU HGX H100 node: 900 GB/s total per
+# GPU, 450 GB/s each way (NVIDIA H100 datasheet).  Beyond the node: one
+# 400 Gb/s ConnectX-7 NDR InfiniBand port per GPU, 50 GB/s each way (the
+# DGX H100 user guide's compute fabric).
+NVLINK_BW = 450e9             # bytes/s each way per GPU, within a node
+NET_BW = 50e9                 # bytes/s each way per GPU, between nodes
+GPUS_PER_NODE = 8

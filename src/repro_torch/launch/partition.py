@@ -1,0 +1,323 @@
+"""Parameter / cache / batch PartitionSpecs for a device mesh (the port's
+``launch/partition.py``), and the cut of a full tree into one rank's
+shards.
+
+Plain Python over shapes and a mesh's ``{axis: size}`` (a port ``Mesh``,
+a mapping, or any object with a ``shape`` mapping).  Name-driven rules
+(we control every param name):
+  * column-sharded projections (last dim over "model"): wq wk wv wg wr w1 w3
+    cwk cwr in_proj router w_lora_a and lm_head.w
+  * row-sharded projections (dim -2 over "model"): wo w2 cwv out_proj and
+    the embedding table (vocab dim)
+  * per-head vectors (dim -1): bq bk bv A_log D dt_bias conv ...;
+    ln/norm/mix replicated
+Indivisible dims fall back to replication (a hillclimb target).
+
+Batch inputs shard over ("pod","data"); decode caches shard batch over
+("pod","data") and kv-heads over "model" when divisible (else the
+sequence dim).
+
+``tree_pspecs`` walks nested dicts with the path keys of
+``jax.tree_util`` (sorted dict keys joined by "/"); ``shard_tree`` cuts a
+full tree to one rank's local shards and ``unshard_tree`` puts shards
+back together.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Mapping, Sequence
+
+from repro_torch.launch.sharding import (DEFAULT_RULES, PartitionSpec as P,
+                                         axis_size, mesh_sizes)
+
+COL = {"wq", "wk", "wv", "wg", "wr", "w1", "w3", "cwk", "cwr", "in_proj",
+       "router", "w_lora_a"}
+ROW = {"wo", "w2", "cwv", "out_proj", "table"}
+VEC = {"bq", "bk", "bv", "conv_b", "A_log", "D", "dt_bias", "conv_w",
+       "w_lora_b"}
+HEAD2 = {"u"}
+LM_HEAD = {"w"}
+
+
+def _div(n: int, m: int) -> bool:
+    return m > 0 and n % m == 0
+
+
+def _model_size(mesh) -> int:
+    return mesh_sizes(mesh).get("model", 1)
+
+
+def _axis_size(mesh, axis) -> int:
+    return axis_size(mesh_sizes(mesh), axis)
+
+
+# Axis assignment per parameter family; variants (launch/variants.py)
+# override these (e.g. 2D attention sharding, expert parallelism).
+DEFAULT_AXES = {"attn": "model", "ffn": "model", "vocab": "model",
+                "expert": None, "ssm": "model"}
+
+
+def _batch_axes(mesh):
+    sizes = mesh_sizes(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    return axes if axes else None
+
+
+ATTN_NAMES = {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "wg", "wr"}
+
+
+def param_pspec(path: str, shape, mesh, axes=None) -> P:
+    axes = axes or DEFAULT_AXES
+    name = path.split("/")[-1]
+    is_moe = "moe" in path and name in ("w1", "w2", "w3")
+    if name in ATTN_NAMES:
+        ax = axes["attn"]
+    elif name in LM_HEAD or name == "table":
+        ax = axes["vocab"]
+    elif name in ("in_proj", "out_proj", "conv_w", "conv_b", "A_log", "D",
+                  "dt_bias"):
+        ax = axes["ssm"]
+    else:
+        ax = axes["ffn"]
+    m = _axis_size(mesh, ax)
+    nd = len(shape)
+    spec = [None] * nd
+    if is_moe and axes.get("expert") and nd >= 3 and \
+            _div(shape[-3], _axis_size(mesh, axes["expert"])):
+        spec[-3] = axes["expert"]
+    if name in COL and nd >= 2:
+        if _div(shape[-1], m):
+            spec[-1] = ax
+    elif name in ROW and nd >= 2:
+        if _div(shape[-2], m):
+            spec[-2] = ax
+    elif name in LM_HEAD and nd >= 2 and "lm_head" in path:
+        if _div(shape[-1], m):
+            spec[-1] = ax
+    elif name in VEC or name in HEAD2:
+        if nd >= 1 and _div(shape[-1], m) and shape[-1] >= m:
+            if name in HEAD2 and nd >= 2:
+                if _div(shape[-2], m):
+                    spec[-2] = ax
+            else:
+                spec[-1] = ax
+    return P(*spec)
+
+
+def map_with_path(tree, fn, prefix=()):
+    """``fn(path, leaf)`` over a nested dict (tuples and lists by index),
+    keys in sorted order as ``jax.tree_util`` flattens a dict; the result
+    has ``tree``'s structure."""
+    if isinstance(tree, Mapping):
+        return {k: map_with_path(tree[k], fn, prefix + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        out = [map_with_path(v, fn, prefix + (str(i),))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
+    return fn("/".join(prefix), tree)
+
+
+def flatten(tree) -> Dict[str, Any]:
+    """``{path: leaf}`` with ``tree_pspecs``'s paths."""
+    out: Dict[str, Any] = {}
+    map_with_path(tree, lambda path, leaf: out.__setitem__(path, leaf))
+    return out
+
+
+def tree_pspecs(tree, mesh, fn: Callable) -> Any:
+    """``fn(path, shape, mesh)`` at every leaf of ``tree``."""
+    return map_with_path(tree, lambda path, leaf: fn(
+        path, tuple(leaf.shape), mesh))
+
+
+def params_pspecs(params, mesh, axes=None):
+    return tree_pspecs(params, mesh,
+                       lambda p, s, m: param_pspec(p, s, m, axes))
+
+
+def params_shardings(params, mesh, axes=None):
+    """Per leaf ``(mesh, spec)``, the port's ``NamedSharding``."""
+    return map_with_path(params_pspecs(params, mesh, axes),
+                         lambda _, s: (mesh, s))
+
+
+def opt_pspecs(opt_state, params_specs):
+    """AdamW moments mirror params; count replicated."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(count=P(), mu=params_specs, nu=params_specs)
+
+
+# ------------------------------------------------------------- activations
+def batch_pspec(path: str, shape, mesh) -> P:
+    sizes = mesh_sizes(mesh)
+    b_axes = _batch_axes(mesh)
+    total = math.prod(sizes[a] for a in (b_axes or ())) or 1
+    nd = len(shape)
+    spec = [None] * nd
+    if nd >= 1 and b_axes and _div(shape[0], total):
+        spec[0] = b_axes
+    return P(*spec)
+
+
+def cache_pspec(path: str, shape, mesh) -> P:
+    """Decode cache leaves: replaced by ``make_cache_pspec_fn``, which
+    knows the serving batch."""
+    raise NotImplementedError  # replaced by make_cache_pspec_fn
+
+
+def make_cache_pspec_fn(batch: int, mesh, attn_axis="model"):
+    sizes = mesh_sizes(mesh)
+    b_axes = _batch_axes(mesh)
+    total = math.prod(sizes[a] for a in (b_axes or ())) or 1
+    m = axis_size(sizes, attn_axis)
+
+    def fn(path: str, shape, _mesh) -> P:
+        nd = len(shape)
+        spec = [None] * nd
+        # find the batch dim (first dim equal to the serving batch)
+        b_dim = None
+        for i, s in enumerate(shape[:3]):
+            if s == batch:
+                b_dim = i
+                break
+        if b_dim is not None and b_axes and _div(batch, total):
+            spec[b_dim] = b_axes
+        name = path.split("/")[-1]
+        if name in ("k", "v") and nd >= 2 and b_dim is not None:
+            # (..., B, S, Hkv, D): kv-heads over model if divisible, else
+            # the sequence dim (a partial-softmax combine across ranks)
+            if _div(shape[-2], m):
+                spec[-2] = attn_axis
+            elif _div(shape[-3], m):
+                spec[-3] = attn_axis
+        elif name == "pos" and nd >= 2 and b_dim is not None:
+            if _div(shape[-1], m):
+                spec[-1] = attn_axis
+        elif name == "ssm" and nd >= 3:
+            # (L, B, H, N, P): ssm heads over model
+            if _div(shape[-3], m):
+                spec[-3] = attn_axis
+        elif name == "wkv" and nd >= 3:
+            if _div(shape[-3], m):
+                spec[-3] = attn_axis
+        elif name == "conv" and nd >= 1 and _div(shape[-1], m):
+            spec[-1] = attn_axis
+        elif name in ("shift_tm", "shift_cm") and _div(shape[-1], m):
+            spec[-1] = attn_axis
+        return P(*spec)
+
+    return fn
+
+
+def rules_for(cfg, mesh) -> Dict[str, Any]:
+    """Per-arch logical-axis rules: drop indivisible shardings (recorded as
+    replication; a hillclimb target)."""
+    rules = dict(DEFAULT_RULES)
+    m = _model_size(mesh)
+    if cfg.num_heads % m:
+        rules["heads"] = None
+    if cfg.num_kv_heads % m:
+        rules["kv_heads"] = None
+    if cfg.d_ff % m:
+        rules["mlp"] = None
+    if cfg.vocab_size % m:
+        rules["vocab"] = None
+    if cfg.ssm is not None:
+        d_inner = cfg.ssm.expand * cfg.d_model
+        if d_inner % m:
+            rules["ssm_inner"] = None
+        nheads = (d_inner // cfg.ssm.head_dim if cfg.family == "hybrid"
+                  else cfg.d_model // max(cfg.ssm.rwkv_head_dim, 1))
+        if nheads % m:
+            rules["ssm_heads"] = None
+    return rules
+
+
+# ---------------------------------------------------------------- shards
+def axis_index(sizes: Mapping[str, int], coords: Mapping[str, int],
+               axis) -> int:
+    """This rank's index along ``axis`` (a name or a tuple of names, their
+    product row-major; 0 for None)."""
+    if axis is None:
+        return 0
+    names = axis if isinstance(axis, tuple) else (axis,)
+    idx = 0
+    for a in names:
+        idx = idx * sizes.get(a, 1) + coords.get(a, 0)
+    return idx
+
+
+def local_shape(shape: Sequence[int], spec: P, mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` leaf under ``spec``."""
+    sizes = mesh_sizes(mesh)
+    out = list(shape)
+    for d, ax in enumerate(spec):
+        m = axis_size(sizes, ax)
+        if out[d] % m:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"over {ax!r} ({m} ranks)")
+        out[d] //= m
+    return tuple(out)
+
+
+def shard_leaf(t, spec: P, mesh, coords: Mapping[str, int]):
+    """Rank ``coords``' shard of ``t`` under ``spec`` (views: a slice per
+    sharded dim)."""
+    sizes = mesh_sizes(mesh)
+    for d, ax in enumerate(spec):
+        m = axis_size(sizes, ax)
+        if m == 1:
+            continue
+        n = t.shape[d] // m
+        t = t.narrow(d, axis_index(sizes, coords, ax) * n, n)
+    return t
+
+
+def shard_tree(tree, specs, mesh, coords: Mapping[str, int]):
+    """Cut a full tree to the local shards of the rank at mesh
+    ``coords`` ({axis: index}); ``specs`` has ``tree``'s structure."""
+    flat = flatten(specs)
+    return map_with_path(tree, lambda path, t: shard_leaf(
+        t, flat[path], mesh, coords))
+
+
+def mesh_coords(mesh) -> list:
+    """Every rank's ``{axis: index}``, row-major over the mesh."""
+    sizes = mesh_sizes(mesh)
+    names = list(sizes)
+    out = [{}]
+    for a in names:
+        out = [{**c, a: i} for c in out for i in range(sizes[a])]
+    return out
+
+
+def unshard_tree(shards: Sequence, specs, mesh):
+    """The full tree from every rank's shards (``shards`` in
+    ``mesh_coords`` order): the inverse of ``shard_tree``; a replicated
+    dim takes the first rank's copy."""
+    import torch
+    sizes = mesh_sizes(mesh)
+    coords = mesh_coords(mesh)
+    flat_specs = flatten(specs)
+    flats = [flatten(sh) for sh in shards]
+
+    def join(path, _):
+        spec = flat_specs[path]
+        sharded = [(d, ax) for d, ax in enumerate(spec)
+                   if axis_size(sizes, ax) > 1]
+        # one rank per distinct block: the block index along each sharded
+        # dim, the first rank that holds it
+        blocks: Dict[tuple, Any] = {}
+        for c, f in zip(coords, flats):
+            key = tuple(axis_index(sizes, c, ax) for _, ax in sharded)
+            blocks.setdefault(key, f[path])
+        def build(level, prefix):
+            if level == len(sharded):
+                return blocks[prefix]
+            d, ax = sharded[level]
+            return torch.cat([build(level + 1, prefix + (i,))
+                              for i in range(axis_size(sizes, ax))], dim=d)
+        return build(0, ())
+    return map_with_path(shards[0], join)

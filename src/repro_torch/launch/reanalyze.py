@@ -5,8 +5,10 @@ The port's counterpart of the reference's ``launch/reanalyze.py``.  There
 is no program text to re-parse: a record keeps what ``launch/dryrun.py``
 counted (FLOPs, traffic and score bytes per device, the peak of live
 bytes), so when a constant of the card changes (its rates, the memory
-limit or reserve, the power cap it is run at) the derived fields are
-recomputed from those.  The microbatch count is not searched again: a
+limit or reserve, the power cap it is run at, the link rates that price a
+sharded cell's collectives) the derived fields are recomputed from
+those; sharded records (``<arch>__<shape>__<mesh>.json``) keep their
+collective link bytes by axis for this.  The microbatch count is not searched again: a
 train cell's ``fits`` is its recorded peak against the new limit.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.reanalyze [--out DIR]
@@ -40,7 +42,7 @@ def reanalyze(rec: Dict[str, Any]) -> Dict[str, Any]:
             "roofline": dryrun.roofline_terms(
                 rec["flops_per_dev"], tr["hbm_bytes_per_dev"],
                 tr["score_bytes_per_dev"], rec["chips"],
-                rec["model_flops"], rec["kind"])}
+                rec["model_flops"], rec["kind"], rec.get("collectives"))}
 
 
 def reanalyze_one(json_path: str) -> bool:

@@ -1,0 +1,619 @@
+"""The tensor-parallel runtime: what XLA's SPMD partitioner does for the
+reference, carried out by hand on each rank.
+
+``spmd(mesh, rules, axes, coords, comm)`` puts one rank's place in a
+device mesh in force: its coordinates, one communicator over every
+subset of mesh axes, the logical-axis rules (``sharding.axis_rules``)
+and the param-axis assignment (``partition.DEFAULT_AXES`` or a
+variant's).  The models then run on the rank's shards
+(``partition.shard_tree``) and call four collectives, each a
+``torch.autograd.Function`` whose backward is its conjugate, so a
+sharded training step's gradients are the unsharded step's:
+
+  * ``reduce_over(x, axis)``: all-reduce of a partial sum (run in f32,
+    cast back); backward the identity.  Where a row-sharded product ends
+    (``wo``, the MLP's ``w2``, a vocab-sharded embedding lookup).
+  * ``replicate_over(x, axis)``: the identity; backward all-reduces the
+    gradient.  Where a replicated tensor enters a computation sharded
+    over ``axis`` (the input of column-sharded products, replicated K/V
+    read by sharded heads, a replicated scale applied to sharded heads).
+  * ``gather_over(x, axis, dim)``: all-gather along ``dim``; backward
+    keeps the rank's slice (column-sharded logits before sampling).
+  * ``scatter_over(x, axis, dim)``: keeps the rank's slice; backward
+    all-gathers.
+
+A tensor is thus replicated (the same on every rank of an axis, its
+gradient the same too), sharded (a slice), or partial (a sum still owed).
+Outside ``spmd(...)``, or over an axis of one rank, each is the identity:
+it returns its input itself, touches no tensor and adds no op, so every
+path outside runs the ops it ran before.
+
+Communicators:
+  * ``GroupComm``: ``torch.distributed`` process groups over the ranks
+    ``launch.distributed.initialize_runtime`` opened, one group per subset
+    of mesh axes.  gloo (CPU, or ranks sharing one card, which NCCL
+    refuses) carries copies on the host; NCCL the device tensors.
+  * ``CountingComm``: the dry run's stub on the meta device; it returns
+    the right shape and moves nothing.
+Both record each collective's kind, axis, dtype and bytes
+(``CollectiveLog``): the payload, and the per-device link bytes of a ring
+(all-reduce 2(m-1)/m of the payload, all-gather (m-1)/m of its output),
+as the reference's ``hlo_analysis`` counts them.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.launch import partition
+from repro_torch.launch.sharding import (Axis, axis_rules, axis_size,
+                                         mesh_sizes, resolve)
+
+_state = threading.local()
+
+
+# ------------------------------------------------------------ accounting
+@dataclass
+class CollectiveLog:
+    """Per (kind, axis, dtype): calls, payload bytes and ring link bytes
+    per device."""
+    entries: Dict[Tuple[str, str, str], Dict[str, float]] = field(
+        default_factory=dict)
+
+    def add(self, kind: str, axis: Axis, dtype: torch.dtype, payload: int,
+            m: int):
+        link = (2.0 * payload * (m - 1) / m if kind == "all-reduce"
+                else payload * (m - 1) / m)
+        key = (kind, axis_name(axis), str(dtype).replace("torch.", ""))
+        e = self.entries.setdefault(key, {"n": 0, "bytes": 0.0,
+                                          "link_bytes": 0.0})
+        e["n"] += 1
+        e["bytes"] += payload
+        e["link_bytes"] += link
+
+    def by_kind(self, what: str = "link_bytes") -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for (kind, _, _), e in self.entries.items():
+            out[kind] = out.get(kind, 0.0) + e[what]
+        return out
+
+    def by_axis(self, what: str = "link_bytes") -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for (_, ax, _), e in self.entries.items():
+            out[ax] = out.get(ax, 0.0) + e[what]
+        return out
+
+    def copy(self) -> Dict[Tuple[str, str, str], Dict[str, float]]:
+        return {k: dict(v) for k, v in self.entries.items()}
+
+    def repeat_since(self, before, times: float):
+        """Add ``times`` more of what was logged since ``before`` (a
+        ``copy()``): the dry run runs one microbatch for several."""
+        for key, e in self.copy().items():
+            b = before.get(key, {"n": 0, "bytes": 0.0, "link_bytes": 0.0})
+            cur = self.entries[key]
+            for f in ("n", "bytes", "link_bytes"):
+                cur[f] += times * (e[f] - b[f])
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        return {"|".join(k): dict(v) for k, v in sorted(self.entries.items())}
+
+    def reset(self):
+        self.entries.clear()
+
+
+def axis_name(axis: Axis) -> str:
+    return "+".join(axis) if isinstance(axis, tuple) else str(axis)
+
+
+def _axes_tuple(axis: Axis) -> Tuple[str, ...]:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+# ---------------------------------------------------------- communicators
+class CountingComm:
+    """The dry run's communicator: no data moves; each call returns a
+    tensor of the collective's result shape (on meta, nothing is
+    allocated) and is recorded in ``log``."""
+
+    def __init__(self, mesh):
+        self.sizes = mesh_sizes(mesh)
+        self.log = CollectiveLog()
+
+    def all_reduce(self, x, axis):
+        self.log.add("all-reduce", axis, x.dtype,
+                     x.numel() * x.element_size(), axis_size(self.sizes, axis))
+        return x.clone()
+
+    def all_gather(self, x, axis, dim):
+        m = axis_size(self.sizes, axis)
+        out = torch.cat([x] * m, dim=dim)
+        self.log.add("all-gather", axis, x.dtype,
+                     out.numel() * out.element_size(), m)
+        return out
+
+
+class GroupComm:
+    """``torch.distributed`` process groups over a mesh whose ranks are
+    the global ranks in row-major mesh order: one group for every subset
+    of mesh axes (every rank builds them all, in one order, as
+    ``new_group`` requires).  ``host`` moves each payload through a CPU
+    copy (gloo; it also suits ranks that share one card)."""
+
+    def __init__(self, mesh, rank: int, *, host: Optional[bool] = None):
+        import torch.distributed as dist
+        self.dist = dist
+        self.sizes = mesh_sizes(mesh)
+        names = list(self.sizes)
+        coords = partition.mesh_coords(mesh)
+        self.rank = rank
+        self.coords = coords[rank]
+        self.host = (dist.get_backend() == "gloo") if host is None else host
+        self.log = CollectiveLog()
+        self.groups: Dict[Tuple[str, ...], Any] = {}
+        for k in range(1, len(names) + 1):
+            for sub in itertools.combinations(names, k):
+                rest = [a for a in names if a not in sub]
+                for fixed in itertools.product(
+                        *(range(self.sizes[a]) for a in rest)):
+                    members = [r for r, c in enumerate(coords)
+                               if all(c[a] == v for a, v in zip(rest, fixed))]
+                    g = dist.new_group(members)
+                    if rank in members:
+                        self.groups[sub] = g
+
+    def _group(self, axis):
+        return self.groups[tuple(a for a in self.sizes
+                                 if a in _axes_tuple(axis))]
+
+    def all_reduce(self, x, axis):
+        self.log.add("all-reduce", axis, x.dtype,
+                     x.numel() * x.element_size(), axis_size(self.sizes, axis))
+        buf = x.detach().to("cpu", copy=True) if self.host else \
+            x.detach().clone().contiguous()
+        self.dist.all_reduce(buf, group=self._group(axis))
+        return buf.to(x.device)
+
+    def all_gather(self, x, axis, dim):
+        m = axis_size(self.sizes, axis)
+        src = x.detach().to("cpu") if self.host else x.detach()
+        src = src.contiguous()
+        if self.host and src.element_size() == 2:
+            src = src.view(torch.float16)   # gloo gathers the bits
+        parts = [torch.empty_like(src) for _ in range(m)]
+        self.dist.all_gather(parts, src, group=self._group(axis))
+        out = torch.cat(parts, dim=dim).view(x.dtype).to(x.device)
+        self.log.add("all-gather", axis, x.dtype,
+                     out.numel() * out.element_size(), m)
+        return out
+
+
+# ---------------------------------------------------------------- context
+@dataclass
+class SpmdContext:
+    """One rank's place in a mesh (see the module docstring)."""
+    mesh: Any
+    sizes: Dict[str, int]
+    rules: Dict[str, Axis]
+    axes: Dict[str, Axis]
+    coords: Dict[str, int]
+    comm: Any
+    dims: Dict[str, int] = field(default_factory=dict)
+
+    def size(self, axis: Axis) -> int:
+        return axis_size(self.sizes, axis)
+
+    def index(self, axis: Axis) -> int:
+        return partition.axis_index(self.sizes, self.coords, axis)
+
+    def param_axis(self, family: str, n: int) -> Axis:
+        """The axis a param family's dim of global size ``n`` is sharded
+        over (``partition.param_pspec``'s rule), None when replicated."""
+        ax = self.axes.get(family)
+        m = self.size(ax)
+        return ax if m > 1 and n % m == 0 else None
+
+    def rule_axis(self, name: str, n: int) -> Axis:
+        """The axis the rules shard logical dim ``name`` (global size
+        ``n``) over, None when it is replicated or does not divide."""
+        ax = resolve(name)[0]
+        m = self.size(ax)
+        return ax if m > 1 and n % m == 0 else None
+
+    def batch_axis(self) -> Axis:
+        ax = resolve("batch")[0]
+        return ax if self.size(ax) > 1 else None
+
+
+def current() -> Optional[SpmdContext]:
+    return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def spmd(mesh, rules: Mapping[str, Axis], axes: Optional[Mapping] = None,
+         coords: Optional[Mapping[str, int]] = None, comm=None, *,
+         dims: Optional[Mapping[str, int]] = None):
+    """Run the body as the rank at ``coords`` of ``mesh`` (see the module
+    docstring); ``dims`` are the global sizes of logical dims that
+    ``constrain`` checks (``logical_sizes(cfg)``)."""
+    ctx = SpmdContext(mesh=mesh, sizes=mesh_sizes(mesh), rules=dict(rules),
+                      axes=dict(axes or partition.DEFAULT_AXES),
+                      coords=dict(coords or {}),
+                      comm=comm if comm is not None else CountingComm(mesh),
+                      dims=dict(dims or {}))
+    prev = current()
+    _state.ctx = ctx
+    try:
+        with axis_rules(ctx.rules, mesh):
+            yield ctx
+    finally:
+        _state.ctx = prev
+
+
+def logical_sizes(cfg) -> Dict[str, int]:
+    """The global sizes of a config's logical dims, for ``constrain``."""
+    out = {"embed": cfg.d_model, "mlp": cfg.d_ff, "vocab": cfg.vocab_size,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim}
+    if cfg.moe is not None:
+        out["experts"] = cfg.moe.num_experts
+    return out
+
+
+# ------------------------------------------------------------ collectives
+def _active(axis: Axis) -> Optional[SpmdContext]:
+    ctx = current()
+    if ctx is None or axis is None or ctx.size(axis) == 1:
+        return None
+    return ctx
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c, axis):
+        return c.comm.all_reduce(x.float(), axis).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+# The backward functions keep the forward's context: autograd may run a
+# backward on a device thread, where the thread-local one is not set.
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c, axis):
+        ctx.c, ctx.axis = c, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.c.comm.all_reduce(g.float(), ctx.axis).to(g.dtype), \
+            None, None
+
+
+def _slice(x, c: SpmdContext, axis, dim):
+    n = x.shape[dim] // c.size(axis)
+    return x.narrow(dim, c.index(axis) * n, n)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c, axis, dim):
+        ctx.c, ctx.axis, ctx.dim = c, axis, dim
+        return c.comm.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.c, ctx.axis, ctx.dim).contiguous(), \
+            None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c, axis, dim):
+        ctx.c, ctx.axis, ctx.dim = c, axis, dim
+        return _slice(x, c, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.c.comm.all_gather(g.contiguous(), ctx.axis, ctx.dim), \
+            None, None, None
+
+
+def reduce_over(x, axis: Axis):
+    """All-reduce of a partial sum over ``axis`` (f32, cast back)."""
+    c = _active(axis)
+    return x if c is None else _Reduce.apply(x, c, axis)
+
+
+def replicate_over(x, axis: Axis):
+    """A replicated ``x`` entering a computation sharded over ``axis``:
+    the identity, whose backward all-reduces the gradient."""
+    c = _active(axis)
+    if c is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Replicate.apply(x, c, axis)
+
+
+def gather_over(x, axis: Axis, dim: int):
+    """All-gather of a tensor sharded over ``axis`` along ``dim``."""
+    c = _active(axis)
+    return x if c is None else _Gather.apply(x, c, axis, dim)
+
+
+def scatter_over(x, axis: Axis, dim: int):
+    """The rank's slice along ``dim`` of a tensor replicated over
+    ``axis``."""
+    c = _active(axis)
+    return x if c is None else _Scatter.apply(x, c, axis, dim)
+
+
+def reshard(x, dim: int, have: Axis, want: Axis):
+    """``x`` sharded over ``have`` along ``dim`` -> sharded over
+    ``want`` (None: replicated)."""
+    if have == want:
+        return x
+    return scatter_over(gather_over(x, have, dim), want, dim)
+
+
+# ----------------------------------------------------------- model helpers
+@dataclass(frozen=True)
+class AttnShard:
+    """How one attention layer is cut on this rank: the axes of the
+    q / kv projections' columns and of ``wo``'s rows (params), of the
+    query and kv heads (rules), and the rank's first global query and kv
+    head.  Outside ``spmd`` every axis is None and the rank holds every
+    head."""
+    q_cols: Axis = None
+    kv_cols: Axis = None
+    wo_rows: Axis = None
+    heads: Axis = None
+    kv_heads: Axis = None
+    n_heads: int = 0
+    n_kv: int = 0
+    h0: int = 0
+    kv0: int = 0
+
+    @staticmethod
+    def of(n_heads: int, n_kv: int, head_dim: int) -> "AttnShard":
+        c = current()
+        if c is None:
+            return AttnShard(n_heads=n_heads, n_kv=n_kv)
+        h_ax = c.rule_axis("heads", n_heads)
+        kv_ax = c.rule_axis("kv_heads", n_kv)
+        return AttnShard(
+            q_cols=c.param_axis("attn", n_heads * head_dim),
+            kv_cols=c.param_axis("attn", n_kv * head_dim),
+            wo_rows=c.param_axis("attn", n_heads * head_dim),
+            heads=h_ax, kv_heads=kv_ax, n_heads=n_heads, n_kv=n_kv,
+            h0=c.index(h_ax) * (n_heads // c.size(h_ax)),
+            kv0=c.index(kv_ax) * (n_kv // c.size(kv_ax)))
+
+    def q(self, q):
+        """Projected q (..., cols) -> sharded over the heads axis."""
+        return reshard(q, -1, self.q_cols, self.heads)
+
+    def kv(self, t):
+        return reshard(t, -1, self.kv_cols, self.kv_heads)
+
+    def kv_for_heads(self, k, v):
+        """K/V (B, S, n, D) holding global kv heads [kv0, kv0 + n) ->
+        the heads the rank's query heads read under the global GQA map
+        h -> h * Hkv // H.  Returned as they are when the kernels' own
+        map over the local counts gives the same heads (always outside
+        ``spmd``), else selected per query head.  K/V replicated over an
+        axis the heads are sharded over enter through
+        ``replicate_over``."""
+        extra = minus(self.heads, self.kv_heads)
+        k, v = replicate_over(k, extra), replicate_over(v, extra)
+        c = current()
+        hl = self.n_heads // (c.size(self.heads) if c is not None else 1)
+        n = k.shape[2]
+        idx = [(self.h0 + j) * self.n_kv // self.n_heads - self.kv0
+               for j in range(hl)]
+        if idx == [j * n // hl for j in range(hl)]:
+            return k, v
+        sel = torch.tensor(idx, device=k.device)
+        return k.index_select(2, sel), v.index_select(2, sel)
+
+    def head_param(self, t):
+        """A replicated per-head-dim param (qk-norm's q scale) applied to
+        the rank's query heads."""
+        return replicate_over(t, self.heads)
+
+    def kv_param(self, t):
+        return replicate_over(t, self.kv_heads)
+
+    def partial(self, o2d, wo):
+        """o (..., local heads * D) @ ``wo``'s rows: the rank's term."""
+        return reshard(o2d, -1, self.heads, self.wo_rows) @ wo
+
+    def finish(self, y):
+        """The terms summed over ``wo``'s row axis."""
+        return reduce_over(y, self.wo_rows)
+
+def join_axes(*axes: Axis) -> Axis:
+    """The product axis of ``axes`` (mesh order), None when empty."""
+    c = current()
+    names = {a for ax in axes if ax is not None for a in _axes_tuple(ax)}
+    order = [a for a in (c.sizes if c is not None else sorted(names))
+             if a in names]
+    return None if not order else (order[0] if len(order) == 1
+                                   else tuple(order))
+
+
+def minus(a: Axis, b: Axis) -> Axis:
+    """The names of ``a`` not in ``b`` (None when none)."""
+    if a is None:
+        return None
+    drop = set(_axes_tuple(b)) if b is not None else set()
+    rest = tuple(x for x in _axes_tuple(a) if x not in drop)
+    return None if not rest else (rest[0] if len(rest) == 1 else rest)
+
+
+def check_runtime(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family the runtime does not
+    shard yet (a no-op outside ``spmd``)."""
+    if current() is not None and cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(f"{cfg.name}: {unsharded_reason(cfg)}")
+
+
+def unsharded_reason(cfg) -> str:
+    """Why the runtime does not shard ``cfg``'s family yet."""
+    if cfg.is_encdec:
+        return ("the encoder-decoder family has no sharded step yet: its "
+                "encoder and cross-attention path is not cut (ROADMAP)")
+    return (f"the {cfg.family} family has no sharded step yet: its packed "
+            "projections (z, x, B, C, dt in one column range) need a split "
+            "by component before COL can apply (ROADMAP)")
+
+
+def param_axis(family: str, n: int) -> Axis:
+    """``SpmdContext.param_axis`` of the active context (None outside)."""
+    c = current()
+    return None if c is None else c.param_axis(family, n)
+
+
+def ffn_axis(n: int) -> Axis:
+    """The axis the FFN's d_ff (``n``) is sharded over, None outside
+    ``spmd`` or when replicated."""
+    c = current()
+    return None if c is None else c.param_axis("ffn", n)
+
+
+def vocab_axis(n: int) -> Axis:
+    c = current()
+    return None if c is None else c.param_axis("vocab", n)
+
+
+def expert_axis(n: int) -> Axis:
+    """The axis the MoE's experts (``n``) are sharded over (the ``ep``
+    variants), None otherwise."""
+    c = current()
+    return None if c is None else c.param_axis("expert", n)
+
+
+def axis_offset(axis: Axis, n_local: int) -> int:
+    """The rank's first global index along a dim sharded over ``axis``
+    with ``n_local`` entries a rank (0 outside ``spmd``)."""
+    c = current()
+    return 0 if c is None or axis is None else c.index(axis) * n_local
+
+
+def mean_over_batch(x):
+    """A per-rank mean over the batch dim -> the global mean (equal local
+    batches): the MoE's load statistics under a data axis."""
+    c = current()
+    ax = None if c is None else c.batch_axis()
+    if ax is None:
+        return x
+    return reduce_over(x, ax) / c.size(ax)
+
+
+def sum_over_batch(x):
+    c = current()
+    ax = None if c is None else c.batch_axis()
+    return x if ax is None else reduce_over(x, ax)
+
+
+def sync_grads(grads):
+    """Sum each gradient over the batch axes (the data-parallel
+    all-reduce; the model axis needs none: a replicated param's gradient
+    is already whole on every rank).  In place; returns ``grads``."""
+    from repro_torch.viscosity.lang import tree_leaves
+    c = current()
+    ax = None if c is None else c.batch_axis()
+    if ax is None:
+        return grads
+    for g in tree_leaves(grads):
+        if isinstance(g, torch.Tensor):
+            g.copy_(c.comm.all_reduce(g.float(), ax).to(g.dtype))
+    return grads
+
+
+# ------------------------------------------------------------------ caches
+def cache_specs(model, batch: int, max_len: int):
+    """The PartitionSpecs of ``model``'s serving cache (``make_cache_pspec
+    _fn`` over this rank's mesh); raises ``NotImplementedError`` where the
+    runtime cannot serve them yet."""
+    c = current()
+    meta = model.init_cache(batch, max_len, device=torch.device("meta"))
+    attn_axis = c.axes.get("attn", "model")
+    specs = partition.tree_pspecs(
+        meta, c.mesh, partition.make_cache_pspec_fn(batch, c.mesh,
+                                                    attn_axis=attn_axis))
+    for path, spec in partition.flatten(specs).items():
+        name = path.split("/")[-1]
+        if name in ("k", "v") and spec[-3] is not None:
+            raise NotImplementedError(
+                f"cache leaf {path} shards its sequence dim over "
+                f"{spec[-3]!r} (kv heads {model.cfg.num_kv_heads} do not "
+                "divide): the sequence-sharded KV cache needs a "
+                "partial-softmax combine across ranks (ROADMAP)")
+        if name in ("ssm", "wkv", "conv", "shift_tm", "shift_cm") and any(
+                a is not None for a in spec[2:]):
+            raise NotImplementedError(
+                f"cache leaf {path}: the {model.cfg.family} family has no "
+                "sharded step yet (ROADMAP)")
+    return meta, specs
+
+
+def init_cache(model, batch: int, max_len: int, device=None):
+    """``model.init_cache`` outside ``spmd``; inside, this rank's shard of
+    it (local KV heads, the positions cut as ``make_cache_pspec_fn``
+    says), allocated at its local shape."""
+    if current() is None:
+        return model.init_cache(batch, max_len, device=device)
+    c = current()
+    meta, specs = cache_specs(model, batch, max_len)
+    flat_specs = partition.flatten(specs)
+
+    def alloc(path, leaf):
+        shape = partition.local_shape(leaf.shape, flat_specs[path], c.mesh)
+        if path.split("/")[-1] == "pos":
+            return torch.full(shape, -1, dtype=leaf.dtype, device=device)
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return partition.map_with_path(meta, alloc)
+
+
+def pos_axis(cache) -> Axis:
+    """The axis a KV cache's positions are sharded over along the
+    sequence (``make_cache_pspec_fn``'s "pos" rule), None when whole."""
+    c = current()
+    if c is None or cache["pos"].shape[-1] == cache["k"].shape[2]:
+        return None
+    return c.axes.get("attn", "model")
+
+
+def collective_log() -> Optional[CollectiveLog]:
+    c = current()
+    return None if c is None else c.comm.log
+
+
+def rank_coords(mesh, rank: int) -> Dict[str, int]:
+    """The mesh coordinates of global rank ``rank`` (row-major)."""
+    return partition.mesh_coords(mesh)[rank]
+
+
+def devices_spanned(mesh, axis: Axis) -> List[int]:
+    """The global ranks of rank 0's group over ``axis``."""
+    sizes = mesh_sizes(mesh)
+    coords = partition.mesh_coords(mesh)
+    rest = [a for a in sizes if a not in _axes_tuple(axis)]
+    return [r for r, cd in enumerate(coords) if all(cd[a] == 0
+                                                     for a in rest)]
+
+
+__all__ = ["CollectiveLog", "CountingComm", "GroupComm", "SpmdContext",
+           "AttnShard", "spmd", "current", "logical_sizes", "reduce_over",
+           "replicate_over", "gather_over", "scatter_over", "reshard",
+           "ffn_axis", "vocab_axis", "expert_axis", "axis_offset",
+           "mean_over_batch", "sum_over_batch", "sync_grads", "cache_specs",
+           "init_cache", "pos_axis", "collective_log", "rank_coords",
+           "devices_spanned"]

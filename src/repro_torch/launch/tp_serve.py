@@ -1,0 +1,457 @@
+"""Tensor-parallel serving: one process per rank of a ("data", "model")
+mesh, each serving its shard of one model through ``ServeEngine`` under
+``launch.spmd.spmd``.
+
+    PYTHONPATH=src python -m repro_torch.launch.tp_serve --mesh 1x2 \\
+        --device cpu [--hw-route interpret] [--fault-step 3 --fault-rank 1]
+
+starts the ranks (gloo over a free local port; on the card every rank
+shares ``cuda:0`` unless ``--backend nccl``, which needs one card a rank),
+serves a synthetic workload on each, and checks that every rank emitted
+the same tokens and changed route at the same step.  The arch's reduced
+config by default; ``--full`` serves it at full width (``--layers`` cuts
+the depth).  ``--fault-rank`` arms a lane fault on that rank's stage at
+``--fault-step`` and reports what its canary finds; the ranks agree on it
+through ``EventChannel`` and demote the stage together.
+
+``serve_rank`` is one rank's work (also ``chip_smoke.py``'s phase 15 and
+the CPU tests); ``launch_ranks`` starts and collects the ranks.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.launch import partition, spmd
+from repro_torch.launch.distributed import (EventChannel, KVCoordinator,
+                                            initialize_runtime,
+                                            shutdown_runtime)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build_model
+from repro_torch.serve import ServeConfig, ServeEngine, synthetic_workload
+from repro_torch.viscosity import HW, INTERPRET, SW
+from repro_torch.viscosity.lang import tree_leaves
+
+AXES = ("data", "model")
+RESULT = "RESULT "
+
+
+@dataclasses.dataclass
+class TPServeSpec:
+    """What every rank serves: the model (``full`` width or the reduced
+    config, ``layers`` deep when given), its weights (``seed``, drawn in
+    ``dtype``), the workload and the fault."""
+    arch: str = "qwen1.5-4b"
+    full: bool = False
+    layers: Optional[int] = None
+    dtype: Optional[str] = None          # "bfloat16": weights drawn in it
+    seed: int = 0
+    requests: int = 4
+    slots: int = 4
+    min_prompt: int = 4
+    max_prompt: int = 16
+    min_new: int = 4
+    max_new: int = 8
+    arrival_every: int = 1
+    per_arrival: int = 2
+    hw_route: str = SW
+    fault_step: int = -1
+    fault_rank: int = -1
+    fault_stage: str = "swiglu_mlp"
+
+    def config(self):
+        cfg = get_config(self.arch)
+        if not self.full:
+            cfg = cfg.reduced()
+        if self.layers:
+            cfg = dataclasses.replace(cfg, num_layers=self.layers)
+        return cfg
+
+    @property
+    def max_len(self) -> int:
+        return self.max_prompt + self.max_new
+
+    def workload(self, cfg):
+        return synthetic_workload(
+            cfg.vocab_size, self.requests, np.random.default_rng(self.seed),
+            min_prompt=self.min_prompt, max_prompt=self.max_prompt,
+            min_new=self.min_new, max_new=self.max_new,
+            arrival_every=self.arrival_every, per_arrival=self.per_arrival)
+
+    def weights(self, cfg, device):
+        """The full tree, drawn on ``device`` from ``seed``."""
+        dt = getattr(torch, self.dtype) if self.dtype else None
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+        return build_model(cfg).init(gen, device=device, dtype=dt)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _plan_route(plan, stage: str) -> str:
+    return plan.target_for(stage) if plan is not None else ""
+
+
+def drive(engine: ServeEngine, reqs, spec: TPServeSpec, *, rank: int = 0,
+          canary=None, rec: Optional[Dict[str, Any]] = None
+          ) -> Dict[str, Any]:
+    """Serve ``reqs`` through a session; at ``spec.fault_step`` the rank
+    ``spec.fault_rank`` arms a lane fault on ``spec.fault_stage`` and, when
+    ``canary`` (a ``CanaryChecker`` over that stage) finds it, reports it.
+    Returns tokens, per-step routes, timings and per-call collective
+    bytes."""
+    from repro_torch.viscosity import lanefault
+    from repro_torch.viscosity.lanefault import STUCK, LaneFault
+    log = spmd.collective_log()
+    calls: List[Dict[str, Any]] = []
+    now = {"step": 0}
+
+    def timed(kind, fn):
+        def wrapped(*a, **kw):
+            before = dict(log.by_kind("bytes")) if log is not None else {}
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize(engine.device)
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize(engine.device)
+            after = log.by_kind("bytes") if log is not None else {}
+            if kind == "prefill" or res["active"]:
+                calls.append({"kind": kind, "step": now["step"],
+                              "ms": 1e3 * (time.perf_counter() - t0),
+                              "bytes": {k: after[k] - before.get(k, 0.0)
+                                        for k in after
+                                        if after[k] != before.get(k, 0.0)}})
+            return res
+        return wrapped
+    engine.admit = timed("prefill", engine.admit)
+    engine.decode_tick = timed("tick", engine.decode_tick)
+    sess = engine.session()
+    for r in sorted(reqs, key=lambda r: (r.arrival, r.rid)):
+        sess.submit(r)
+    routes, faulted = [], None
+    t0 = time.perf_counter()
+    while sess.pending():
+        step = now["step"] = sess.step_count
+        if rec is not None:
+            rec["now"] = step
+        if step == spec.fault_step and rank == spec.fault_rank:
+            lanefault.set_injection(spec.fault_stage, LaneFault(
+                STUCK, (1,), _canary_width(spec.fault_stage), value=3.0))
+            if canary is None or not canary.check_stage(canary.stages[0]):
+                engine.report_stage_fault(spec.fault_stage)
+        tick = sess.step()
+        if tick.get("agreed_faults") and faulted is None:
+            faulted = step
+        routes.append(_plan_route(engine._decode_key(), spec.fault_stage))
+    wall = time.perf_counter() - t0
+    lanefault.clear_injection(spec.fault_stage)
+    stats = sess.close()
+    done = {c.rid: c for c in sess.poll()}
+    return {"tokens": {str(r): done[r].tokens.tolist() for r in sorted(done)},
+            "routes": routes, "fault_applied_step": faulted,
+            "steps": stats["steps"], "wall_s": wall, "calls": calls}
+
+
+def _nbytes(tree) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
+
+
+def _canary_width(stage: str) -> int:
+    from repro_torch.chaos import CANARY_WIDTHS
+    return CANARY_WIDTHS[stage]
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Record the operand shapes each Hopper wrapper is called with on
+    this rank, and its calls: {"flash_attention": {(q, k) shapes},
+    "swiglu_mlp": {(x, w1, w2) shapes}, "calls": {name: n}} (on the card
+    a call is a launch; the wrappers' ``launches`` count those)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.swiglu import ops as swiglu_ops
+    seen: Dict[str, Any] = {"flash_attention": set(), "swiglu_mlp": set(),
+                            "calls": {"flash_attention": 0,
+                                      "swiglu_mlp": 0}}
+    attn, swiglu = attn_ops.flash_attention_bhsd, swiglu_ops.swiglu_fused
+
+    def attn_rec(q, k, v, **kw):
+        seen["flash_attention"].add((tuple(q.shape), tuple(k.shape)))
+        seen["calls"]["flash_attention"] += 1
+        return attn(q, k, v, **kw)
+
+    def swiglu_rec(x, w1, w3, w2, **kw):
+        seen["swiglu_mlp"].add((tuple(x.shape), tuple(w1.shape),
+                                tuple(w2.shape)))
+        seen["calls"]["swiglu_mlp"] += 1
+        return swiglu(x, w1, w3, w2, **kw)
+    attn_ops.flash_attention_bhsd = attn_rec
+    swiglu_ops.swiglu_fused = swiglu_rec
+    try:
+        yield seen
+    finally:
+        attn_ops.flash_attention_bhsd = attn
+        swiglu_ops.swiglu_fused = swiglu
+
+
+def logits_recorder(ref: Optional[Dict[str, List]] = None,
+                    until_step: int = -1):
+    """An ``on_logits`` observer that keeps each call's logits (f32 on the
+    host), its greedy tokens and its session step (``rec["now"]``, which
+    ``drive`` keeps current).  Given the reference run's record ``ref``,
+    each call's max |logits - ref| / max |ref| too, and until
+    ``until_step`` the reference's tokens are fed back (teacher forcing:
+    a near-tie that rounds the other way must not fork the streams the
+    comparison runs on)."""
+    rec: Dict[str, Any] = {"logits": [], "kinds": [], "rel": [],
+                           "tokens": [], "steps": [], "now": 0}
+
+    def on_logits(kind, logits):
+        lg = logits.detach().float().cpu()
+        i = len(rec["logits"])
+        rec["logits"].append(lg)
+        rec["kinds"].append(kind)
+        rec["tokens"].append(lg.argmax(-1).tolist())
+        rec["steps"].append(rec["now"])
+        if ref is None or i >= len(ref["logits"]):
+            return None
+        r = ref["logits"][i]
+        if r.shape == lg.shape:
+            rec["rel"].append(float((lg - r).abs().max())
+                              / max(float(r.abs().max()), 1e-30))
+        if rec["now"] < until_step:
+            return torch.tensor(ref["tokens"][i], device=logits.device)
+        return None
+    return on_logits, rec
+
+
+def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
+               mesh_shape, *, backend: str = "gloo", device: str = "cpu",
+               ref_logits: Optional[str] = None,
+               out_dir: Optional[str] = None) -> Dict[str, Any]:
+    """One rank: join the group, cut the seeded weights to its shard,
+    serve under ``spmd`` and report (see ``drive``).  ``ref_logits`` (a
+    ``torch.save``d list) is the unsharded run's logits, call by call;
+    ``out_dir`` receives this rank's logits as ``logits_<rank>.pt``."""
+    from repro_torch.core import CanaryChecker
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.swiglu import swiglu_fused
+    from repro_torch.train.runner import canary_stages
+    t_start = time.perf_counter()
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    rt = initialize_runtime(f"127.0.0.1:{port}", world, rank,
+                            backend=backend, timeout_s=600)
+    mesh = make_mesh(tuple(mesh_shape), AXES, devices=[dev] * world)
+    comm = spmd.GroupComm(mesh, rank)
+    coords = spmd.rank_coords(mesh, rank)
+    cfg = spec.config()
+    full = spec.weights(cfg, dev)
+    specs = partition.params_pspecs(full, mesh)
+    local = partition.map_with_path(
+        partition.shard_tree(full, specs, mesh, coords),
+        lambda _, t: t.clone())
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reqs = spec.workload(cfg)
+    ref = torch.load(ref_logits) if ref_logits else None
+    on_logits, rec = logits_recorder(ref, until_step=spec.fault_step)
+    coord = KVCoordinator()
+    for w in (flash_attention_bhsd, swiglu_fused):
+        w.launches = 0
+    with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
+                   partition.DEFAULT_AXES, coords, comm,
+                   dims=spmd.logical_sizes(cfg)), kernel_shapes() as seen:
+        eng = ServeEngine(cfg, local, ServeConfig(
+            max_len=spec.max_len, max_slots=spec.slots,
+            hw_route=spec.hw_route), device=dev,
+            channel=EventChannel(coord))
+        eng.on_logits = on_logits
+        canary = None
+        if rank == spec.fault_rank:
+            canary = CanaryChecker(
+                [s for s in canary_stages(cfg, device=dev)
+                 if s.name == spec.fault_stage], route_hw=spec.hw_route)
+        res = drive(eng, reqs, spec, rank=rank, canary=canary, rec=rec)
+    res.update({
+        "rank": rank, "world": world, "coords": coords,
+        "backend": rt.backend, "mesh": list(mesh_shape),
+        "launches": {"flash_attention": flash_attention_bhsd.launches,
+                     "swiglu_mlp": swiglu_fused.launches},
+        "kernel_calls": seen.pop("calls"),
+        "kernel_shapes": {k: sorted(map(list, v)) for k, v in seen.items()},
+        "logits_rel": rec["rel"], "logit_kinds": rec["kinds"],
+        "call_tokens": rec["tokens"],
+        "collectives": comm.log.snapshot(),
+        "local_bytes": {"params": _nbytes(local),
+                        "cache": _nbytes(eng._caches)},
+        "process_s": time.perf_counter() - t_start,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if dev.type == "cuda" else None)})
+    if out_dir:
+        torch.save(rec["logits"], os.path.join(out_dir, f"logits_{rank}.pt"))
+    coord.exchange("done")      # rank 0 serves the store: leave together
+    shutdown_runtime()
+    return res
+
+
+WORKER = ("import sys, json; sys.path.insert(0, sys.argv[1]); "
+          "from repro_torch.launch import tp_serve; "
+          "sys.exit(tp_serve.worker(sys.argv[2:]))")
+
+
+def worker(argv) -> int:
+    """One rank from the command line ``launch_ranks`` builds: prints one
+    ``RESULT {json}`` line."""
+    a = json.loads(argv[0])
+    res = serve_rank(TPServeSpec(**a["spec"]), a["rank"], a["world"],
+                     a["port"], a["mesh"], backend=a["backend"],
+                     device=a["device"], ref_logits=a.get("ref_logits"),
+                     out_dir=a.get("out_dir"))
+    sys.stdout.write(RESULT + json.dumps(res) + "\n")
+    sys.stdout.flush()
+    return 0
+
+
+def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
+                 backend: str = "gloo", ref_logits: Optional[str] = None,
+                 out_dir: Optional[str] = None, timeout: float = 600.0,
+                 src: Optional[str] = None, env=None) -> List[Dict]:
+    """Start one process per rank of ``mesh_shape``, wait for all, and
+    return their results by rank; a rank that fails raises with its
+    stderr."""
+    world = int(np.prod(mesh_shape))
+    port = free_port()
+    src = src or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(env or os.environ)
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    for rank in range(world):
+        arg = json.dumps({"spec": dataclasses.asdict(spec), "rank": rank,
+                          "world": world, "port": port,
+                          "mesh": list(mesh_shape), "backend": backend,
+                          "device": device, "ref_logits": ref_logits,
+                          "out_dir": out_dir})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", WORKER, src, arg], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results, failures = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                failures.append(f"rank {rank} timed out after {timeout} s")
+                continue
+            lines = [ln for ln in out.splitlines() if ln.startswith(RESULT)]
+            if p.returncode != 0 or not lines:
+                failures.append(f"rank {rank} exited {p.returncode}:\n"
+                                f"{err[-3000:]}")
+                continue
+            results.append(json.loads(lines[-1][len(RESULT):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failures:
+        raise RuntimeError("tensor-parallel ranks failed:\n"
+                           + "\n".join(failures))
+    return sorted(results, key=lambda r: r["rank"])
+
+
+def reference_run(spec: TPServeSpec, device: str = "cpu",
+                  path: Optional[str] = None) -> Dict[str, Any]:
+    """The same workload on one unsharded engine of the same weights; its
+    logits and greedy tokens, call by call, are saved to ``path`` when
+    given (what ``serve_rank``'s ``ref_logits`` reads)."""
+    dev = torch.device(device)
+    cfg = spec.config()
+    params = spec.weights(cfg, dev)
+    on_logits, rec = logits_recorder()
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=spec.max_len, max_slots=spec.slots, hw_route=spec.hw_route),
+        device=dev)
+    eng.on_logits = on_logits
+    del params
+    res = drive(eng, spec.workload(cfg), spec, rec=rec)
+    if path:
+        torch.save({"logits": rec["logits"], "tokens": rec["tokens"]}, path)
+    res["logit_kinds"] = rec["kinds"]
+    res["call_tokens"] = rec["tokens"]
+    return res
+
+
+def check_agreement(results: Sequence[Dict]) -> List[str]:
+    """What the ranks disagree on (empty: they agree): tokens (emitted,
+    and each call's greedy ones), the route of the faulted stage at each
+    step, the step a fault took effect."""
+    bad = []
+    r0 = results[0]
+    for r in results[1:]:
+        for key in ("tokens", "call_tokens", "routes",
+                    "fault_applied_step", "steps"):
+            if r[key] != r0[key]:
+                bad.append(f"rank {r['rank']} {key} differs from rank 0's")
+    return bad
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen1.5-4b", choices=list(ARCH_NAMES))
+    ap.add_argument("--mesh", default="1x2", help="DxM: data x model ranks")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--hw-route", default=SW, choices=[HW, SW, INTERPRET])
+    ap.add_argument("--fault-step", type=int, default=-1)
+    ap.add_argument("--fault-rank", type=int, default=-1)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    shape = tuple(int(v) for v in args.mesh.lower().split("x"))
+    spec = TPServeSpec(arch=args.arch, full=args.full, layers=args.layers,
+                       requests=args.requests, slots=args.slots,
+                       hw_route=args.hw_route, fault_step=args.fault_step,
+                       fault_rank=args.fault_rank, seed=args.seed)
+    results = launch_ranks(spec, shape, device=args.device,
+                           backend=args.backend)
+    for r in results:
+        per = [c["ms"] for c in r["calls"] if c["kind"] == "tick"]
+        sys.stdout.write(
+            f"rank {r['rank']} {r['coords']}: {r['steps']} steps, "
+            f"{sum(map(len, r['tokens'].values()))} tokens, median tick "
+            f"{np.median(per) if per else 0.0:.2f} ms, fault applied at "
+            f"step {r['fault_applied_step']}; launches {r['launches']}\n")
+    bad = check_agreement(results)
+    if bad:
+        raise SystemExit("ranks disagree: " + "; ".join(bad))
+    sys.stdout.write(f"OK: {len(results)} ranks agree on tokens and routes\n")
+
+
+if __name__ == "__main__":
+    main()

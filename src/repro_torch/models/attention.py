@@ -13,6 +13,13 @@ window) slots, written round-robin (a ring buffer); the positions make
 the masks the same for both.  The reference vmaps a B=1 decode over
 serving slots (``(S, G, 1, Smax, Hkv, Dh)``); the port writes the slot
 batch out.  Prefill and decode write the cache in place.
+
+Under the tensor-parallel runtime (``launch/spmd.py``) a rank holds its
+columns of ``wq``/``wk``/``wv`` and rows of ``wo``, computes its own query
+and kv heads (``AttnShard``: K/V that stay replicated are read through the
+global GQA map), and sums the ``wo`` products over the rank's axis; its
+cache holds its kv heads, the positions cut along the sequence as
+``make_cache_pspec_fn`` says (gathered where attention reads them).
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch
 from repro_torch import viscosity
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention import ref as attn_ref
+from repro_torch.launch import spmd
+from repro_torch.launch.sharding import constrain
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import _he, rms_norm_simple
 
@@ -53,35 +62,43 @@ def _qk_norm(t, scale, eps=1e-6):
     return rms_norm_simple(t, eps=eps) * scale.to(t.dtype)
 
 
-def _project_q_only(p, x, n_heads, head_dim):
+def _project_q_only(p, x, n_heads, head_dim, sh=None):
     B, S, _ = x.shape
+    sh = sh or spmd.AttnShard(n_heads=n_heads)
+    x = spmd.replicate_over(x, sh.q_cols)
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = q.reshape(B, S, n_heads, head_dim)
-    return _qk_norm(q, p["q_norm"]) if "q_norm" in p else q
+    q = sh.q(q).reshape(B, S, -1, head_dim)
+    if "q_norm" in p:
+        q = _qk_norm(q, sh.head_param(p["q_norm"]))
+    return constrain(q, "batch", "seq", "heads", "head_dim")
 
 
-def project_kv(p, x, n_kv, head_dim):
-    """Keys and values of ``x`` (B, S, D) -> two (B, S, n_kv, head_dim);
-    for cross-attention, of the encoder output.  As in the reference,
-    ``bk``'s presence adds both biases."""
+def project_kv(p, x, n_kv, head_dim, sh=None):
+    """Keys and values of ``x`` (B, S, D) -> two (B, S, n_kv, head_dim)
+    (the rank's kv heads under ``spmd``); for cross-attention, of the
+    encoder output.  As in the reference, ``bk``'s presence adds both
+    biases."""
     B, S, _ = x.shape
+    sh = sh or spmd.AttnShard(n_kv=n_kv)
+    x = spmd.replicate_over(x, sh.kv_cols)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    k = sh.kv(k).reshape(B, S, -1, head_dim)
+    v = sh.kv(v).reshape(B, S, -1, head_dim)
     if "k_norm" in p:
-        k = _qk_norm(k, p["k_norm"])
-    return k, v
+        k = _qk_norm(k, sh.kv_param(p["k_norm"]))
+    return (constrain(k, "batch", "kv_seq", "kv_heads", "head_dim"),
+            constrain(v, "batch", "kv_seq", "kv_heads", "head_dim"))
 
 
-def _project_qkv(p, x, n_heads, n_kv, head_dim):
-    return (_project_q_only(p, x, n_heads, head_dim),
-            *project_kv(p, x, n_kv, head_dim))
+def _project_qkv(p, x, n_heads, n_kv, head_dim, sh=None):
+    return (_project_q_only(p, x, n_heads, head_dim, sh),
+            *project_kv(p, x, n_kv, head_dim, sh))
 
 
 def attn_full(p, x, cos, sin, *, n_heads, n_kv, head_dim, causal=True,
@@ -93,20 +110,27 @@ def attn_full(p, x, cos, sin, *, n_heads, n_kv, head_dim, causal=True,
     values are projected instead of from ``x`` (whisper's cross-attention).
     ``precomputed_kv``: (k, v) already projected (the cross-KV cache of a
     prefill, so decode does not project the encoder output again)."""
-    q = _project_q_only(p, x, n_heads, head_dim)
+    sh = spmd.AttnShard.of(n_heads, n_kv, head_dim)
+    q = _project_q_only(p, x, n_heads, head_dim, sh)
     if precomputed_kv is not None:
         k, v = precomputed_kv
     else:
         k, v = project_kv(p, x if cross_kv is None else cross_kv.to(x.dtype),
-                          n_kv, head_dim)
+                          n_kv, head_dim, sh)
     if cos is not None and cross_kv is None:
         q = rope_mod.apply_rope(q, cos, sin)
         k = rope_mod.apply_rope(k, cos, sin)
-    o = attn_ops.attention(q, k, v, causal=causal, window=window,
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
+    ka, va = sh.kv_for_heads(k, v)
+    o = attn_ops.attention(q, ka, va, causal=causal, window=window,
                            softcap=softcap, scale=scale, route=route,
                            kv_chunk=kv_chunk)
+    o = constrain(o, "batch", "seq", "heads", "head_dim")
     B, S = x.shape[:2]
-    out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    out = sh.finish(sh.partial(o.reshape(B, S, -1), p["wo"].to(x.dtype)))
+    out = constrain(out, "batch", "seq", "embed")
     return (out, (k, v)) if kv_out else out
 
 
@@ -126,20 +150,30 @@ def cache_write_prefill(cache, layer: int, k, v):
 
     S <= Smax: slots [0, S).  S > Smax (a ring buffer: windowed attention
     with Smax = window): keep the last Smax tokens, token ``pos`` at slot
-    ``pos % Smax``, so decode's writes at ``t % Smax`` stay consistent."""
+    ``pos % Smax``, so decode's writes at ``t % Smax`` stay consistent.
+    Under ``spmd`` with the positions cut along the sequence, the rank
+    writes its own slots of them."""
     S = k.shape[1]
     smax = cache["k"].shape[2]
+    pax = spmd.pos_axis(cache)
+    n = cache["pos"].shape[-1]
+    s0 = spmd.axis_offset(pax, n)
     if S <= smax:
         cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
         cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
-        cache["pos"][layer, :, :S] = torch.arange(S, dtype=torch.int32,
-                                                  device=k.device)
+        if pax is None:
+            cache["pos"][layer, :, :S] = torch.arange(S, dtype=torch.int32,
+                                                      device=k.device)
+        elif min(s0 + n, S) > s0:
+            hi = min(s0 + n, S)
+            cache["pos"][layer, :, :hi - s0] = torch.arange(
+                s0, hi, dtype=torch.int32, device=k.device)
         return cache
     p0 = S - smax                       # first kept absolute position
     idx = (torch.arange(smax, device=k.device) - p0) % smax
     cache["k"][layer] = k[:, p0:][:, idx].to(cache["k"].dtype)
     cache["v"][layer] = v[:, p0:][:, idx].to(cache["v"].dtype)
-    cache["pos"][layer] = (p0 + idx).to(torch.int32)
+    cache["pos"][layer] = (p0 + idx[s0:s0 + n]).to(torch.int32)
     return cache
 
 
@@ -154,21 +188,33 @@ def attn_decode(p, x, cache, layer: int, t: Sequence[int], tpos, cos, sin,
     Row i writes slot ``t[i] % Smax`` of its own cache row and attends
     over it with explicit per-slot positions.  Each row is computed on its
     own, as a B=1 decode would, so batched decode equals single-request
-    decode bit for bit."""
+    decode bit for bit (under ``spmd`` the rows' ``wo`` partial sums are
+    reduced together: an elementwise sum, the same per row)."""
+    sh = spmd.AttnShard.of(n_heads, n_kv, head_dim)
     smax = cache["k"].shape[2]
+    pax = spmd.pos_axis(cache)
+    pos_loc = cache["pos"][layer]
+    n = pos_loc.shape[-1]
+    s0 = spmd.axis_offset(pax, n)
+    pos_all = spmd.gather_over(pos_loc, pax, -1)
     outs = []
     for i, ti in enumerate(t):
-        q, k, v = _project_qkv(p, x[i:i + 1], n_heads, n_kv, head_dim)
+        q, k, v = _project_qkv(p, x[i:i + 1], n_heads, n_kv, head_dim, sh)
         if cos is not None:
             q = rope_mod.apply_rope(q, cos[i:i + 1], sin[i:i + 1])
             k = rope_mod.apply_rope(k, cos[i:i + 1], sin[i:i + 1])
         slot = ti % smax
         cache["k"][layer, i, slot] = k[0, 0].to(cache["k"].dtype)
         cache["v"][layer, i, slot] = v[0, 0].to(cache["v"].dtype)
-        cache["pos"][layer, i, slot] = ti
+        if s0 <= slot < s0 + n:
+            pos_loc[i, slot - s0] = ti
+        if pax is not None:
+            pos_all[i, slot] = ti
+        ka, va = sh.kv_for_heads(cache["k"][layer, i:i + 1],
+                                 cache["v"][layer, i:i + 1])
         o = attn_ref.attention_naive(
-            q, cache["k"][layer, i:i + 1], cache["v"][layer, i:i + 1],
-            causal=True, window=window, softcap=softcap, scale=scale,
-            q_offset=tpos[i:i + 1], k_positions=cache["pos"][layer, i:i + 1])
-        outs.append(o.reshape(1, 1, -1) @ p["wo"].to(x.dtype))
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
+            q, ka, va, causal=True, window=window, softcap=softcap,
+            scale=scale, q_offset=tpos[i:i + 1],
+            k_positions=pos_all[i:i + 1])
+        outs.append(sh.partial(o.reshape(1, 1, -1), p["wo"].to(x.dtype)))
+    return sh.finish(torch.cat(outs) if len(outs) > 1 else outs[0])

@@ -139,7 +139,9 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, ropes, routes,
             return moe_mod.moe_ffn(p["moe"], r, top_k=cfg.moe.top_k,
                                    capacity_factor=cfg.moe.capacity_factor,
                                    act=cfg.mlp_act,
-                                   combine_first=cfg.moe.combine_first)
+                                   combine_first=cfg.moe.combine_first,
+                                   d_ff=cfg.d_ff,
+                                   n_experts=cfg.moe.num_experts)
         if step:
             # each slot is its own dispatch group (S = 1, C = top_k), as
             # the reference's vmapped B=1 decode sees it
@@ -148,7 +150,7 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, ropes, routes,
             ffn_out, aux = moe(h)
     else:
         ffn_out = L.mlp(p["mlp"], h, act=cfg.mlp_act, route=route_mlp,
-                        row_independent=step)
+                        row_independent=step, d_ff=cfg.d_ff)
     ffn_out = _post_norm(p, "post_ln2", ffn_out, cfg, step)
     return x + checkpoint_name(ffn_out, "ffn_out", cfg), aux
 

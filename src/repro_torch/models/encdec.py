@@ -27,6 +27,7 @@ from repro_torch import viscosity
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.routing import as_routes
 from repro_torch.device import resolve_device
+from repro_torch.launch import spmd
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import stack
@@ -106,6 +107,7 @@ class EncDecModel:
     # ---------------------------------------------------------- encoder
     def encode(self, params, enc_embeds: torch.Tensor) -> torch.Tensor:
         """(B, S_enc, D) frame embeddings -> the normed encoder output."""
+        spmd.check_runtime(self.cfg)
         cfg = self.cfg
         x = enc_embeds.to(self.compute_dtype)
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
@@ -171,6 +173,7 @@ class EncDecModel:
         step at the scalar position ``t`` (``step``).  ``cross``: the
         ``cross_kv_cache`` to attend over instead of ``enc_out``.  Returns
         (the normed hidden states, ``caches``)."""
+        spmd.check_runtime(self.cfg)
         cfg = self.cfg
         x = L.embed(params["embed"], dec_tokens,
                     compute_dtype=self.compute_dtype)

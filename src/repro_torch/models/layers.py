@@ -1,12 +1,23 @@
 """Shared layers: norms (RMSNorm and LayerNorm), embeddings, the MLP (gated
 through the SwiGLU stage, or plain) and the chunked cross-entropy.  Port of the reference's
-``models/layers.py``; params are nested dicts of tensors."""
+``models/layers.py``; params are nested dicts of tensors.
+
+Under the tensor-parallel runtime (``launch/spmd.py``) the vocab-sharded
+embedding looks up the rank's rows (others zeroed) and sums them over the
+vocab axis; the logits of a vocab-sharded head or tied table are gathered
+before anyone samples them, and the loss gathers each chunk's logits
+(no vocab-parallel cross-entropy); the gated MLP runs on the rank's
+``w1``/``w3`` columns and ``w2`` rows and sums its partial output.
+``vocab`` and ``d_ff`` (the global sizes) say what is sharded; outside
+``spmd`` they change nothing."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import viscosity
 from repro_torch.kernels.swiglu import ops as swiglu_ops
+from repro_torch.launch import spmd
+from repro_torch.launch.sharding import constrain
 
 
 def _he(gen, shape, fan_in, dtype, device):
@@ -59,30 +70,45 @@ def init_embed(gen, vocab, d, dtype, device):
                       * 0.02).to(dtype)}
 
 
-def embed(p, tokens, *, scale_by_dim=False, compute_dtype=torch.bfloat16):
-    x = p["table"][tokens].to(compute_dtype)
+def embed(p, tokens, *, scale_by_dim=False, compute_dtype=torch.bfloat16,
+          vocab=None):
+    table = p["table"]
+    ax = spmd.vocab_axis(vocab) if vocab else None
+    if ax is None:
+        x = table[tokens].to(compute_dtype)
+    else:                       # the rank's rows; the others are zero
+        n = table.shape[0]
+        loc = tokens - spmd.axis_offset(ax, n)
+        mine = (loc >= 0) & (loc < n)
+        x = table[loc.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+        x = spmd.reduce_over(x, ax).to(compute_dtype)
     if scale_by_dim:
-        x = x * torch.tensor(float(p["table"].shape[1]) ** 0.5,
+        x = x * torch.tensor(float(table.shape[1]) ** 0.5,
                              dtype=compute_dtype, device=x.device)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
-def logits_from_embed(table, x, *, softcap=0.0):
-    out = x @ table.to(x.dtype).T
+def _vocab_logits(x, w_cols, vocab, softcap):
+    """``x @ w_cols`` (the rank's vocab columns under ``spmd``), softcapped,
+    gathered over the vocab axis."""
+    ax = spmd.vocab_axis(vocab) if vocab else None
+    out = spmd.replicate_over(x, ax) @ w_cols
     if softcap:
         out = torch.tanh(out / softcap) * softcap
-    return out
+    out = constrain(out, "batch", "seq", "vocab")
+    return spmd.gather_over(out, ax, -1)
+
+
+def logits_from_embed(table, x, *, softcap=0.0, vocab=None):
+    return _vocab_logits(x, table.to(x.dtype).T, vocab, softcap)
 
 
 def init_lm_head(gen, d, vocab, dtype, device):
     return {"w": _he(gen, (d, vocab), d, dtype, device)}
 
 
-def lm_head(p, x, *, softcap=0.0):
-    out = x @ p["w"].to(x.dtype)
-    if softcap:
-        out = torch.tanh(out / softcap) * softcap
-    return out
+def lm_head(p, x, *, softcap=0.0, vocab=None):
+    return _vocab_logits(x, p["w"].to(x.dtype), vocab, softcap)
 
 
 # -------------------------------------------------------------------- MLP
@@ -95,10 +121,12 @@ def init_mlp(gen, L, d, f, dtype, device, *, gated=True):
 
 
 def mlp(p, x, *, act="silu", route=viscosity.SW,
-        row_independent: bool = False):
+        row_independent: bool = False, d_ff=None):
     """Gated MLP through the Viscosity SwiGLU stage; without ``w3`` the
     plain MLP (whisper's: ``w1``, tanh-gelu, ``w2``), two plain products
-    as in the reference, whatever the route."""
+    as in the reference, whatever the route.  Under ``spmd`` the stage
+    runs on the rank's d_ff slice and returns a partial sum, summed over
+    the FFN axis here."""
     cd = x.dtype
     if "w3" not in p:
         h = x @ p["w1"].to(cd)
@@ -107,18 +135,22 @@ def mlp(p, x, *, act="silu", route=viscosity.SW,
         return h @ p["w2"].to(cd)
     lead = x.shape[:-1]
     act_name = "gelu" if act in ("gelu", "gelu_plain") else "silu"
+    ax = spmd.ffn_axis(d_ff) if d_ff else None
     y = swiglu_ops.swiglu(
-        x.reshape(-1, x.shape[-1]), p["w1"].to(cd), p["w3"].to(cd),
-        p["w2"].to(cd), act=act_name, route=route,
+        spmd.replicate_over(x.reshape(-1, x.shape[-1]), ax), p["w1"].to(cd),
+        p["w3"].to(cd), p["w2"].to(cd), act=act_name, route=route,
         row_independent=row_independent)
-    return y.reshape(*lead, -1)
+    y = spmd.reduce_over(y, ax)
+    return constrain(y.reshape(*lead, -1), "batch", "seq", "embed")
 
 
 # -------------------------------------------------- chunked cross-entropy
 def chunked_xent(h, targets, table_or_w, *, tied: bool, softcap=0.0,
-                 chunk=512, mask=None):
+                 chunk=512, mask=None, vocab=None):
     """Cross-entropy without materializing full (B, S, V) logits.
-    h (B, S, D); targets (B, S) int; returns (mean_loss, denom)."""
+    h (B, S, D); targets (B, S) int; returns (mean_loss, denom).  Under
+    ``spmd`` each chunk's vocab-sharded logits are gathered, and the sums
+    run over the batch axes."""
     B, S, _ = h.shape
     if mask is None:
         mask = targets >= 0
@@ -129,12 +161,11 @@ def chunked_xent(h, targets, table_or_w, *, tied: bool, softcap=0.0,
         tt = targets[:, c0:c0 + chunk]
         mm = mask[:, c0:c0 + chunk].float()
         w = table_or_w.to(hh.dtype)
-        logits = hh @ (w.T if tied else w)
-        if softcap:
-            logits = torch.tanh(logits / softcap) * softcap
+        logits = _vocab_logits(hh, w.T if tied else w, vocab, softcap)
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1, tt.clamp(min=0).long()[..., None])[..., 0]
         tot = tot + ((lse - tgt) * mm).sum()
         cnt = cnt + mm.sum()
+    tot, cnt = spmd.sum_over_batch(tot), spmd.sum_over_batch(cnt)
     return tot / torch.clamp(cnt, min=1.0), cnt

@@ -14,6 +14,13 @@ router is float32 whatever the dtype, and its logits are computed from
 ``x`` in float32.
 
 Losses: the switch-style load-balance aux loss and the router z-loss.
+
+Under the tensor-parallel runtime (``launch/spmd.py``) the router's
+columns may be sharded (its logits are gathered), each expert runs on
+the rank's d_ff slice (and, with an expert axis, only the rank's
+experts), and the combined output is summed over those axes once, after
+the gates are folded in; the load statistics are averaged over the batch
+axes.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import spmd
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import _he
 
 
@@ -62,19 +71,27 @@ def _top_k(probs, k: int):
 
 
 def moe_ffn(p, x, *, top_k: int, capacity_factor: float, act: str = "silu",
-            combine_first: bool = False
+            combine_first: bool = False, d_ff=None, n_experts=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) -> (y (B, S, D), {"aux_loss", "z_loss", "drop_frac"}).
 
     ``combine_first`` gathers the experts' hidden states back to token
     order and folds the gates in before the second product, as the
-    reference's option does."""
+    reference's option does.  ``d_ff`` and ``n_experts`` (the global
+    sizes) say, under ``spmd``, what is sharded."""
     B, S, D = x.shape
-    E = p["router"].shape[1]
+    E_loc = p["w1"].shape[0]
+    E = n_experts or p["router"].shape[1]
+    r_ax = spmd.param_axis("ffn", E)      # the router's columns
+    f_ax = spmd.ffn_axis(d_ff) if d_ff else None
+    e_ax = spmd.expert_axis(E)
+    e0 = spmd.axis_offset(e_ax, E_loc)
+    part = spmd.join_axes(f_ax, e_ax)     # the routed output's partial axes
     C = capacity(S, top_k, capacity_factor, E)
     dev = x.device
 
-    logits = x.float() @ p["router"]                            # (B,S,E)
+    logits = spmd.replicate_over(x, r_ax).float() @ p["router"]   # (B,S,E)
+    logits = spmd.gather_over(logits, r_ax, -1)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = _top_k(probs, top_k)                  # (B,S,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -100,39 +117,62 @@ def moe_ffn(p, x, *, top_k: int, capacity_factor: float, act: str = "silu",
     b_idx = torch.arange(B, device=dev)[:, None, None].expand(B, S, top_k)
     s_idx = torch.arange(S, device=dev)[None, :, None].expand(B, S, top_k)
     slot_tok[b_idx, gate_idx, torch.where(keep, pos_k, C)] = s_idx
-    slot_tok = slot_tok[..., :C]
-    x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    slot_tok = slot_tok[:, e0:e0 + E_loc, :C]
+    xr = spmd.replicate_over(x, part)
+    x_pad = torch.cat([xr, xr.new_zeros((B, 1, D))], dim=1)
     rows = torch.arange(B, device=dev)[:, None]
-    xe = x_pad[rows, slot_tok.reshape(B, E * C)].reshape(B, E, C, D)
+    xe = x_pad[rows, slot_tok.reshape(B, E_loc * C)].reshape(
+        B, E_loc, C, D)
+    xe = constrain(xe, "batch", "experts", "expert_cap", "embed")
 
     h1 = torch.einsum("becd,edf->becf", xe, p["w1"].to(xe.dtype))
     h3 = torch.einsum("becd,edf->becf", xe, p["w3"].to(xe.dtype))
-    h = _act(h1, act) * h3
-    gidx = gate_idx * C + torch.clamp(pos_k, 0, C - 1)          # (B,S,K)
+    h = constrain(_act(h1, act) * h3, "batch", "experts", "expert_cap",
+                  "mlp")
+    gates = spmd.replicate_over(gate_vals, part)
+    local = gate_idx
+    if e_ax is not None:
+        # the rank's experts: a choice of another rank's expert reads row
+        # 0 of this rank's table and weighs it 0
+        local = gate_idx - e0
+        gates = gates * ((local >= 0) & (local < E_loc)).to(gates.dtype)
+        local = local.clamp(0, E_loc - 1)
+    gidx = local * C + torch.clamp(pos_k, 0, C - 1)             # (B,S,K)
     gather_rows = gidx.reshape(B, S * top_k)
     if combine_first:
         Fh = h.shape[-1]
-        hk = h.reshape(B, E * C, Fh)[rows, gather_rows].reshape(
+        hk = h.reshape(B, E_loc * C, Fh)[rows, gather_rows].reshape(
             B, S, top_k, Fh)
-        onehot_g = F.one_hot(gate_idx, E).to(hk.dtype) * \
-            gate_vals[..., None].to(hk.dtype)                   # (B,S,K,E)
+        onehot_g = F.one_hot(local, E_loc).to(hk.dtype) * \
+            gates[..., None].to(hk.dtype)                       # (B,S,K,E)
         Gm = torch.einsum("bske,bskf->bsef", onehot_g, hk)
         y = torch.einsum("bsef,efd->bsd", Gm, p["w2"].to(hk.dtype))
     else:
         ye = torch.einsum("becf,efd->becd", h, p["w2"].to(xe.dtype))
-        yk = ye.reshape(B, E * C, D)[rows, gather_rows].reshape(
+        ye = constrain(ye, "batch", "experts", "expert_cap", "embed")
+        yk = ye.reshape(B, E_loc * C, D)[rows, gather_rows].reshape(
             B, S, top_k, D)
-        y = (yk * gate_vals[..., None].to(yk.dtype)).sum(2)
+        y = (yk * gates[..., None].to(yk.dtype)).sum(2)
 
     if "shared" in p:
         sh = p["shared"]
-        g = _act(x @ sh["w1"].to(x.dtype), act) * (x @ sh["w3"].to(x.dtype))
-        y = y + g @ sh["w2"].to(x.dtype)
+        xs = spmd.replicate_over(x, f_ax)
+        g = _act(xs @ sh["w1"].to(x.dtype), act) * \
+            (xs @ sh["w3"].to(x.dtype))
+        y_sh = g @ sh["w2"].to(x.dtype)
+        if e_ax is None:
+            y = y + y_sh
+        else:                   # partial over the FFN axis only
+            y = spmd.reduce_over(y, part) + spmd.reduce_over(y_sh, f_ax)
+            part = None
+    y = spmd.reduce_over(y, part)
 
-    me = probs.mean((0, 1))                                     # (E,)
-    fe = F.one_hot(gate_idx[..., 0], E).float().mean((0, 1))
+    me = spmd.mean_over_batch(probs.mean((0, 1)))               # (E,)
+    fe = spmd.mean_over_batch(F.one_hot(gate_idx[..., 0], E).float()
+                              .mean((0, 1)))
     aux = E * (me * fe).sum()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
-    dropped = 1.0 - keep.float().mean()
-    return y.to(x.dtype), {"aux_loss": aux, "z_loss": z,
-                           "drop_frac": dropped}
+    z = spmd.mean_over_batch(torch.logsumexp(logits, dim=-1).square()
+                             .mean())
+    dropped = 1.0 - spmd.mean_over_batch(keep.float().mean())
+    y = constrain(y.to(x.dtype), "batch", "seq", "embed")
+    return y, {"aux_loss": aux, "z_loss": z, "drop_frac": dropped}

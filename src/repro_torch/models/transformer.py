@@ -34,6 +34,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6,
                                      ModelConfig)
 from repro_torch.core.routing import as_routes
 from repro_torch.device import resolve_device
+from repro_torch.launch import spmd
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -260,15 +261,18 @@ class LMModel:
             return batch["embeds"].to(self.compute_dtype)
         return L.embed(params["embed"], batch["tokens"],
                        scale_by_dim=self.cfg.embed_scale,
-                       compute_dtype=self.compute_dtype)
+                       compute_dtype=self.compute_dtype,
+                       vocab=self.cfg.vocab_size)
 
     def _logits(self, params, h):
         cfg = self.cfg
         h = L.norm(params["final_norm"], h, eps=cfg.norm_eps)
         if cfg.tie_embeddings:
             return L.logits_from_embed(params["embed"]["table"], h,
-                                       softcap=cfg.final_softcap)
-        return L.lm_head(params["lm_head"], h, softcap=cfg.final_softcap)
+                                       softcap=cfg.final_softcap,
+                                       vocab=cfg.vocab_size)
+        return L.lm_head(params["lm_head"], h, softcap=cfg.final_softcap,
+                         vocab=cfg.vocab_size)
 
     def _run_layers(self, params, x, ropes, cache=None, t=None, tpos=None,
                     step=False):
@@ -277,6 +281,7 @@ class LMModel:
         layer is one remat body (``stack.remat``), as each pattern group is in
         the reference."""
         cfg = self.cfg
+        spmd.check_runtime(cfg)
         if cfg.family == "hybrid":
             return self._run_hybrid(params, x, ropes, cache, t, tpos,
                                     step), None
@@ -350,7 +355,8 @@ class LMModel:
         w = params["embed"]["table"] if tied else params["lm_head"]["w"]
         xent, denom = L.chunked_xent(
             h, batch["targets"], w, tied=tied, softcap=cfg.final_softcap,
-            chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
+            chunk=cfg.loss_chunk, mask=batch.get("loss_mask"),
+            vocab=cfg.vocab_size)
         metrics = {"xent": xent, "tokens": denom}
         loss = xent
         if cfg.moe is not None:

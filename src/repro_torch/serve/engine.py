@@ -42,6 +42,16 @@ device's work migrates to a hot spare when one is free (its in-flight slots
 drain and re-admit; greedy decode re-decodes the same tokens); otherwise
 the device degrades in place like the single-device engine.
 
+Tensor-parallel mode: a ``ServeEngine`` built inside ``launch.spmd.spmd``
+serves one rank's shard of the model (its params cut by
+``partition.shard_tree``; its cache the rank's shard of the pool, as
+``make_cache_pspec_fn`` cuts it).  The logits are gathered inside the
+model, so every rank of the model group takes the same token.  With a
+``channel`` (``launch.distributed.EventChannel``) the ranks run one
+RoutingPlan: a stage fault a rank reports (``report_stage_fault``) is
+exchanged at the start of the next engine step and applied on every rank
+before that step's work.
+
 Multi-host mode (``FleetConfig.topology`` + a coordinator) is the
 reference's deterministic replication: every host runs the same scheduling
 loop, executes only its own device block and keeps ``_ShadowWorker``
@@ -68,8 +78,10 @@ from repro_torch.core.fault import FaultState
 from repro_torch.core.oobleck import Dispatcher
 from repro_torch.core.routing import FleetPlan, RoutingPlan, rung_occupancy
 from repro_torch.device import resolve_device
-from repro_torch.launch.distributed import (EventChannel, HostTimeoutError,
-                                            HostTopology, fleet_fingerprint)
+from repro_torch.launch import spmd
+from repro_torch.launch.distributed import (STAGE, EventChannel,
+                                            HostTimeoutError, HostTopology,
+                                            fleet_fingerprint)
 from repro_torch.models import build_model, compute_params
 from repro_torch.obs import metrics
 from repro_torch.obs import trace as obs_trace
@@ -285,12 +297,17 @@ class ServeEngine(_SlotPool):
     ``template`` (the fleet's first engine): they share its device, its
     cast weights, its route-free shape model and its resident health
     list, and keep only their own pool state (``params`` is then
-    unused)."""
+    unused).
+
+    Built inside ``launch.spmd.spmd``, ``params`` is the rank's shard and
+    the engine one rank of a tensor-parallel model group; ``channel`` (an
+    ``EventChannel`` over the group's ranks) agrees their stage faults
+    (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
                  device=None, classifier=None,
                  dispatchers: Optional[Tuple[Dispatcher, Dispatcher]] = None,
-                 template: Optional["ServeEngine"] = None):
+                 template: Optional["ServeEngine"] = None, channel=None):
         if scfg.failover not in (RECOMPILE, RESIDENT):
             raise ValueError(f"unknown failover mode {scfg.failover!r}; "
                              f"expected {RECOMPILE!r} or {RESIDENT!r}")
@@ -299,6 +316,18 @@ class ServeEngine(_SlotPool):
         self.classifier = classifier   # core.fault.FaultClassifier | None
         self.fault_state = FaultState()
         self.stage_names = model_stage_names(cfg)
+        self.channel = channel
+        self._reported: List[Tuple] = []
+        # an observer of every prefill's and tick's last-position logits:
+        # ``on_logits(kind, logits)``, kind "prefill" or "tick"; tokens it
+        # returns (not None) replace the greedy ones (teacher forcing)
+        self.on_logits = None
+        if spmd.current() is not None:
+            spmd.check_runtime(cfg)
+            if spmd.current().batch_axis() is not None:
+                raise ValueError("a tensor-parallel ServeEngine is one model "
+                                 "group: its mesh's batch axes must have "
+                                 "one rank")
         if template is not None:
             self.device = template.device
             self._shape_model = template._shape_model
@@ -325,8 +354,8 @@ class ServeEngine(_SlotPool):
     def reset_pool(self):
         """Fresh slot pool: no admitted sequences, full capacity."""
         S = self.scfg.max_slots
-        self._caches = self._shape_model.init_cache(S, self.scfg.max_len,
-                                                    device=self.device)
+        self._caches = spmd.init_cache(self._shape_model, S,
+                                       self.scfg.max_len, device=self.device)
         self._toks = torch.zeros((S, 1), dtype=torch.long,
                                  device=self.device)
         self._tvec: List[int] = [0] * S
@@ -384,6 +413,31 @@ class ServeEngine(_SlotPool):
             return True
         return False
 
+    def report_stage_fault(self, stage: str):
+        """A stage fault this rank saw: with a ``channel`` it takes effect
+        on every rank at the next engine step (``agree_faults``); without
+        one, at once."""
+        if stage not in self.stage_names:
+            raise ValueError(f"unknown stage {stage!r}; this model's stages:"
+                             f" {self.stage_names}")
+        if self.channel is None:
+            self.fault_state.mark(stage, 0, kind="detected")
+        else:
+            self._reported.append((STAGE, 0, stage))
+
+    def agree_faults(self, step: int) -> List[str]:
+        """Exchange the stage faults reported since the last step over the
+        channel and mark each on this rank; returns the agreed stages (the
+        same list on every rank).  A no-op without a channel."""
+        if self.channel is None:
+            return []
+        events, self._reported = self._reported, []
+        agreed = [ev.stage for ev in self.channel.exchange(step, events)
+                  if ev.kind == STAGE]
+        for stage in agreed:
+            self.fault_state.mark(stage, 0, kind="agreed", step=step)
+        return agreed
+
     # ------------------------------------------------------------ builds
     def _build(self, plan: RoutingPlan):
         """One "compile": the model under ``plan``.  Resident mode builds it
@@ -422,6 +476,9 @@ class ServeEngine(_SlotPool):
         logits, _ = model.prefill(self.params, {"tokens": prompt,
                                                 "cache": lane})
         first = logits[:, -1].argmax(-1)                   # (1,)
+        if self.on_logits is not None:
+            forced = self.on_logits("prefill", logits[:, -1])
+            first = first if forced is None else forced
         self._toks[i] = first
         self._tvec[i] = P
         self._slots[i] = _Slot(rid=req.rid, prompt_len=len(req.prompt),
@@ -448,6 +505,9 @@ class ServeEngine(_SlotPool):
         logits, _ = model.decode_step(self.params, self._caches, self._toks,
                                       self._tvec)
         nxt = logits[:, -1].argmax(-1)                      # (S,)
+        if self.on_logits is not None:
+            forced = self.on_logits("tick", logits[:, -1])
+            nxt = nxt if forced is None else forced
         nxt_host = nxt.tolist()                             # waits for it
         dt = time.perf_counter() - t0
         metrics.observe("serve_decode_tick_seconds", dt)
@@ -1006,6 +1066,7 @@ class EngineSession(ServeSession):
                              "events; use ServeEngine.inject_fault (or "
                              "serve's fault_at_step)")
         eng, step = self.engine, self.step_count
+        agreed = eng.agree_faults(step)
         now = time.perf_counter()
         self._mark_eligible(now)
         # admission: arrived requests claim free slots (join)
@@ -1016,6 +1077,8 @@ class EngineSession(ServeSession):
                       self._completions)
             self.stats["admitted"] += 1
         tick = eng.decode_tick(step, self._completions)
+        if agreed:
+            tick["agreed_faults"] = agreed
         self.step_count += 1
         if tick["active"]:
             self._decode_keys.add(tick["key"])

@@ -1,0 +1,111 @@
+"""One gloo rank of ``tests/test_torch_spmd.py`` (started by that module,
+one process per rank, as ``tests/test_torch_distributed.py`` starts its
+two).
+
+    python -c "import _torch_spmd_worker as w; w.main(sys.argv[1:])" JSON
+
+JSON: rank, world, port, mesh (D, M), out (a directory), cases.  Each
+case names a reduced config, a ``torch.save``d full param tree (the
+reference's, converted by ``params_from_jax``), a route, optionally the
+param axes (``partition.DEFAULT_AXES`` by default) and what to run
+(prefill + teacher-forced decode, a train step's loss and gradients, the
+teacher-forced logits); the rank runs it on its shards under
+``launch.spmd.spmd`` and saves what it got to ``out/rank<r>.pt``.
+"""
+import dataclasses
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+def _tokens(seed, shape):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 512, size=shape).astype(np.int64))
+
+
+def run_case(case, mesh, coords):
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import RoutingPlan
+    from repro_torch.launch import partition, spmd
+    from repro_torch.models import build_model
+    from repro_torch.train.runner import model_stage_names, value_and_grad
+    from repro_torch.viscosity.lang import tree_leaves
+
+    cfg = dataclasses.replace(get_config(case["arch"]), dtype="float32")
+    routes = None
+    if case["route"] != "sw":
+        routes = RoutingPlan.for_stages(model_stage_names(cfg),
+                                        target=case["route"])
+    model = build_model(cfg, routes=routes)
+    full = torch.load(case["params"])
+    local = partition.shard_tree(
+        full, partition.params_pspecs(full, mesh, case.get("axes")), mesh,
+        coords)
+    local = partition.map_with_path(local, lambda _, t: t.clone())
+    nd = mesh.axis_sizes["data"]
+    B, P, T = case["batch"], case["prompt"], case["decode"]
+    rows = slice(coords["data"] * (B // nd), (coords["data"] + 1) * (B // nd))
+    out = {}
+    if "prefill" in case["run"]:
+        toks = _tokens(case["seed"], (B, P + T))[rows]
+        cache = spmd.init_cache(model, B, P + T,
+                                device=torch.device("cpu"))
+        lg, cache = model.prefill(local, {"tokens": toks[:, :P],
+                                          "cache": cache})
+        out["prefill"] = lg
+        for i in range(T):
+            lg, cache = model.decode_step(local, cache,
+                                          toks[:, P + i:P + i + 1], P + i)
+            out[f"decode{i}"] = lg
+        out["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(cache))
+    if "train" in case["run"]:
+        toks = _tokens(case["seed"] + 1, (B, P))[rows]
+        tgt = _tokens(case["seed"] + 2, (B, P))[rows]
+        (loss, metrics), grads = value_and_grad(
+            model.forward, local, {"tokens": toks, "targets": tgt})
+        spmd.sync_grads(grads)
+        out["loss"], out["metrics"], out["grads"] = loss, metrics, grads
+    if "logits" in case["run"]:
+        toks = _tokens(case["seed"] + 3, (B, P))[rows]
+        out["logits"] = model.logits_all(local, {"tokens": toks})
+    return out
+
+
+def main(argv):
+    a = json.loads(argv[0])
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import partition, spmd
+    from repro_torch.launch.distributed import (initialize_runtime,
+                                                shutdown_runtime)
+    from repro_torch.launch.mesh import make_mesh
+
+    rank, world = a["rank"], a["world"]
+    initialize_runtime(f"127.0.0.1:{a['port']}", world, rank,
+                       backend="gloo", timeout_s=300)
+    mesh = make_mesh(tuple(a["mesh"]), ("data", "model"),
+                     devices=[torch.device("cpu")] * world)
+    comm = spmd.GroupComm(mesh, rank)
+    coords = spmd.rank_coords(mesh, rank)
+    res = {"coords": coords}
+    for case in a["cases"]:
+        cfg = get_config(case["arch"])
+        comm.log.reset()
+        with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
+                       case.get("axes") or partition.DEFAULT_AXES, coords,
+                       comm, dims=spmd.logical_sizes(cfg)):
+            res[case["name"]] = run_case(case, mesh, coords)
+        res[case["name"]]["collectives"] = comm.log.snapshot()
+    torch.save(res, f"{a['out']}/rank{rank}.pt")
+    dist.barrier()
+    shutdown_runtime()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -474,3 +474,34 @@ def test_tuning_phase_plans_on_the_cpu(tmp_path):
             sw_plan(*narrow).knobs(), False)
     finally:
         tuning.reset()
+
+
+def test_tp_phase_on_the_cpu(monkeypatch):
+    """Phase 15's wiring at the reduced config on four gloo ranks of the
+    CPU: the ranks agree, demote the stage at the fault step together,
+    hold the unsharded engine's logits before it, call the wrappers at the
+    shard shapes as often as the card's counts want, and move the bytes a
+    tick the dry run's stub counts."""
+    from repro_torch.launch.tp_serve import TPServeSpec
+    from repro_torch.viscosity import HW
+
+    def spec():
+        return TPServeSpec(arch="qwen1.5-4b", layers=2, dtype="bfloat16",
+                           hw_route=HW, fault_step=chip_smoke.TP_FAULT_STEP,
+                           fault_rank=chip_smoke.TP_FAULT_RANK,
+                           **{**chip_smoke.TP_WORKLOAD, "min_prompt": 8,
+                              "max_prompt": 16})
+    monkeypatch.setattr(chip_smoke, "tp_spec", spec)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    counters = {name: types.SimpleNamespace(launches=0)
+                for name in ("checksum", "flash_attention", "swiglu_mlp")}
+    entry, launches = chip_smoke.tp_phase(torch.device("cpu"), counters,
+                                          "cpu", count="kernel_calls")
+    cfg = spec().config()
+    assert len(entry["ranks"]) == 4 and entry["layers"] == cfg.num_layers
+    assert launches["flash_attention"] > 0 and launches["swiglu_mlp"] > 0
+    assert launches["checksum"] == 0
+    assert set(entry["stub_tick_bytes"]) == {"all-reduce", "all-gather"}
+    assert all(r["logits_rel_max"] <= chip_smoke.LOGITS_REL
+               for r in entry["ranks"])

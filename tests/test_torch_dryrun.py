@@ -293,3 +293,108 @@ def test_moe_ffn_runs_on_meta(top_k, shared):
     assert y.device.type == "meta" and y.shape == x.shape
     assert y.dtype == torch.bfloat16
     assert set(aux) == {"aux_loss", "z_loss", "drop_frac"}
+
+
+# ------------------------------------------------------------ --mesh cells
+def _spec_bytes(tree, specs, sizes):
+    """The rank's bytes of ``tree`` under ``specs``: each leaf's size over
+    the ranks of the axes its spec names."""
+    from repro_torch.launch import partition
+    flat = partition.flatten(specs)
+    return sum(int(np.prod(partition.local_shape(t.shape, flat[p], sizes)))
+               * t.element_size()
+               for p, t in partition.flatten(tree).items())
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+def test_sharded_cell_bytes_and_collectives(shape, tmp_path):
+    """A (1, 2) reduced dense cell (qwen1.5-4b-smoke): per-device param,
+    optimiser and cache bytes equal the shard sums of ``params_pspecs``
+    and ``make_cache_pspec_fn`` exactly; the collective bytes equal the
+    dense transformer's count (per layer an all-reduce after ``wo`` and
+    one after the MLP, one after the vocab-sharded embedding lookup, all
+    in f32; the logits gathered in the compute dtype; decode also gathers
+    each layer's sequence-cut positions); twice the counted FLOPs are no
+    fewer than the unsharded cell's."""
+    from repro_torch.launch import partition
+    from repro_torch.models import (compute_params, decode_state_specs,
+                                    prefill_batch_specs)
+    arch = "qwen1.5-4b-smoke"
+    cfg, spec = get_config(arch), SMOKE_SHAPES[shape]
+    rec = dryrun.run_cell(arch, shape, out_dir=str(tmp_path),
+                          shapes=SMOKE_SHAPES, mesh="1x2")
+    one = dryrun.run_cell(arch, shape, 1, out_dir=str(tmp_path),
+                          shapes=SMOKE_SHAPES)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["chips"] == 2 and rec["mesh"] == "1x2"
+    sizes = {"data": 1, "model": 2}
+    model = build_model(cfg)
+    p = params_specs(model)
+    pspecs = partition.params_pspecs(p, sizes)
+    B, S, L, D, V = (spec.global_batch, spec.seq_len, cfg.num_layers,
+                     cfg.d_model, cfg.vocab_size)
+    coll = rec["collectives"]["bytes_by_kind"]
+    if spec.kind == "train":
+        n = _spec_bytes(p, pspecs, sizes)
+        assert rec["bytes"]["params"] == n
+        assert rec["bytes"]["opt_state"] == 2 * n + 4   # f32 moments, count
+        assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+    else:
+        cp = compute_params(p, model.compute_dtype)
+        assert rec["bytes"]["params"] == _spec_bytes(cp, pspecs, sizes)
+        cache = (prefill_batch_specs(cfg, model, B, S)["cache"]
+                 if spec.kind == "prefill"
+                 else decode_state_specs(cfg, model, B, S)[0])
+        cspecs = partition.tree_pspecs(cache, sizes,
+                                       partition.make_cache_pspec_fn(B, sizes))
+        assert rec["bytes"]["cache"] == _spec_bytes(cache, cspecs, sizes)
+        assert rec["bytes"]["cache"] * 2 == _spec_bytes(
+            cache, partition.tree_pspecs(cache, sizes,
+                                         lambda *_: partition.P()), sizes)
+        rows = S if spec.kind == "prefill" else 1
+        assert coll["all-reduce"] == (2 * L + 1) * B * rows * D * 4
+        gathers = B * V * 2
+        if spec.kind == "decode":
+            gathers += L * B * S * 4          # the positions, int32
+        assert coll["all-gather"] == gathers
+    assert rec["roofline"]["collective_s"] > 0
+    assert rec["collectives"]["within_node"] == {"model": True}
+    assert 2 * rec["flops_per_dev"] >= one["flops_per_dev"]
+    assert reanalyze.reanalyze(rec) == rec
+
+
+def test_hybrid_cell_under_a_model_axis_is_a_skip_with_spec_bytes(tmp_path):
+    from repro_torch.launch import partition
+    rec = dryrun.run_cell("zamba2-1.2b-smoke", "train_4k",
+                          out_dir=str(tmp_path), shapes=SMOKE_SHAPES,
+                          mesh="1x2")
+    assert rec["status"] == "skip" and "packed projections" in rec["reason"]
+    p = params_specs(build_model(get_config("zamba2-1.2b-smoke")))
+    n = _spec_bytes(p, partition.params_pspecs(p, {"data": 1, "model": 2}),
+                    {"data": 1, "model": 2})
+    assert rec["bytes"]["params"] == n == rec["spec_bytes"]["params"]
+    assert rec["bytes"]["opt_state"] == 2 * n + 4
+
+
+def test_hillclimb_base_against_a_variant(tmp_path, capsys):
+    """``attn2d`` on the reduced qwen1.5-4b: its mesh, rules and axes
+    reach ``run_cell`` as arguments; the table prints; a knob the port
+    lacks raises naming it."""
+    from repro_torch.launch import hillclimb
+    from repro_torch.launch.variants import VARIANTS
+    base = dryrun.run_cell("qwen1.5-4b-smoke", "train_4k",
+                           out_dir=str(tmp_path), shapes=SMOKE_SHAPES,
+                           mesh="single")
+    var = hillclimb.run_variant("qwen1.5-4b-smoke", "train_4k", "attn2d",
+                                out_dir=str(tmp_path), shapes=SMOKE_SHAPES)
+    assert base["status"] == var["status"] == "ok"
+    assert var["mesh_shape"] == dict(zip(VARIANTS["attn2d"]["mesh_axes"],
+                                         VARIANTS["attn2d"]["mesh_shape"]))
+    assert var["rules"]["heads"] == "model_h"
+    assert (tmp_path / "qwen1.5-4b-smoke__train_4k__single@attn2d.json"
+            ).exists()
+    hillclimb.compare(base, var, "qwen1.5-4b-smoke/train_4k + attn2d")
+    assert "collective_s" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="zero1"):
+        hillclimb.run_variant("qwen1.5-4b-smoke", "train_4k", "zero1",
+                              out_dir=str(tmp_path), shapes=SMOKE_SHAPES)
