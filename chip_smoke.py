@@ -38,19 +38,23 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              (S = 4096, groups of 16 chunks), B = 4 with S = 512, a ragged
              S = 100 padded to 112, B = 2 with S = 200, a short S = 7 (one
              chunk of L = 7), the smoke width
-             K = V = 32, a narrow V = 40, and lw = -4 on every token (the
-             clamp bound, where the factorization's e^64 factors appear);
+             K = V = 32, a narrow V = 40, lw = -4 on every token (the
+             clamp bound, where the factorization's e^64 factors appear),
+             and phase 15's rank (8 of the 32 heads) at S = 512 and 77;
              and two calls give the same bits.
              Then the Mamba2 SSD (against its blocked plain version and
              the token-by-token scan, healthy and under each lane-fault
              kind): three chunks of
              128 at zamba2-1.2b's (H, P, N) = (64, 64, 64), 16 chunks
              (S = 2048), B = 4 with S = 384, one unpadded
-             chunk of 100, B = 2 with padding (S = 200), and a narrow
-             P = 40 (also under a gain of 2); two calls give the same
-             bits; and on x, B and C cut as strided views from one xbc
-             tensor, as ``models/mamba2.py`` passes them, it reads them in
-             place and equals its run on contiguous copies bit for bit.
+             chunk of 100, B = 2 with padding (S = 200), a narrow
+             P = 40 (also under a gain of 2), and phase 15's rank (16 of
+             the 64 heads) at S = 384 and at one chunk of 16 and of 77;
+             two calls give the same bits; and on x, B and C cut as
+             strided views from one xbc tensor, as ``models/mamba2.py``
+             passes them, and on a rank's x (a view of its 1056-wide conv
+             output) with the gathered B and C, it reads them in place and
+             equals its run on contiguous copies bit for bit.
              Then flash attention on strided
              (B, S, H, D) views, as the model passes them, against
              ``attention_ref_blocked`` on padded contiguous copies, healthy
@@ -76,14 +80,16 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              P = 128 and at its image prefill's 288; phase 14's
              serve_with_faults, the reduced qwen1.5-4b's 4 heads of 32 at
              each of its workload's prompt lengths and the shortest it may
-             draw, 6; phase 15's tensor-parallel rank, qwen1.5-4b's 5 of 20
-             heads at P = 16, 77 and 128); and its bits: two
+             draw, 6; phase 15's tensor-parallel ranks, qwen1.5-4b's 5 of 20
+             heads at P = 16, 77 and 128 and zamba2-1.2b's 8 of 32 at
+             P = 16, 128 and 384); and its bits: two
              calls, the contiguous (B, H, S, D) copies and
              ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200}; its
              tensor-parallel rank's 2560 -> 1728 -> 2560 partial sum
              (phase 15): M in {1, 4, 128};
-             zamba2-1.2b 2048 -> 8192: M in {4, 384}; qwen1.5-4b with w2
+             zamba2-1.2b 2048 -> 8192: M in {4, 384}, and its rank's
+             2048 -> 2048 -> 2048: M in {4, 384}; qwen1.5-4b with w2
              sliced to 61 lanes: M in {4, 200}; the canary stage's (64, 64)
              x (64, 128) x (128, 64), which is lane_fault_smoke's, and its
              w2 sliced to 62 lanes, as that example's reduced-width run
@@ -93,9 +99,9 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              2304 -> 9216, and gemma3-1b's GeGLU 1152 -> 6912: M in {4,
              128, 4200}, the last their ring prefill's; qwen2-vl-7b's
              SwiGLU 3584 -> 18944: M in {4, 128, 288}, the last its image
-             prefill's), then SwiGLU's bits (qwen1.5-4b, zamba2-1.2b,
-             mistral-nemo-12b, gemma3-1b, qwen2-vl-7b, serve_with_faults'
-             reduced qwen1.5-4b): each row of an
+             prefill's), then SwiGLU's bits (qwen1.5-4b, zamba2-1.2b, both
+             ranks, mistral-nemo-12b, gemma3-1b, qwen2-vl-7b,
+             serve_with_faults' reduced qwen1.5-4b): each row of an
              M = 4 row-independent call equals that row alone, and two
              runs agree, at decode and at prefill;
 3. cases   — the paper's case studies on the card: FFT-64 over (2^20, 64)
@@ -357,29 +363,40 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              ``max_memory_allocated``; the achieved TFLOP/s from its
              counted FLOPs over phase 8's median step.
 15. tp     — tensor-parallel serving (``launch/spmd.py``,
-             ``launch/tp_serve.py``): qwen1.5-4b at full width and
-             ``TP_LAYERS`` (8) of its 40 layers over a (1, 4) ("data",
-             "model") mesh, four gloo ranks on the one card (NCCL refuses
-             ranks that share it), each serving its shard (seeded bf16
-             weights cut by ``partition.shard_tree``: 5 of 20 heads, 1728
-             of 6912 d_ff columns, a quarter of the vocab and of the KV
-             heads) through ``ServeEngine`` on route hw: 4 requests of
-             16-128 prompt tokens on 4 slots; a lane fault on rank 1's
-             ``swiglu_mlp`` at step 6, found by its canary and agreed
-             through ``EventChannel``.  First this process serves the same
-             workload on one unsharded HW engine of the same weights.
+             ``launch/tp_serve.py``) over a (1, 4) ("data", "model") mesh,
+             four gloo ranks on the one card (NCCL refuses ranks that
+             share it), each serving its shard (seeded bf16 weights cut by
+             ``partition.shard_tree``, Mamba2's packed leaves by
+             component) through ``ServeEngine`` on route hw: 4 requests of
+             16-128 prompt tokens on 4 slots; a lane fault on rank 1's own
+             kernel stage at step 6, found by its canary and agreed
+             through ``EventChannel``.  Model by model (``TP_LAYERS``):
+             qwen1.5-4b at full width and 8 of 40 layers (5 of 20 heads,
+             1728 of 6912 d_ff columns, a quarter of the vocab and of the
+             KV heads; the fault on ``swiglu_mlp``), zamba2-1.2b at 12 of
+             38 (two groups of six Mamba2 layers and the shared block: 16
+             of 64 SSD heads, 8 of 32 attention heads, 2048 of 8192 d_ff
+             columns; ``mamba2_ssd``) and rwkv6-1.6b at 6 of 24 (8 of 32
+             WKV heads; ``rwkv6_wkv``).  First this process serves the
+             same workload on one unsharded HW engine of the same weights.
              Checks: every rank emits the same tokens; each rank's
              gathered logits within ``LOGITS_REL`` of the unsharded
              engine's at every prefill and tick before the fault (the
              ranks are fed the unsharded run's tokens until then, so a
-             near-tie cannot fork the streams compared); every rank
-             demotes the stage at step 6; each rank launches attention
-             (at 5 heads) once a layer a prefill and SwiGLU (2560 -> 1728
-             -> 2560) once a layer a call until the fault (the faulted
-             rank's canary once more); each tick's collective bytes on the
-             process group equal the dry run's counting stub for the same
-             cell and depth.  Each rank's prefill and tick ms print with
-             the card's name and power limit (rehearsed on the CPU by
+             near-tie cannot fork the streams compared) — for rwkv6-1.6b,
+             as phase 5 holds it, each layer's time-mix on the rank (HW,
+             sharded) within ``LOGITS_REL`` of the unsharded SW one from
+             the same input, and the first prefill's logits no further
+             from the f32 model's than 1.25 times the bf16 SW route's;
+             every rank demotes the stage at step 6; each rank launches
+             attention once a layer a prefill, SwiGLU once a layer a call
+             (until the fault where it is the faulted stage), the SSD or
+             the WKV once a layer a prefill until the fault, the faulted
+             rank's canary once more, each at the rank's shapes; each
+             tick's collective bytes on the process group equal the dry
+             run's counting stub for the same cell and depth.  Each rank's
+             prefill and tick ms print, and the phase's seconds with the
+             card's name and power limit (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).  Then the seconds of every
              phase.
 
@@ -389,9 +406,10 @@ set to 0 just before that path: each model's serve, probes included, the
 case studies, the fleet runs, the two ranks of phase 9, the chaos
 campaigns, each phase-11 model's serve, ring prefill and image
 prefill, phase 12's decode, faulted run and probes, phase 13's three
-serves, each phase-14 example's process, and phase 15's ranks and its
-unsharded run; the attention and SwiGLU entries also carry the shard
-shapes' times, ``tp_shapes``, and the ranks' launches, ``tp_launches``);
+serves, each phase-14 example's process, and phase 15's ranks and
+unsharded run of each model; the attention, SwiGLU, SSD and WKV entries
+also carry the shard shapes' times, ``tp_shapes``, and every entry the
+ranks' launches by model, ``tp_launches``);
 the last line is ``{"ok": true, "device": {...}}``.  Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -497,6 +515,16 @@ ATTN_CASES = (
     (1, 77, 77, 5, 5, 128, 128, dict(causal=True)),
     (1, 128, 128, 5, 5, 128, 128, dict(causal=True)),
 )
+# The rank shapes phase 15's zamba2-1.2b and rwkv6-1.6b add, held after
+# every case above (each case draws its inputs from one generator in
+# turn, so the cases above keep their draws): zamba2's shared block (8 of
+# its 32 heads of 64) at the workload's shortest and longest prompts and
+# at its unsharded serve's P = 384
+TP_ATTN_CASES = (
+    (1, 16, 16, 8, 8, 64, 64, dict(causal=True)),
+    (1, 128, 128, 8, 8, 64, 64, dict(causal=True)),
+    (1, 384, 384, 8, 8, 64, 64, dict(causal=True)),
+)
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
 # the same bf16 inputs in other summation orders; y is then rounded to bf16
@@ -520,12 +548,20 @@ WKV_CASES = ((1, 512, 32, 64, 64, False), (1, 4096, 32, 64, 64, False),
              (2, 200, 32, 64, 64, False), (1, 7, 32, 64, 64, False),
              (1, 128, 4, 32, 32, False), (1, 128, 32, 64, 40, False),
              (1, 128, 32, 64, 64, True))
+# phase 15's rank: 8 of rwkv6-1.6b's 32 heads, at the prefill shape and at
+# a ragged served prompt
+TP_WKV_CASES = ((1, 512, 8, 64, 64, False), (1, 77, 8, 64, 64, False))
 # (B, S, H, P, N): three chunks at zamba2-1.2b's prefill, 16 chunks, B = 4,
 # one unpadded chunk of 100, B = 2 padded to 256 (dt = 0), a narrow P
 # (also under a gain of 2)
 SSD_CASES = ((1, 384, 64, 64, 64), (1, 2048, 64, 64, 64),
              (4, 384, 64, 64, 64), (1, 100, 64, 64, 64),
              (2, 200, 64, 64, 64), (1, 384, 64, 40, 64))
+# phase 15's rank (16 of the 64 heads) at the prefill shape and at its
+# served prompts' one chunk of 16 and of 77 tokens (a chunk shorter than
+# the 64-row tile)
+TP_SSD_CASES = ((1, 384, 16, 64, 64), (1, 16, 16, 64, 64),
+                (1, 77, 16, 64, 64))
 # HW against SW logits after every bf16 layer: each route rounds its
 # activations to bf16 at other points, so the logits drift apart by a few
 # bf16 ulps per layer; 5% of the largest logit bounds that drift.
@@ -3298,25 +3334,29 @@ def _run_examples(cfg, t1, outputs, t0, timeout):
     return entry, ended, {name: p.returncode for name, (p, _) in procs.items()}
 
 
-# Phase 15: tensor-parallel serving.  qwen1.5-4b at full width and
-# TP_LAYERS of its 40 layers over a (1, 4) ("data", "model") mesh: four
-# gloo ranks on the one card, each serving its shard (5 of 20 heads, 1728
-# of 6912 d_ff columns, a quarter of the vocab) through ``ServeEngine``
-# under ``launch/spmd.py``; a lane fault on rank TP_FAULT_RANK's
-# ``swiglu_mlp`` at step TP_FAULT_STEP, found by its canary and agreed
-# through ``EventChannel``.
+# Phase 15: tensor-parallel serving over a (1, 4) ("data", "model") mesh:
+# four gloo ranks on the one card, each serving its shard of one model
+# through ``ServeEngine`` under ``launch/spmd.py`` (seeded bf16 weights cut
+# by ``partition.shard_tree``, Mamba2's packed leaves by component), and a
+# lane fault on rank TP_FAULT_RANK's own kernel stage at step
+# TP_FAULT_STEP, found by its canary and agreed through ``EventChannel``.
+# The models and their depths: qwen1.5-4b 8 of 40 layers (5 of 20 heads,
+# 1728 of 6912 d_ff columns; the fault on ``swiglu_mlp``), zamba2-1.2b 12 of
+# 38 (two groups of six Mamba2 layers, each followed by the shared block:
+# 16 of 64 SSD heads, 8 of 32 attention heads, 2048 of 8192 d_ff columns;
+# ``mamba2_ssd``), rwkv6-1.6b 6 of 24 (8 of 32 WKV heads; ``rwkv6_wkv``).
 TP_MESH = (1, 4)
-TP_LAYERS = 8
+TP_LAYERS = {"qwen1.5-4b": 8, "zamba2-1.2b": 12, "rwkv6-1.6b": 6}
 TP_FAULT_STEP, TP_FAULT_RANK = 6, 1
 TP_WORKLOAD = dict(requests=4, slots=4, min_prompt=16, max_prompt=128,
                    min_new=8, max_new=14, arrival_every=1, per_arrival=2)
 TP_TIMEOUT_S = 300
 
 
-def tp_spec():
+def tp_spec(arch: str = "qwen1.5-4b"):
     from repro_torch.launch.tp_serve import TPServeSpec
     from repro_torch.viscosity import HW
-    return TPServeSpec(arch="qwen1.5-4b", full=True, layers=TP_LAYERS,
+    return TPServeSpec(arch=arch, full=True, layers=TP_LAYERS[arch],
                        dtype="bfloat16", seed=0, hw_route=HW,
                        fault_step=TP_FAULT_STEP, fault_rank=TP_FAULT_RANK,
                        **TP_WORKLOAD)
@@ -3339,15 +3379,125 @@ def tp_collectives_stub(spec):
     return rec["collectives"]["bytes_by_kind"]
 
 
-def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
-             count: str = "launches"):
-    """Phase 15 (see the constants above).  The unsharded HW engine of the
-    same weights serves the same workload in this process first; its
-    logits, call by call, are what each rank's gathered logits are held to
-    before the fault.  Returns (report entry, launches of the ranks and of
-    the unsharded run).  ``count`` is what each rank's kernel counts are
-    read from: its wrappers' ``launches``, or on the CPU (where nothing
-    launches) its recorded ``kernel_calls``."""
+def tp_local_shapes(cfg):
+    """What one rank of the (1, 4) mesh holds of ``cfg``: its attention
+    heads and kv heads, its d_ff columns, its SSD or WKV heads."""
+    m = TP_MESH[1]
+    out = {"heads": cfg.num_heads // m, "kv_heads": cfg.num_kv_heads // m,
+           "d_ff": cfg.d_ff // m}
+    if cfg.family == "hybrid":
+        out["ssd_heads"] = cfg.ssm.expand * cfg.d_model // \
+            cfg.ssm.head_dim // m
+    elif cfg.family == "ssm":
+        out["wkv_heads"] = cfg.d_model // cfg.ssm.rwkv_head_dim // m
+    return out
+
+
+def tp_want_launches(cfg, stage, rank, n_pre, n_pre_before, n_before,
+                     n_calls):
+    """A rank's launches of each kernel: a layer's attention a prefill, its
+    scan a prefill until the fault, its SwiGLU a call (until the fault when
+    SwiGLU is the faulted stage); the faulted rank's canary once more on
+    its stage."""
+    L = cfg.num_layers
+    want = dict.fromkeys(("flash_attention", "swiglu_mlp", "mamba2_ssd",
+                          "rwkv6_wkv"), 0)
+    if cfg.family == "hybrid":
+        groups = L // cfg.shared_attn_every
+        want.update(flash_attention=groups * n_pre,
+                    swiglu_mlp=groups * n_calls, mamba2_ssd=L * n_pre_before)
+    elif cfg.family == "ssm":
+        want["rwkv6_wkv"] = L * n_pre_before
+    else:
+        want.update(flash_attention=L * n_pre, swiglu_mlp=L * n_before)
+    want[stage] += rank == TP_FAULT_RANK
+    return want
+
+
+def tp_shape_faults(cfg, shapes):
+    """What of a rank's recorded kernel shapes is not its shard's (empty
+    when every served call ran at the rank's shapes)."""
+    loc, bad = tp_local_shapes(cfg), []
+    if cfg.family != "ssm":
+        if not shapes["flash_attention"] or any(
+                q[1] != loc["heads"] or k[1] != loc["kv_heads"]
+                for q, k in shapes["flash_attention"]):
+            bad.append(f"attention ran at {shapes['flash_attention']}, not "
+                       f"at {loc['heads']} heads")
+        served = [sh for sh in shapes["swiglu_mlp"]
+                  if sh[0][1] == cfg.d_model]     # not the canary's probe
+        if not served or any(w1 != [cfg.d_model, loc["d_ff"]]
+                             or w2 != [loc["d_ff"], cfg.d_model]
+                             for _, w1, w2 in served):
+            bad.append(f"SwiGLU ran at {shapes['swiglu_mlp']}")
+    if cfg.family == "hybrid":
+        served = [sh for sh in shapes["mamba2_ssd"] if sh[0][0] == 1]
+        if not served or any(
+                x[2:] != [loc["ssd_heads"], cfg.ssm.head_dim]
+                or b[1:] != [x[1], cfg.ssm.state_dim] for x, b in served):
+            bad.append(f"the SSD ran at {shapes['mamba2_ssd']}")
+    if cfg.family == "ssm":
+        K = cfg.ssm.rwkv_head_dim
+        served = [sh for sh in shapes["rwkv6_wkv"] if sh[0][0] == 1]
+        if not served or any(r[2:] != [loc["wkv_heads"], K]
+                             or u != [loc["wkv_heads"], K]
+                             for r, u in served):
+            bad.append(f"the WKV ran at {shapes['rwkv6_wkv']}")
+    return bad
+
+
+def tp_rwkv_reference(spec, dev, path):
+    """rwkv6-1.6b's references for the ranks (see ``rwkv_logits`` in
+    ``run``): the first admitted request's prompt through the unsharded
+    model, layer by layer (each layer's input and its SW time-mix, saved
+    to ``path`` for the ranks' ``layer_probe``), and its last-token logits
+    in f32 and on the bf16 SW route."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as Lm
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models.transformer import compute_params
+    from repro_torch.viscosity import SW
+    cfg = spec.config()
+    first = sorted(spec.workload(cfg), key=lambda r: (r.arrival, r.rid))[0]
+    prompt = torch.as_tensor(first.prompt, device=dev).long()[None]
+    gen = torch.Generator(device=dev).manual_seed(spec.seed)
+    params32 = build_model(cfg).init(gen, device=dev)
+    logits = {}
+    with torch.no_grad():
+        for name, dt in (("f32", "float32"), ("sw", "bfloat16")):
+            m = build_model(dataclasses.replace(cfg, dtype=dt),
+                            routes={"rwkv6_wkv": SW})
+            p = params32 if dt == "float32" else compute_params(
+                params32, torch.bfloat16)
+            lg, _ = m.prefill(p, {"tokens": prompt, "cache": m.init_cache(
+                1, prompt.shape[1], device=dev)})
+            logits[name] = lg[0, -1].float().cpu()
+        params = compute_params(params32, torch.bfloat16)
+        del params32
+        x = Lm.embed(params["embed"], prompt)
+        probe = {"x": [], "tm": []}
+        for i in range(cfg.num_layers):
+            p = {k: {n: t[i] for n, t in sub.items()}
+                 for k, sub in params["layers"].items()}
+            h = Lm.norm(p["ln1"], x, eps=cfg.norm_eps)
+            tm = rwkv_mod.time_mix(p["tm"], h, cfg, route=SW)
+            probe["x"].append(x.cpu())
+            probe["tm"].append(tm.float().cpu())
+            x = x + tm
+            x = x + rwkv_mod.channel_mix(
+                p["tm"], Lm.norm(p["ln2"], x, eps=cfg.norm_eps))
+    torch.save(probe, path)
+    return logits
+
+
+def tp_model(arch, dev, wrappers, *, timeout: float, count: str):
+    """Phase 15 for one model: the unsharded HW engine of the same weights
+    serves the same workload in this process first (its logits, call by
+    call, are what each rank's gathered logits are held to before the
+    fault), then the four ranks.  Returns (entry, launches of the ranks,
+    launches of the unsharded run)."""
     import numpy as np
     import torch
 
@@ -3355,100 +3505,155 @@ def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
     from repro_torch.viscosity import HW, SW
 
     t0 = time.perf_counter()
-    spec = tp_spec()
+    spec = tp_spec(arch)
     cfg = spec.config()
-    L, m = cfg.num_layers, TP_MESH[1]
-    H, F_ = cfg.num_heads // m, cfg.d_ff // m
+    stage = spec.fault_stage
     for w in wrappers.values():
         w.launches = 0
     with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
         ref_path = os.path.join(tmp, "ref.pt")
         ref = tp_serve.reference_run(spec, device=dev.type, path=ref_path)
         ref_launches = {n: w.launches for n, w in wrappers.items()}
+        probe = e2e = None
+        if cfg.family == "ssm":
+            probe = os.path.join(tmp, "probe.pt")
+            e2e = tp_rwkv_reference(spec, dev, probe)
         gc.collect()
         torch.cuda.empty_cache()
         t_ranks = time.perf_counter()
         res = tp_serve.launch_ranks(spec, TP_MESH, device=dev.type,
                                     backend=MH_BACKEND, ref_logits=ref_path,
-                                    timeout=timeout, src=str(SRC))
+                                    out_dir=tmp if e2e else None,
+                                    layer_probe_path=probe,
+                                    timeout=timeout,
+                                    src=str(SRC))
         ranks_s = time.perf_counter() - t_ranks
+        first = ([torch.load(os.path.join(tmp, f"logits_{r['rank']}.pt"))[0]
+                  for r in res] if e2e else None)
     stub = tp_collectives_stub(spec)
     bad = tp_serve.check_agreement(res)
-    check(not bad, "tp: " + "; ".join(bad))
-    entry = {"mesh": list(TP_MESH), "layers": L, "backend": MH_BACKEND,
-             "fault": [TP_FAULT_STEP, TP_FAULT_RANK, spec.fault_stage],
+    check(not bad, f"tp {arch}: " + "; ".join(bad))
+    entry = {"layers": cfg.num_layers, "fault": [TP_FAULT_STEP,
+                                                 TP_FAULT_RANK, stage],
              "stub_tick_bytes": stub, "ranks": [],
-             "reference_launches": ref_launches, "nvidia_smi": smi}
+             "reference_launches": ref_launches,
+             "local": tp_local_shapes(cfg)}
+    if e2e:
+        exact = e2e["f32"]
+        scale = exact.abs().max().item()
+        entry["sw_vs_f32_rel"] = (e2e["sw"] - exact).abs().max().item() / \
+            scale
     for r in res:
         before = [c for c in r["calls"] if c["step"] < TP_FAULT_STEP]
         rels = r["logits_rel"][:len(before)]
         check(r["world"] == 4 and r["backend"] == MH_BACKEND,
-              f"tp: rank {r['rank']} is not one of four gloo ranks")
+              f"tp {arch}: rank {r['rank']} is not one of four gloo ranks")
         check(r["fault_applied_step"] == TP_FAULT_STEP
               and r["routes"][:TP_FAULT_STEP] == [HW] * TP_FAULT_STEP
               and set(r["routes"][TP_FAULT_STEP:]) == {SW},
-              f"tp: rank {r['rank']} demoted {spec.fault_stage} at step "
+              f"tp {arch}: rank {r['rank']} demoted {stage} at step "
               f"{r['fault_applied_step']}: routes {r['routes']}")
-        check(len(rels) == len(before) > 0 and max(rels) <= LOGITS_REL,
-              f"tp: rank {r['rank']}'s gathered logits against the "
-              f"unsharded engine's before the fault: {rels}")
-        n_pre = sum(c["kind"] == "prefill" for c in r["calls"])
-        # a layer's kernel a prefill (attention) or a call (SwiGLU, until
-        # the fault); the faulted rank's canary probe launches SwiGLU once
-        want = {"flash_attention": L * n_pre,
-                "swiglu_mlp": L * len(before)
-                + (r["rank"] == TP_FAULT_RANK)}
-        check(r[count] == want,
-              f"tp: rank {r['rank']} launched {r[count]}, want {want}")
-        shapes = r["kernel_shapes"]
-        check(shapes["flash_attention"] and all(
-                  q[1] == H and k[1] == H
-                  for q, k in shapes["flash_attention"]),
-              f"tp: attention ran at {shapes['flash_attention']}, not at "
-              f"{H} heads")
-        served = [sh for sh in shapes["swiglu_mlp"]
-                  if sh[0][1] == cfg.d_model]     # not the canary's probe
-        check(served and all(w1 == [cfg.d_model, F_]
-                             and w2 == [F_, cfg.d_model]
-                             for _, w1, w2 in served),
-              f"tp: SwiGLU ran at {shapes['swiglu_mlp']}")
-        ticks = [c for c in r["calls"] if c["kind"] == "tick"]
+        row = {"coords": r["coords"], "logits_rel_max": max(rels or [0.0])}
+        if e2e is None:
+            check(len(rels) == len(before) > 0 and max(rels) <= LOGITS_REL,
+                  f"tp {arch}: rank {r['rank']}'s gathered logits against "
+                  f"the unsharded engine's before the fault: {rels}")
+        else:
+            # rwkv6-1.6b amplifies bf16 rounding layer by layer: each
+            # layer's time-mix on the rank (HW, sharded) against the
+            # unsharded SW one from the same input within LOGITS_REL, and
+            # the first prefill's logits no further from the f32 model's
+            # than 1.25 times the bf16 SW route's
+            err = (first[r["rank"]][0].float() - exact).abs().max().item() \
+                / scale
+            row.update(layer_time_mix_rel=r["layer_rel"],
+                       hw_vs_f32_rel=err)
+            check(len(rels) == len(before) > 0,
+                  f"tp {arch}: rank {r['rank']} made no call before the "
+                  "fault")
+            check(len(r["layer_rel"]) == cfg.num_layers
+                  and max(r["layer_rel"]) <= LOGITS_REL,
+                  f"tp {arch}: rank {r['rank']}'s time-mix against the "
+                  f"unsharded SW one, layer by layer: {r['layer_rel']}")
+            check(err <= 1.25 * entry["sw_vs_f32_rel"],
+                  f"tp {arch}: rank {r['rank']}'s prefill logits are "
+                  f"{err:.3e} from the f32 model's, the bf16 SW route's "
+                  f"{entry['sw_vs_f32_rel']:.3e}")
+        calls = r["calls"]
+        n_pre = sum(c["kind"] == "prefill" for c in calls)
+        n_pre_before = sum(c["kind"] == "prefill" for c in before)
+        want = tp_want_launches(cfg, stage, r["rank"], n_pre, n_pre_before,
+                                len(before), len(calls))
+        got = {k: r[count].get(k, 0) for k in want}
+        check(got == want,
+              f"tp {arch}: rank {r['rank']} launched {got}, want {want}")
+        shape_bad = tp_shape_faults(cfg, r["kernel_shapes"])
+        check(not shape_bad, f"tp {arch}: rank {r['rank']}: "
+              + "; ".join(shape_bad))
+        ticks = [c for c in calls if c["kind"] == "tick"]
         check(ticks and all(c["bytes"] == stub for c in ticks),
-              f"tp: rank {r['rank']}'s collective bytes a tick "
+              f"tp {arch}: rank {r['rank']}'s collective bytes a tick "
               f"{[c['bytes'] for c in ticks][:2]} differ from the dry "
               f"run's counting stub {stub}")
-        pre_ms = [c["ms"] for c in r["calls"] if c["kind"] == "prefill"]
+        pre_ms = [c["ms"] for c in calls if c["kind"] == "prefill"]
         tick_ms = [c["ms"] for c in ticks]
-        row = {"coords": r["coords"], "prefill_ms": pre_ms,
-               "tick_ms": tick_ms,
-               "tick_ms_median": float(np.median(tick_ms)),
-               "process_s": r["process_s"], "peak_gib": r["peak_gib"],
-               "launches": r["launches"], "logits_rel_max": max(rels),
-               "local_bytes": r["local_bytes"],
-               "collectives": r["collectives"]}
+        row.update({"prefill_ms": pre_ms, "tick_ms": tick_ms,
+                    "tick_ms_median": float(np.median(tick_ms)),
+                    "process_s": r["process_s"], "peak_gib": r["peak_gib"],
+                    "launches": r["launches"],
+                    "local_bytes": r["local_bytes"],
+                    "collectives": r["collectives"]})
         entry["ranks"].append(row)
-        out(f"[tp] rank {r['rank']} {r['coords']}: prefill ms "
+        detail = (f"logits within {row['logits_rel_max']:.3e} of the "
+                  "unsharded engine's before the fault" if e2e is None else
+                  f"time-mix within {max(r['layer_rel']):.3e} of the "
+                  f"unsharded SW one (worst layer), prefill logits "
+                  f"{err:.3e} from f32 (bf16 SW {entry['sw_vs_f32_rel']:.3e})")
+        out(f"[tp] {arch} rank {r['rank']} {r['coords']}: prefill ms "
             f"{[round(x, 2) for x in pre_ms]}, tick ms median "
-            f"{row['tick_ms_median']:.2f} (of {len(tick_ms)}), logits "
-            f"within {max(rels):.3e} of the unsharded engine's before the "
-            f"fault, launches {r['launches']}, params "
+            f"{row['tick_ms_median']:.2f} (of {len(tick_ms)}), {detail}, "
+            f"launches {r['launches']}, params "
             f"{r['local_bytes']['params'] / 2**30:.3f} GiB, cache "
             f"{r['local_bytes']['cache'] / 2**20:.1f} MiB, peak "
             f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 2)}"
-            f" GiB; {smi}")
+            " GiB")
     entry["tokens"] = res[0]["tokens"]
     entry["steps"] = res[0]["steps"]
     entry["ranks_s"] = ranks_s
-    entry["phase_s"] = time.perf_counter() - t0
+    entry["model_s"] = time.perf_counter() - t0
     launches = {n: sum(r[count].get(n, 0) for r in res) for n in wrappers}
-    out(f"[tp] {len(res)} ranks agree on {sum(map(len, entry['tokens'].values()))}"
-        f" tokens over {entry['steps']} steps; {spec.fault_stage} demoted on "
-        f"every rank at step {TP_FAULT_STEP}; collective bytes a tick "
-        f"{stub} on every rank, as the dry run counts them; attention at "
-        f"{H} heads, SwiGLU {cfg.d_model} -> {F_} -> {cfg.d_model}; "
+    out(f"[tp] {arch}: {len(res)} ranks agree on "
+        f"{sum(map(len, entry['tokens'].values()))} tokens over "
+        f"{entry['steps']} steps; {stage} demoted on every rank at step "
+        f"{TP_FAULT_STEP}; collective bytes a tick {stub} on every rank, as "
+        f"the dry run counts them; a rank's shard {entry['local']}; "
         f"launches {launches} (unsharded run {ref_launches}); ranks "
-        f"{ranks_s:.2f} s, phase {entry['phase_s']:.2f} s")
-    return entry, launches
+        f"{ranks_s:.2f} s, model {entry['model_s']:.2f} s")
+    return entry, launches, ref_launches
+
+
+def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
+             count: str = "launches", archs=tuple(TP_LAYERS)):
+    """Phase 15 (see the constants above), model by model.  Returns (report
+    entry, {path: launches}: each model's ranks as "tp <arch>" and its
+    unsharded run as "tp <arch> unsharded").  ``count`` is what each
+    rank's kernel counts are read from: its wrappers' ``launches``, or on
+    the CPU (where nothing launches) its recorded ``kernel_calls``."""
+    t0 = time.perf_counter()
+    entry = {"mesh": list(TP_MESH), "backend": MH_BACKEND, "models": {},
+             "nvidia_smi": smi}
+    paths = {}
+    for arch in archs:
+        e, launches, ref_launches = tp_model(arch, dev, wrappers,
+                                             timeout=timeout, count=count)
+        entry["models"][arch] = e
+        paths[f"tp {arch}"] = launches
+        paths[f"tp {arch} unsharded"] = ref_launches
+    entry["phase_s"] = time.perf_counter() - t0
+    out(f"[tp] phase {entry['phase_s']:.2f} s: " + ", ".join(
+        f"{a} {e['model_s']:.2f} s" for a, e in entry["models"].items())
+        + f"; {smi}")
+    return entry, paths
 
 
 def main() -> int:
@@ -3600,13 +3805,16 @@ def run(tuning_dir: str) -> int:
         slots=serve_ex.SLOTS)
     check(served_ex == SERVE_EXAMPLE, f"serve_with_faults serves "
           f"{served_ex}, the parity cases hold {SERVE_EXAMPLE}")
-    # phase 15's rank: qwen1.5-4b's d_ff cut four ways (2560 -> 1728)
-    qwen_tp = dataclasses.replace(
-        get_config("qwen1.5-4b"), name="qwen1.5-4b tp4",
-        num_heads=get_config("qwen1.5-4b").num_heads // TP_MESH[1],
-        num_kv_heads=get_config("qwen1.5-4b").num_kv_heads // TP_MESH[1],
-        d_ff=get_config("qwen1.5-4b").d_ff // TP_MESH[1])
-    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg, qwen_tp):
+    # phase 15's ranks: qwen1.5-4b's and zamba2-1.2b's heads and d_ff cut
+    # four ways (2560 -> 1728, 2048 -> 2048)
+    def rank_config(arch):
+        c = get_config(arch)
+        loc = tp_local_shapes(c)
+        return dataclasses.replace(
+            c, name=f"{arch} tp{TP_MESH[1]}", num_heads=loc["heads"],
+            num_kv_heads=loc["kv_heads"], d_ff=loc["d_ff"])
+    qwen_tp, zamba_tp = rank_config("qwen1.5-4b"), rank_config("zamba2-1.2b")
+    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg, qwen_tp, zamba_tp):
         rows_ = list(range(1, ZOO_WORKLOAD["max_prompt"] + 1))
         for M in rows_ + ([vl_tokens] if c.stub_frontend else []) + (
                 [RING_PROMPT] if c.window else []):
@@ -3626,11 +3834,14 @@ def run(tuning_dir: str) -> int:
     qh, qd = qwen.num_heads, qwen.resolved_head_dim
     zh, zd = zamba.num_heads, zamba.resolved_head_dim
     attn_shapes = {(B_, H_, Hkv_, Sq_, Skv_, -(-D_ // 8) * 8, -(-Dv_ // 8) * 8)
-                   for B_, Sq_, Skv_, H_, Hkv_, D_, Dv_, _ in ATTN_CASES}
+                   for B_, Sq_, Skv_, H_, Hkv_, D_, Dv_, _
+                   in ATTN_CASES + TP_ATTN_CASES}
     attn_shapes |= {(1, qh, qh, P_, P_, qd, qd) for P_ in range(16, 129)}
-    attn_shapes |= {(1, qwen_tp.num_heads, qwen_tp.num_kv_heads, P_, P_, qd,
-                     qd) for P_ in range(TP_WORKLOAD["min_prompt"],
-                                         TP_WORKLOAD["max_prompt"] + 1)}
+    for c in (qwen_tp, zamba_tp):
+        cd = c.resolved_head_dim
+        attn_shapes |= {(1, c.num_heads, c.num_kv_heads, P_, P_, cd, cd)
+                        for P_ in range(TP_WORKLOAD["min_prompt"],
+                                        TP_WORKLOAD["max_prompt"] + 1)}
     attn_shapes |= {(1, zh, zh, P_, P_, zd, zd) for P_ in range(96, 385)}
     for c in zoo:                       # phase 11's prompts and the ring
         cd = c.resolved_head_dim
@@ -3669,12 +3880,20 @@ def run(tuning_dir: str) -> int:
     rwkv = get_config("rwkv6-1.6b")
     zh_ssd = mamba2_dims(zamba)[1]
     wkv_shapes = {(Bt_, -(-S_ // min(16, S_)) * min(16, S_), H_, min(16, S_))
-                  for Bt_, S_, H_, *_ in WKV_CASES}
+                  for Bt_, S_, H_, *_ in WKV_CASES + TP_WKV_CASES}
     wkv_shapes |= {(1, S_, rwkv.num_heads, 16) for S_ in range(16, 513, 16)}
     ssd_shapes = {(Bt_, -(-S_ // min(128, S_)) * min(128, S_), H_,
-                   min(128, S_)) for Bt_, S_, H_, *_ in SSD_CASES}
+                   min(128, S_))
+                  for Bt_, S_, H_, *_ in SSD_CASES + TP_SSD_CASES}
     ssd_shapes |= {(1, S_, zh_ssd, S_) for S_ in range(96, 128)}
     ssd_shapes |= {(1, 128 * k, zh_ssd, 128) for k in (1, 2, 3)}
+    # phase 15's ranks: a quarter of the heads at every served prompt
+    tp_prompts = range(TP_WORKLOAD["min_prompt"], TP_WORKLOAD["max_prompt"]
+                       + 1)
+    ssd_shapes |= {(1, S_, tp_local_shapes(zamba)["ssd_heads"], S_)
+                   for S_ in tp_prompts}
+    wkv_shapes |= {(1, -(-S_ // 16) * 16, tp_local_shapes(rwkv)["wkv_heads"],
+                    16) for S_ in tp_prompts}
     scan_plans = {}
     for label, plan_fn, c_plan_fn, shapes in (
             ("rwkv6_wkv", wkv_plan, wkv_c_plan, wkv_shapes),
@@ -3775,41 +3994,47 @@ def run(tuning_dir: str) -> int:
 
     # chunk L = min(16, S), S padded to a multiple of L with zero tokens as
     # the op pads
-    for Bt, S, H, K, V, clamp in WKV_CASES:
-        r, k, v, lw, u = wkv_inputs(Bt, S, H, K, V, clamp)
-        L = min(16, S)
-        pad = (L - S % L) % L
-        rp, kp, vp, lwp = (F.pad(t, (0, 0, 0, 0, 0, pad))
-                           for t in (r, k, v, lw))
-        p_ = wkv_plan(Bt, S + pad, H, L)
-        for kind in (None,) + KINDS:
-            fault = None if kind is None else LaneFault(kind, (3, 17, V - 1),
-                                                        V)
-            tag = (f"rwkv6_wkv B={Bt} S={S} H={H} K={K} V={V}"
-                   f"{' lw=-4' if clamp else ''} fault={kind} (G={p_.group}"
-                   f", {p_.grids} blocks)")
-            o, state = wkv6_chunked_cuda(rp, kp, vp, lwp, u, chunk=16,
-                                         lane_fault=fault, with_state=True)
-            torch.cuda.synchronize()
-            o = o[:, :S]
-            check(bool(torch.isfinite(o.float()).all()),
-                  f"{tag}: non-finite o")
-            want_o, want_state = wkv6_ref_blocked(rp, kp, vp, lwp, u,
-                                                  chunk=16, lane_fault=fault)
-            max_err["rwkv6_wkv"] = max(
-                max_err["rwkv6_wkv"],
-                compare(f"{tag} o", o, want_o[:, :S], WKV_TOL),
-                compare(f"{tag} state", state, want_state, WKV_TOL))
-            if fault is None:   # the token-by-token oracle, unpadded
-                scan_o, scan_state = wkv6_scan_ref(r, k, v, lw, u)
-                compare(f"{tag} o vs scan", o, scan_o, WKV_TOL)
-                compare(f"{tag} state vs scan", state, scan_state, WKV_TOL)
-                o2, state2 = wkv6_chunked_cuda(rp, kp, vp, lwp, u, chunk=16,
-                                               with_state=True)
-                same = torch.equal(o, o2[:, :S]) and torch.equal(state,
-                                                                 state2)
-                out(f"[parity] {tag} two calls bit-identical: {same}")
-                check(same, f"{tag}: two calls differ")
+    def wkv_parity(cases):
+        for Bt, S, H, K, V, clamp in cases:
+            r, k, v, lw, u = wkv_inputs(Bt, S, H, K, V, clamp)
+            L = min(16, S)
+            pad = (L - S % L) % L
+            rp, kp, vp, lwp = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                               for t in (r, k, v, lw))
+            p_ = wkv_plan(Bt, S + pad, H, L)
+            for kind in (None,) + KINDS:
+                fault = (None if kind is None
+                         else LaneFault(kind, (3, 17, V - 1), V))
+                tag = (f"rwkv6_wkv B={Bt} S={S} H={H} K={K} V={V}"
+                       f"{' lw=-4' if clamp else ''} fault={kind} "
+                       f"(G={p_.group}"
+                       f", {p_.grids} blocks)")
+                o, state = wkv6_chunked_cuda(rp, kp, vp, lwp, u, chunk=16,
+                                             lane_fault=fault, with_state=True)
+                torch.cuda.synchronize()
+                o = o[:, :S]
+                check(bool(torch.isfinite(o.float()).all()),
+                      f"{tag}: non-finite o")
+                want_o, want_state = wkv6_ref_blocked(rp, kp, vp, lwp, u,
+                                                      chunk=16,
+                                                      lane_fault=fault)
+                max_err["rwkv6_wkv"] = max(
+                    max_err["rwkv6_wkv"],
+                    compare(f"{tag} o", o, want_o[:, :S], WKV_TOL),
+                    compare(f"{tag} state", state, want_state, WKV_TOL))
+                if fault is None:   # the token-by-token oracle, unpadded
+                    scan_o, scan_state = wkv6_scan_ref(r, k, v, lw, u)
+                    compare(f"{tag} o vs scan", o, scan_o, WKV_TOL)
+                    compare(f"{tag} state vs scan", state, scan_state, WKV_TOL)
+                    o2, state2 = wkv6_chunked_cuda(rp, kp, vp, lwp, u,
+                                                   chunk=16,
+                                                   with_state=True)
+                    same = torch.equal(o, o2[:, :S]) and torch.equal(state,
+                                                                     state2)
+                    out(f"[parity] {tag} two calls bit-identical: {same}")
+                    check(same, f"{tag}: two calls differ")
+
+    wkv_parity(WKV_CASES)
 
     def ssd_inputs(Bt, S, H, P, N):
         # in the scan's domain: dt = softplus(.) > 0, A < 0 (zamba2's
@@ -3821,42 +4046,48 @@ def run(tuning_dir: str) -> int:
 
     # chunk 128 throughout; S padded to a multiple of L with dt = 0 as the
     # op pads
-    for Bt, S, H, P, N in SSD_CASES:
-        x, dt, A, Bm, C = ssd_inputs(Bt, S, H, P, N)
-        L = min(128, S)
-        pad = (L - S % L) % L
-        xp = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, C))
-        p_ = ssd_plan(Bt, S + pad, H, L)
-        faults = [None] + [LaneFault(kind, (3, 17, P - 1), P)
-                           for kind in KINDS]
-        if P < 64:
-            faults.append(LaneFault("gain", (3, 17, 39), P, gain=2.0))
-        for fault in faults:
-            tag = (f"mamba2_ssd B={Bt} S={S} P={P} fault="
-                   f"{fault and (fault.kind, fault.gain)} ({p_.grids} "
-                   "blocks)")
-            y, state = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
-                                        lane_fault=fault, with_state=True)
-            torch.cuda.synchronize()
-            y = y[:, :S]
-            check(not bool(torch.isnan(y.float()).any()), f"{tag}: NaN in y")
-            want_y, want_state = ssd_ref_blocked(xp, dtp, A, Bp, Cp,
-                                                 chunk=128, lane_fault=fault)
-            max_err["mamba2_ssd"] = max(
-                max_err["mamba2_ssd"],
-                compare(f"{tag} y", y, want_y[:, :S], SSD_TOL),
-                compare(f"{tag} state", state, want_state, SSD_TOL))
-            if fault is None:   # the token-by-token oracle, unpadded
-                scan_y, scan_state = ssd_scan_ref(x, dt, A, Bm, C)
-                compare(f"{tag} y vs scan", y, scan_y, SSD_TOL)
-                compare(f"{tag} state vs scan", state, scan_state, SSD_TOL)
-                y2, state2 = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
-                                              with_state=True)
-                same = torch.equal(y, y2[:, :S]) and torch.equal(state,
-                                                                 state2)
-                out(f"[parity] {tag} two calls bit-identical: {same}")
-                check(same, f"{tag}: two calls differ")
+    def ssd_parity(cases):
+        for Bt, S, H, P, N in cases:
+            x, dt, A, Bm, C = ssd_inputs(Bt, S, H, P, N)
+            L = min(128, S)
+            pad = (L - S % L) % L
+            xp = F.pad(x, (0, 0, 0, 0, 0, pad))
+            dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, C))
+            p_ = ssd_plan(Bt, S + pad, H, L)
+            faults = [None] + [LaneFault(kind, (3, 17, P - 1), P)
+                               for kind in KINDS]
+            if P < 64:
+                faults.append(LaneFault("gain", (3, 17, 39), P, gain=2.0))
+            for fault in faults:
+                tag = (f"mamba2_ssd B={Bt} S={S} H={H} P={P} fault="
+                       f"{fault and (fault.kind, fault.gain)} ({p_.grids} "
+                       "blocks)")
+                y, state = ssd_chunked_cuda(xp, dtp, A, Bp, Cp, chunk=128,
+                                            lane_fault=fault, with_state=True)
+                torch.cuda.synchronize()
+                y = y[:, :S]
+                check(not bool(torch.isnan(y.float()).any()),
+                      f"{tag}: NaN in y")
+                want_y, want_state = ssd_ref_blocked(xp, dtp, A, Bp, Cp,
+                                                     chunk=128,
+                                                     lane_fault=fault)
+                max_err["mamba2_ssd"] = max(
+                    max_err["mamba2_ssd"],
+                    compare(f"{tag} y", y, want_y[:, :S], SSD_TOL),
+                    compare(f"{tag} state", state, want_state, SSD_TOL))
+                if fault is None:   # the token-by-token oracle, unpadded
+                    scan_y, scan_state = ssd_scan_ref(x, dt, A, Bm, C)
+                    compare(f"{tag} y vs scan", y, scan_y, SSD_TOL)
+                    compare(f"{tag} state vs scan", state, scan_state, SSD_TOL)
+                    y2, state2 = ssd_chunked_cuda(xp, dtp, A, Bp, Cp,
+                                                  chunk=128,
+                                                  with_state=True)
+                    same = torch.equal(y, y2[:, :S]) and torch.equal(state,
+                                                                     state2)
+                    out(f"[parity] {tag} two calls bit-identical: {same}")
+                    check(same, f"{tag}: two calls differ")
+
+    ssd_parity(SSD_CASES)
 
     def ssd_views(Bt, S):
         """x, B and C as ``models/mamba2.py`` passes them: views cut from
@@ -3895,6 +4126,50 @@ def run(tuning_dir: str) -> int:
             if fault is None:
                 ref_y, ref_state = ssd_ref_blocked(
                     xs, dt, A, Bv, Cv, chunk=128)
+                max_err["mamba2_ssd"] = max(
+                    max_err["mamba2_ssd"],
+                    compare(f"{tag} y", got[0], ref_y, SSD_TOL),
+                    compare(f"{tag} state", got[1], ref_state, SSD_TOL))
+
+    def ssd_rank_views(Bt, S):
+        """x, B and C as a phase-15 rank passes them: x a view of the
+        rank's (B, S, (d_inner + 2N) / 4) conv output (row stride 1056 at
+        zamba2-1.2b), B and C the two halves of the stacked tensor the
+        gather over the model axis returns (every head reads all N)."""
+        H = tp_local_shapes(zamba)["ssd_heads"]
+        P, N = zamba.ssm.head_dim, zamba.ssm.state_dim
+        m = TP_MESH[1]
+        xbc = randn(Bt, S, H * P + 2 * N // m)
+        bc = randn(2, Bt, S, N, scale=0.1)
+        return (xbc[..., :H * P].reshape(Bt, S, H, P),
+                F.softplus(randn(Bt, S, H, dtype=torch.float32) - 1.0),
+                -torch.linspace(1.0, 16.0, H, device=dev), bc[0], bc[1])
+
+    def ssd_rank_view_parity():
+        """A rank's views, read in place, against contiguous copies."""
+        for Bt, S in ((1, 384), (1, 77)):
+            xs, dt, A, Bv, Cv = ssd_rank_views(Bt, S)
+            check(all(strided_ready(t) for t in (xs, Bv, Cv))
+                  and not xs.is_contiguous(),
+                  f"mamba2_ssd rank views B={Bt} S={S}: not read in place")
+            P = xs.shape[-1]
+            for fault in [None] + [LaneFault(kind, (3, 17, P - 1), P)
+                                   for kind in KINDS]:
+                tag = (f"mamba2_ssd tp rank views B={Bt} S={S} H={xs.shape[2]}"
+                       f" fault={fault and fault.kind}")
+                got = ssd_chunked_cuda(xs, dt, A, Bv, Cv, chunk=min(128, S),
+                                       lane_fault=fault, with_state=True)
+                want = ssd_chunked_cuda(xs.contiguous(), dt, A, Bv.contiguous(),
+                                        Cv.contiguous(), chunk=min(128, S),
+                                        lane_fault=fault, with_state=True)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+                out(f"[parity] {tag}: bit-identical to contiguous copies: "
+                    f"{same}")
+                check(same, f"{tag}: differs from contiguous copies")
+                ref_y, ref_state = ssd_ref_blocked(xs, dt, A, Bv, Cv,
+                                                   chunk=min(128, S),
+                                                   lane_fault=fault)
                 max_err["mamba2_ssd"] = max(
                     max_err["mamba2_ssd"],
                     compare(f"{tag} y", got[0], ref_y, SSD_TOL),
@@ -4025,6 +4300,20 @@ def run(tuning_dir: str) -> int:
     swiglu_bits(gemma3, RING_PROMPT, act="gelu")
     swiglu_parity(qwen_vl.d_model, qwen_vl.d_ff, (4, ZOO_PREFILL, vl_tokens))
     swiglu_bits(qwen_vl, vl_tokens)
+    # phase 15's zamba2-1.2b and rwkv6-1.6b ranks, after every case above
+    # (the generator's draws of those stay as they were): the WKV at 8
+    # heads, the SSD at 16 (contiguous, and on a rank's views), the shared
+    # block's attention at 8 heads of 64 and its SwiGLU 2048 -> 2048 ->
+    # 2048 (a partial sum) at its decode rows and its unsharded serve's
+    # prefill rows
+    wkv_parity(TP_WKV_CASES)
+    ssd_parity(TP_SSD_CASES)
+    ssd_rank_view_parity()
+    for B_, Sq, Skv, H, Hkv, D, Dv, kw in TP_ATTN_CASES:
+        attention_parity(B_, Sq, Skv, H, Hkv, D, Dv, kw)
+    swiglu_parity(zamba_tp.d_model, zamba_tp.d_ff, (4, 384),
+                  tag=" (tp rank)")
+    swiglu_bits(zamba_tp, 384)
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4337,6 +4626,7 @@ def run(tuning_dir: str) -> int:
             (qwen, 1, 128, 128, 0, 0, True), (zamba, 1, 384, 384, 0, 0, True),
             (qwen_tp, 1, 16, 16, 0, 0, True),
             (qwen_tp, 1, 128, 128, 0, 0, True),
+            (zamba_tp, 1, 384, 384, 0, 0, True),
             (qwen, 1, 2048, 2048, 0, 0, True),
             (mistral, 1, 128, 128, 0, 0, True),
             (llama4, 1, 128, 128, 0, 0, True),
@@ -4411,14 +4701,16 @@ def run(tuning_dir: str) -> int:
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:33",
         "B=1 H=20 P=128 D=128 causal", **attn["B=1 H=20 P=128 D=128 causal"]))
-    # phase 15's shard shapes (a rank's 5 heads), beside the main row
+    # phase 15's shard shapes (a rank's 5 qwen1.5-4b heads, 8 of zamba2's
+    # shared block), beside the main row
     kernels[-1]["tp_shapes"] = {k_: attn[k_] for k_ in (
-        "B=1 H=5 P=16 D=128 causal", "B=1 H=5 P=128 D=128 causal")}
+        "B=1 H=5 P=16 D=128 causal", "B=1 H=5 P=128 D=128 causal",
+        "B=1 H=8 P=384 D=64 causal")}
 
     shapes, swiglu_kernels = {}, {}
     gates = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh")}
     for cfg, M in ((qwen, 4), (qwen, 128), (qwen_tp, 4), (qwen_tp, 128),
-                   (zamba, 4), (zamba, 384),
+                   (zamba, 4), (zamba, 384), (zamba_tp, 4), (zamba_tp, 384),
                    (mistral, 4), (mistral, ZOO_PREFILL), (gemma, 4),
                    (gemma, ZOO_PREFILL), (gemma3, 4), (gemma3, ZOO_PREFILL),
                    (gemma3, RING_PROMPT), (qwen_vl, 4),
@@ -4457,7 +4749,8 @@ def run(tuning_dir: str) -> int:
         "src/repro/kernels/swiglu/kernel.py:32",
         "qwen1.5-4b decode M=4 2560->6912->2560", **shapes["qwen1.5-4b M=4"]))
     kernels[-1]["tp_shapes"] = {k_: shapes[k_] for k_ in (
-        "qwen1.5-4b tp4 M=4", "qwen1.5-4b tp4 M=128")}
+        "qwen1.5-4b tp4 M=4", "qwen1.5-4b tp4 M=128", "zamba2-1.2b tp4 M=4",
+        "zamba2-1.2b tp4 M=384")}
     # the SSD at zamba2-1.2b's prefill shape, with the final state (as the
     # prefill calls it): B=1 S=384 H=64 P=N=64, chunk 128; on contiguous
     # tensors, and on the model's strided views of one xbc tensor, where the
@@ -4509,6 +4802,22 @@ def run(tuning_dir: str) -> int:
         f"B=1 S={S} H={H} P={Pd} N={N} chunk=128, final state",
         **{k_: ssd_row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}))
+    # phase 15's rank: 16 of the 64 heads; B and C do not shrink with H
+    H = tp_local_shapes(zamba)["ssd_heads"]
+    x, dt, A, Bm, C = ssd_inputs(1, S, H, Pd, N)
+    ms, by = bound(x.numel() * 2 * 2 + dt.numel() * 4 + A.numel() * 4
+                   + 2 * Bm.numel() * 2 + H * N * Pd * 4,
+                   ssd_flops(1, S, H, Pd, N, chunk=128))
+    xs, dtv, Av, Bv, Cv = ssd_rank_views(1, S)
+    ssd_tp_row = scan_row(
+        lambda: ssd_chunked_cuda(x, dt, A, Bm, C, chunk=128,
+                                 with_state=True),
+        lambda: ssd_ref_blocked(x, dt, A, Bm, C, chunk=128),
+        "mamba2_ssd", views_fn=lambda: ssd_chunked_cuda(
+            xs, dtv, Av, Bv, Cv, chunk=128, with_state=True))
+    kernels[-1]["tp_shapes"] = {
+        f"B=1 S={S} H={H} P={Pd} N={N} chunk=128, final state": ssd_tp_row}
+    report["mamba2_ssd_tp_times"] = ssd_tp_row
     # the WKV at rwkv6-1.6b's prefill shape, with the final state (as the
     # prefill calls it): B=1 S=512 H=32 K=V=64, chunk 16
     H, K, S = rwkv.num_heads, rwkv.ssm.rwkv_head_dim, 512
@@ -4526,6 +4835,17 @@ def run(tuning_dir: str) -> int:
         f"B=1 S={S} H={H} K=V={K} chunk=16, final state",
         **{k_: wkv_row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}))
+    # phase 15's rank: 8 of the 32 heads
+    H = tp_local_shapes(rwkv)["wkv_heads"]
+    r, k, v, lw, u = wkv_inputs(1, S, H, K, K)
+    ms, by = bound(4 * r.numel() * 2 + u.numel() * 4 + r.numel() * 2
+                   + H * K * K * 4, wkv6_flops(1, S, H, K, K, chunk=16))
+    wkv_tp_row = scan_row(
+        lambda: wkv6_chunked_cuda(r, k, v, lw, u, chunk=16, with_state=True),
+        lambda: wkv6_ref_blocked(r, k, v, lw, u, chunk=16), "rwkv6_wkv")
+    kernels[-1]["tp_shapes"] = {
+        f"B=1 S={S} H={H} K=V={K} chunk=16, final state": wkv_tp_row}
+    report["rwkv6_wkv_tp_times"] = wkv_tp_row
     # the checksum over 1 GiB of bf16 and over the 64-byte AES canary
     canary = cs.aes_accelerator(aes_key, 11, device=dev).stages[5] \
         .canary_inputs(0)[0]
@@ -4634,14 +4954,14 @@ def run(tuning_dir: str) -> int:
     # --------------------------------------------------------- 15. tp
     gc.collect()
     torch.cuda.empty_cache()
-    report["tp"], tp_launches = tp_phase(dev, wrappers, smi)
-    for name, n in tp_launches.items():
-        launches[name]["tp"] = n
-    for name, n in report["tp"]["reference_launches"].items():
-        launches[name]["tp unsharded"] = n
+    report["tp"], tp_paths = tp_phase(dev, wrappers, smi)
+    for path, by_kernel in tp_paths.items():
+        for name, n in by_kernel.items():
+            launches[name][path] = n
     for kn in kernels:
-        if kn["name"] in ("flash_attention", "swiglu_mlp"):
-            kn["tp_launches"] = launches[kn["name"]]["tp"]
+        kn["tp_launches"] = {p: n for p, n in launches[kn["name"]].items()
+                             if p.startswith("tp ")
+                             and not p.endswith("unsharded")}
     lap("15 tp")
     report["phase_s"] = phase_s
     out("[times] phases (s): " + ", ".join(

@@ -45,9 +45,10 @@ its rows the batch over the batch axes, and the collectives the runtime
 calls are counted by kind, axis and bytes.  The collective term prices
 each axis's ring link bytes (all-reduce 2(m-1)/m, all-gather (m-1)/m) at
 NVLink's rate when the axis's group fits one 8-GPU node, else at the
-network's (``launch/mesh.py``).  A family the runtime does not shard yet
-(SSM, hybrid, encoder-decoder), or a cache whose KV heads do not divide
-(the sequence-sharded cache), is a ``skip`` with the reason and its
+network's (``launch/mesh.py``).  What the runtime does not shard (the
+encoder-decoder family; a Mamba2 component that does not divide the
+``ssm`` axis; a cache whose KV heads do not divide, which needs the
+sequence-sharded cache) is a ``skip`` with the reason and its
 spec-derived per-device bytes.
 
 Usage:
@@ -225,11 +226,12 @@ def _within_node(mesh, axis) -> bool:
 
 
 def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k, *,
-                sync_each: bool = True):
+                sync_each: bool = True, specs=None):
     """k microbatches of rows / k; returns the step's OpStats.  Under
     ``spmd`` each microbatch's grads are summed over the batch axes
     (``sync_each``, the reference's baseline) or the accumulated grads
-    once (its ``grad_unreduced``)."""
+    once (its ``grad_unreduced``), and the clip's norm is the global one
+    (``specs``: the params' PartitionSpecs)."""
     ocfg = optim.AdamWConfig()
     mb = train_batch_specs(cfg, rows // k, S)
     log = spmd.collective_log()
@@ -267,7 +269,7 @@ def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k, *,
     with oa.counting() as st:
         if not sync_each:
             spmd.sync_grads(grads)
-        optim.update(ocfg, grads, opt, params)
+        optim.update(ocfg, grads, opt, params, specs=specs)
     return total.scaled_add(st)
 
 
@@ -279,13 +281,14 @@ def _local(tree, specs, mesh):
         device=META))
 
 
-def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, axes):
+def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, rules, axes):
     """The rank's params (and optimiser state) or serving params and
-    cache, as meta shards of the specs; raises ``SkipCell`` with their
-    bytes where the runtime does not shard the cell yet."""
+    cache, as meta shards of the specs, and the params' specs; raises
+    ``SkipCell`` with their bytes where the runtime does not shard the
+    cell (``spmd.check_runtime``, ``spmd.cache_specs``)."""
     p_full = params_specs(model)
-    params = _local(p_full, partition.params_pspecs(p_full, mesh, axes),
-                    mesh)
+    pspecs = partition.params_pspecs(p_full, mesh, axes)
+    params = _local(p_full, pspecs, mesh)
     B, S = shape.global_batch, shape.seq_len
     opt = cache = None
     if shape.kind == "train":
@@ -303,17 +306,16 @@ def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, axes):
                   "opt_state": _nbytes(opt) if opt is not None else 0,
                   "cache": _nbytes(cache) if cache is not None else 0}
     why = None
-    if cfg.family not in ("dense", "moe", "vlm"):
-        why = spmd.unsharded_reason(cfg)
-    elif cache is not None:
-        with spmd.spmd(mesh, partition.rules_for(cfg, mesh), axes):
-            try:
+    with spmd.spmd(mesh, rules, axes):
+        try:
+            spmd.check_runtime(cfg)
+            if cache is not None:
                 spmd.cache_specs(model, B, S)
-            except NotImplementedError as e:
-                why = str(e)
+        except NotImplementedError as e:
+            why = str(e)
     if why is not None:
         raise SkipCell(why, {"bytes": spec_bytes, "spec_bytes": spec_bytes})
-    return params, opt, cache, spec_bytes
+    return params, opt, cache, spec_bytes, pspecs
 
 
 def analyze_cell(cfg, shape: ShapeSpec, chips: int = 1,
@@ -416,8 +418,8 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
         "model_flops": model_flops(cfg, shape, p_meta),
         "microbatch": None}
     try:
-        params, opt, cache, spec_bytes = _sharded_inputs(cfg, model, shape,
-                                                         mesh, axes)
+        params, opt, cache, spec_bytes, pspecs = _sharded_inputs(
+            cfg, model, shape, mesh, rules, axes)
     except SkipCell as e:
         e.extra = {**rec, **e.extra}
         raise
@@ -441,7 +443,8 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
                 oa.hold(inputs)
                 if shape.kind == "train":
                     st = _train_step(oa, model, params, opt, cfg, rows, S, k,
-                                     sync_each=not grad_unreduced)
+                                     sync_each=not grad_unreduced,
+                                     specs=pspecs)
                 else:
                     with oa.counting() as st:
                         oa.read_once(params)

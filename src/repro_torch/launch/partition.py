@@ -21,11 +21,21 @@ sequence dim).
 ``jax.tree_util`` (sorted dict keys joined by "/"); ``shard_tree`` cuts a
 full tree to one rank's local shards and ``unshard_tree`` puts shards
 back together.
+
+Packed leaves (``packed_layout``): Mamba2's ``in_proj`` holds z, x, B, C
+and dt in one column range, its ``conv_w``/``conv_b`` and the ``conv``
+cache leaf x, B and C.  XLA cuts such a leaf as a contiguous range and
+reshuffles where a component is read; the port's runtime reads a rank's
+block in place, so ``shard_tree`` gives rank r the r-th 1/m of every
+component, in order (the columns permuted before the contiguous cut the
+unchanged spec makes), and ``unshard_tree`` inverts it.  A block's bytes
+are the spec's; ``param_pspec`` and ``make_cache_pspec_fn`` do not know
+the layout.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Mapping, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.launch.sharding import (DEFAULT_RULES, PartitionSpec as P,
                                          axis_size, mesh_sizes)
@@ -275,12 +285,94 @@ def shard_leaf(t, spec: P, mesh, coords: Mapping[str, int]):
     return t
 
 
-def shard_tree(tree, specs, mesh, coords: Mapping[str, int]):
+Layout = Mapping[str, Tuple[Tuple[str, int], ...]]
+
+
+def packed_layout(cfg) -> Layout:
+    """Leaf name -> its components ((name, columns), ...) in column order,
+    for the leaves that pack several tensors along their last dim: a
+    hybrid config's Mamba2 ``in_proj`` (z, x, B, C, dt), ``conv_w``,
+    ``conv_b`` and ``conv`` cache (x, B, C).  Empty for other families."""
+    if cfg.family != "hybrid" or cfg.ssm is None:
+        return {}
+    d_inner = cfg.ssm.expand * cfg.d_model
+    N = cfg.ssm.state_dim
+    xbc = (("x", d_inner), ("B", N), ("C", N))
+    return {"in_proj": (("z", d_inner),) + xbc
+            + (("dt", d_inner // cfg.ssm.head_dim),),
+            "conv_w": xbc, "conv_b": xbc, "conv": xbc}
+
+
+def _component_refusal(name: str, comps, m: int, axis) -> Optional[str]:
+    total = sum(w for _, w in comps)
+    for comp, w in comps:
+        if w % m:
+            return (f"{name}: its {comp} component ({w} of {total} "
+                    f"columns) does not divide over {axis!r} ({m} ranks); "
+                    "a rank's block holds 1/m of every component")
+    return None
+
+
+def packed_refusal(cfg, m: int, axis=None) -> Optional[str]:
+    """Why ``cfg``'s packed leaves cannot be cut ``m`` ways by component
+    (naming the leaf and the component), None when they can."""
+    if m <= 1:
+        return None
+    for name, comps in packed_layout(cfg).items():
+        why = _component_refusal(name, comps, m, axis)
+        if why is not None:
+            return why
+    return None
+
+
+def _block_columns(comps, m: int, r: int):
+    """The columns, in the full leaf, of rank r's block: the r-th 1/m of
+    each component, in component order."""
+    import torch
+    cols, off = [], 0
+    for _, w in comps:
+        n = w // m
+        cols.append(torch.arange(off + r * n, off + (r + 1) * n))
+        off += w
+    return torch.cat(cols)
+
+
+def _packed(path: str, spec: P, layout: Optional[Layout], mesh):
+    """(components, m, axis) when the leaf at ``path`` is packed and its
+    last dim cut; raises ``NotImplementedError`` naming the leaf and the
+    component that does not divide."""
+    comps = (layout or {}).get(path.split("/")[-1])
+    if not comps or not len(spec) or spec[-1] is None:
+        return None
+    m = _axis_size(mesh, spec[-1])
+    if m <= 1:
+        return None
+    why = _component_refusal(path, comps, m, spec[-1])
+    if why is not None:
+        raise NotImplementedError(why)
+    return comps, m, spec[-1]
+
+
+def shard_tree(tree, specs, mesh, coords: Mapping[str, int],
+               layout: Optional[Layout] = None):
     """Cut a full tree to the local shards of the rank at mesh
-    ``coords`` ({axis: index}); ``specs`` has ``tree``'s structure."""
+    ``coords`` ({axis: index}); ``specs`` has ``tree``'s structure.  A
+    leaf named in ``layout`` (``packed_layout``) whose last dim is cut
+    gives the rank its block of every component (a copy); every other
+    leaf a view."""
     flat = flatten(specs)
-    return map_with_path(tree, lambda path, t: shard_leaf(
-        t, flat[path], mesh, coords))
+    sizes = mesh_sizes(mesh)
+
+    def cut(path, t):
+        spec = flat[path]
+        packed = _packed(path, spec, layout, mesh)
+        if packed is not None:
+            comps, m, ax = packed
+            cols = _block_columns(comps, m, axis_index(sizes, coords, ax))
+            t = t.index_select(-1, cols.to(t.device))
+            spec = P(*spec[:-1], None)
+        return shard_leaf(t, spec, mesh, coords)
+    return map_with_path(tree, cut)
 
 
 def mesh_coords(mesh) -> list:
@@ -293,10 +385,11 @@ def mesh_coords(mesh) -> list:
     return out
 
 
-def unshard_tree(shards: Sequence, specs, mesh):
+def unshard_tree(shards: Sequence, specs, mesh,
+                 layout: Optional[Layout] = None):
     """The full tree from every rank's shards (``shards`` in
-    ``mesh_coords`` order): the inverse of ``shard_tree``; a replicated
-    dim takes the first rank's copy."""
+    ``mesh_coords`` order): the inverse of ``shard_tree`` (with the same
+    ``layout``); a replicated dim takes the first rank's copy."""
     import torch
     sizes = mesh_sizes(mesh)
     coords = mesh_coords(mesh)
@@ -319,5 +412,13 @@ def unshard_tree(shards: Sequence, specs, mesh):
             d, ax = sharded[level]
             return torch.cat([build(level + 1, prefix + (i,))
                               for i in range(axis_size(sizes, ax))], dim=d)
-        return build(0, ())
+        full = build(0, ())
+        packed = _packed(path, spec, layout, mesh)
+        if packed is not None:      # blocks in rank order -> components
+            comps, m, _ = packed
+            cols = torch.cat([_block_columns(comps, m, r) for r in range(m)])
+            out = torch.empty_like(full)
+            out[..., cols.to(full.device)] = full
+            full = out
+        return full
     return map_with_path(shards[0], join)

@@ -24,6 +24,13 @@ sharded training step's gradients are the unsharded step's:
 
 A tensor is thus replicated (the same on every rank of an axis, its
 gradient the same too), sharded (a slice), or partial (a sum still owed).
+A gathered or summed tensor that the rank's own shard then reads (B and
+C under split Mamba2 heads, a norm's sum of squares over a cut width)
+is replicated entering a sharded computation: ``replicate_over`` after
+the gather or the reduce makes its gradient whole.  ``leaf_axis`` reads
+a param's axis from its spec (``partition.param_pspec``), ``cache_axis``
+a serving state's; ``sum_by_spec`` sums per-leaf values over each leaf's
+cut axes (AdamW's global norm).
 Outside ``spmd(...)``, or over an axis of one rank, each is the identity:
 it returns its input itself, touches no tensor and adds no op, so every
 path outside runs the ops it ran before.
@@ -262,6 +269,13 @@ def logical_sizes(cfg) -> Dict[str, int]:
            "head_dim": cfg.resolved_head_dim}
     if cfg.moe is not None:
         out["experts"] = cfg.moe.num_experts
+    if cfg.ssm is not None and cfg.family == "hybrid":
+        # Mamba2's xbc: x, B and C of every head
+        out["ssm_inner"] = (cfg.ssm.expand * cfg.d_model
+                            + 2 * cfg.ssm.state_dim)
+    elif cfg.ssm is not None:
+        out["ssm_heads"] = cfg.d_model // cfg.ssm.rwkv_head_dim
+        out["head_dim"] = cfg.ssm.rwkv_head_dim
     return out
 
 
@@ -458,20 +472,62 @@ def minus(a: Axis, b: Axis) -> Axis:
 
 
 def check_runtime(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family the runtime does not
-    shard yet (a no-op outside ``spmd``)."""
-    if current() is not None and cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"{cfg.name}: {unsharded_reason(cfg)}")
+    """Raise ``NotImplementedError`` where the runtime cannot shard
+    ``cfg`` under the active context (a no-op outside ``spmd``)."""
+    why = unsharded_reason(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why}")
 
 
-def unsharded_reason(cfg) -> str:
-    """Why the runtime does not shard ``cfg``'s family yet."""
+def unsharded_reason(cfg) -> Optional[str]:
+    """Why the runtime cannot shard ``cfg`` under the active context, None
+    when it can (always outside ``spmd``): the encoder-decoder family has
+    no sharded step; a Mamba2 component that does not divide the ``ssm``
+    axis (``partition.packed_refusal``); RWKV-6 projections whose columns
+    split a head."""
+    c = current()
+    if c is None:
+        return None
     if cfg.is_encdec:
         return ("the encoder-decoder family has no sharded step yet: its "
                 "encoder and cross-attention path is not cut (ROADMAP)")
-    return (f"the {cfg.family} family has no sharded step yet: its packed "
-            "projections (z, x, B, C, dt in one column range) need a split "
-            "by component before COL can apply (ROADMAP)")
+    if cfg.family == "hybrid":
+        ax = c.axes.get("ssm")
+        return partition.packed_refusal(cfg, c.size(ax), ax)
+    if cfg.family == "ssm":
+        d, hk = cfg.d_model, cfg.ssm.rwkv_head_dim
+        ax = c.param_axis("attn", d)
+        if ax is not None and (d // hk) % c.size(ax):
+            return (f"wr/wk/wv/wg/wo: {d} columns over {ax!r} "
+                    f"({c.size(ax)} ranks) split a head of {hk}; the WKV "
+                    "runs on whole heads")
+    return None
+
+
+def leaf_axis(name: str, shape, dim: int) -> Axis:
+    """The axis param ``name`` of global ``shape`` is cut over along
+    ``dim`` under the active context (its ``partition.param_pspec``),
+    None when that dim is whole or outside ``spmd``."""
+    c = current()
+    if c is None:
+        return None
+    ax = partition.param_pspec(name, tuple(shape), c.mesh, c.axes)[dim]
+    return ax if c.size(ax) > 1 else None
+
+
+def cache_axis(n: int) -> Axis:
+    """The axis ``make_cache_pspec_fn`` cuts a serving cache's per-head or
+    per-channel dim of global size ``n`` over (the ``attn`` axis: an SSM
+    state's heads, a conv tail's channels, a token shift's width), None
+    when whole or outside ``spmd``."""
+    c = current()
+    return None if c is None else c.param_axis("attn", n)
+
+
+def axis_ranks(axis: Axis) -> int:
+    """Ranks along ``axis`` in the active context (1 outside)."""
+    c = current()
+    return 1 if c is None else c.size(axis)
 
 
 def param_axis(family: str, n: int) -> Axis:
@@ -537,6 +593,30 @@ def sync_grads(grads):
     return grads
 
 
+def sum_by_spec(values: torch.Tensor, tree, specs) -> torch.Tensor:
+    """The sum over a whole tree of per-leaf local sums: ``values[i]`` is
+    the sum over leaf ``i`` of ``tree`` (this rank's shard, leaves in
+    ``partition.flatten`` order).  Each leaf's value is summed over the
+    mesh axes its spec (``specs``, the full tree's) cuts it over, in f32,
+    one all-reduce per set of axes; a replicated leaf's counts once."""
+    c = current()
+    if specs is None:
+        raise ValueError("under spmd a sum over a sharded tree needs each "
+                         "leaf's PartitionSpec (partition.params_pspecs)")
+    flat_specs = partition.flatten(specs)
+    paths = list(partition.flatten(tree))
+    groups: Dict[Axis, List[int]] = {}
+    for i, path in enumerate(paths):
+        cut = [a for a in flat_specs[path] if c.size(a) > 1]
+        groups.setdefault(join_axes(*cut), []).append(i)
+    total = torch.zeros((), dtype=torch.float32, device=values.device)
+    for ax, idx in groups.items():
+        part = values[idx].float().sum()
+        total = total + (part if ax is None
+                         else c.comm.all_reduce(part, ax))
+    return total
+
+
 # ------------------------------------------------------------------ caches
 def cache_specs(model, batch: int, max_len: int):
     """The PartitionSpecs of ``model``'s serving cache (``make_cache_pspec
@@ -556,12 +636,41 @@ def cache_specs(model, batch: int, max_len: int):
                 f"{spec[-3]!r} (kv heads {model.cfg.num_kv_heads} do not "
                 "divide): the sequence-sharded KV cache needs a "
                 "partial-softmax combine across ranks (ROADMAP)")
-        if name in ("ssm", "wkv", "conv", "shift_tm", "shift_cm") and any(
-                a is not None for a in spec[2:]):
-            raise NotImplementedError(
-                f"cache leaf {path}: the {model.cfg.family} family has no "
-                "sharded step yet (ROADMAP)")
+    bad = _state_axis_mismatch(model.cfg, partition.flatten(specs), c)
+    if bad:
+        raise NotImplementedError(
+            f"cache leaves {', '.join(bad)} are cut over {attn_axis!r}, "
+            "the params that write them over another axis: the runtime "
+            "does not reshard a recurrent state (ROADMAP)")
     return meta, specs
+
+
+def _state_axis_mismatch(cfg, flat_specs, c) -> List[str]:
+    """The recurrent-state cache leaves whose cut (the ``attn`` axis, as
+    ``make_cache_pspec_fn`` cuts them) is not the one of the params that
+    write them: Mamba2's ``ssm`` heads and ``conv`` channels against the
+    ``ssm`` param axis, RWKV-6's ``wkv`` heads against ``wr``'s columns.
+    A token shift may be cut over any axis: the step gathers it."""
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        heads = d_inner // cfg.ssm.head_dim
+        want = {"ssm": c.param_axis("ssm", heads),
+                "conv": c.param_axis("ssm", d_inner
+                                     + 2 * cfg.ssm.state_dim)}
+        dims = {"ssm": -3, "conv": -1}
+    elif cfg.family == "ssm":
+        want = {"wkv": c.param_axis("attn", cfg.d_model)}
+        dims = {"wkv": -3}
+    else:
+        return []
+    bad = []
+    for path, spec in flat_specs.items():
+        name = path.split("/")[-1]
+        if name in want:
+            have = spec[dims[name]]
+            if (have if c.size(have) > 1 else None) != want[name]:
+                bad.append(path)
+    return bad
 
 
 def init_cache(model, batch: int, max_len: int, device=None):
@@ -614,6 +723,8 @@ __all__ = ["CollectiveLog", "CountingComm", "GroupComm", "SpmdContext",
            "AttnShard", "spmd", "current", "logical_sizes", "reduce_over",
            "replicate_over", "gather_over", "scatter_over", "reshard",
            "ffn_axis", "vocab_axis", "expert_axis", "axis_offset",
-           "mean_over_batch", "sum_over_batch", "sync_grads", "cache_specs",
+           "leaf_axis", "cache_axis", "axis_ranks", "check_runtime",
+           "unsharded_reason", "mean_over_batch", "sum_over_batch",
+           "sync_grads", "sum_by_spec", "cache_specs",
            "init_cache", "pos_axis", "collective_log", "rank_coords",
            "devices_spanned"]

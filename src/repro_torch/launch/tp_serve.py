@@ -3,7 +3,8 @@ mesh, each serving its shard of one model through ``ServeEngine`` under
 ``launch.spmd.spmd``.
 
     PYTHONPATH=src python -m repro_torch.launch.tp_serve --mesh 1x2 \\
-        --device cpu [--hw-route interpret] [--fault-step 3 --fault-rank 1]
+        --device cpu [--arch zamba2-1.2b] [--hw-route interpret] \\
+        [--fault-step 3 --fault-rank 1]
 
 starts the ranks (gloo over a free local port; on the card every rank
 shares ``cuda:0`` unless ``--backend nccl``, which needs one card a rank),
@@ -12,7 +13,10 @@ the same tokens and changed route at the same step.  The arch's reduced
 config by default; ``--full`` serves it at full width (``--layers`` cuts
 the depth).  ``--fault-rank`` arms a lane fault on that rank's stage at
 ``--fault-step`` and reports what its canary finds; the ranks agree on it
-through ``EventChannel`` and demote the stage together.
+through ``EventChannel`` and demote the stage together.  The stage is the
+arch's own kernel's (``fault_stage_for``): SwiGLU for the dense and MoE
+families, the SSD for the hybrid one (zamba2-1.2b), the WKV for the SSM
+one (rwkv6-1.6b).
 
 ``serve_rank`` is one rank's work (also ``chip_smoke.py``'s phase 15 and
 the CPU tests); ``launch_ranks`` starts and collects the ranks.
@@ -51,8 +55,9 @@ RESULT = "RESULT "
 @dataclasses.dataclass
 class TPServeSpec:
     """What every rank serves: the model (``full`` width or the reduced
-    config, ``layers`` deep when given), its weights (``seed``, drawn in
-    ``dtype``), the workload and the fault."""
+    config, ``layers`` deep when given, computing in ``dtype`` when
+    given), its weights (``seed``, drawn in ``dtype``), the workload and
+    the fault."""
     arch: str = "qwen1.5-4b"
     full: bool = False
     layers: Optional[int] = None
@@ -69,7 +74,11 @@ class TPServeSpec:
     hw_route: str = SW
     fault_step: int = -1
     fault_rank: int = -1
-    fault_stage: str = "swiglu_mlp"
+    fault_stage: str = ""                # "": the arch's (fault_stage_for)
+
+    def __post_init__(self):
+        if not self.fault_stage:
+            self.fault_stage = fault_stage_for(self.config())
 
     def config(self):
         cfg = get_config(self.arch)
@@ -77,6 +86,8 @@ class TPServeSpec:
             cfg = cfg.reduced()
         if self.layers:
             cfg = dataclasses.replace(cfg, num_layers=self.layers)
+        if self.dtype:
+            cfg = dataclasses.replace(cfg, dtype=self.dtype)
         return cfg
 
     @property
@@ -95,6 +106,13 @@ class TPServeSpec:
         dt = getattr(torch, self.dtype) if self.dtype else None
         gen = torch.Generator(device=device).manual_seed(self.seed)
         return build_model(cfg).init(gen, device=device, dtype=dt)
+
+
+def fault_stage_for(cfg) -> str:
+    """The stage a tensor-parallel serve faults by default: the kernel the
+    family's layers are made of."""
+    return {"hybrid": "mamba2_ssd", "ssm": "rwkv6_wkv"}.get(cfg.family,
+                                                           "swiglu_mlp")
 
 
 def free_port() -> int:
@@ -177,36 +195,45 @@ def _canary_width(stage: str) -> int:
     return CANARY_WIDTHS[stage]
 
 
+SHAPES_OF = {"flash_attention": lambda q, k, *a: (q.shape, k.shape),
+             "swiglu_mlp": lambda x, w1, w3, w2: (x.shape, w1.shape,
+                                                  w2.shape),
+             "mamba2_ssd": lambda x, dt, A, B_, C: (x.shape, B_.shape),
+             "rwkv6_wkv": lambda r, k, v, lw, u: (r.shape, u.shape)}
+
+
 @contextlib.contextmanager
 def kernel_shapes():
     """Record the operand shapes each Hopper wrapper is called with on
     this rank, and its calls: {"flash_attention": {(q, k) shapes},
-    "swiglu_mlp": {(x, w1, w2) shapes}, "calls": {name: n}} (on the card
-    a call is a launch; the wrappers' ``launches`` count those)."""
+    "swiglu_mlp": {(x, w1, w2)}, "mamba2_ssd": {(x, B)}, "rwkv6_wkv":
+    {(r, u)}, "calls": {name: n}} (on the card a call is a launch; the
+    wrappers' ``launches`` count those)."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.kernels.swiglu import ops as swiglu_ops
-    seen: Dict[str, Any] = {"flash_attention": set(), "swiglu_mlp": set(),
-                            "calls": {"flash_attention": 0,
-                                      "swiglu_mlp": 0}}
-    attn, swiglu = attn_ops.flash_attention_bhsd, swiglu_ops.swiglu_fused
+    sites = {"flash_attention": (attn_ops, "flash_attention_bhsd"),
+             "swiglu_mlp": (swiglu_ops, "swiglu_fused"),
+             "mamba2_ssd": (ssd_ops, "ssd_chunked_cuda"),
+             "rwkv6_wkv": (wkv_ops, "wkv6_chunked_cuda")}
+    seen: Dict[str, Any] = {name: set() for name in sites}
+    seen["calls"] = {name: 0 for name in sites}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in sites.items()}
 
-    def attn_rec(q, k, v, **kw):
-        seen["flash_attention"].add((tuple(q.shape), tuple(k.shape)))
-        seen["calls"]["flash_attention"] += 1
-        return attn(q, k, v, **kw)
-
-    def swiglu_rec(x, w1, w3, w2, **kw):
-        seen["swiglu_mlp"].add((tuple(x.shape), tuple(w1.shape),
-                                tuple(w2.shape)))
-        seen["calls"]["swiglu_mlp"] += 1
-        return swiglu(x, w1, w3, w2, **kw)
-    attn_ops.flash_attention_bhsd = attn_rec
-    swiglu_ops.swiglu_fused = swiglu_rec
+    def recorder(name):
+        def rec(*a, **kw):
+            seen[name].add(tuple(tuple(s) for s in SHAPES_OF[name](*a)))
+            seen["calls"][name] += 1
+            return saved[name](*a, **kw)
+        return rec
+    for name, (mod, attr) in sites.items():
+        setattr(mod, attr, recorder(name))
     try:
         yield seen
     finally:
-        attn_ops.flash_attention_bhsd = attn
-        swiglu_ops.swiglu_fused = swiglu
+        for name, (mod, attr) in sites.items():
+            setattr(mod, attr, saved[name])
 
 
 def logits_recorder(ref: Optional[Dict[str, List]] = None,
@@ -240,17 +267,53 @@ def logits_recorder(ref: Optional[Dict[str, List]] = None,
     return on_logits, rec
 
 
+def kernel_wrappers() -> Dict[str, Any]:
+    """The Hopper wrappers a served model calls, by stage: each counts
+    its CUDA launches in ``launches``."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.mamba2_scan import ssd_chunked_cuda
+    from repro_torch.kernels.rwkv6_scan import wkv6_chunked_cuda
+    from repro_torch.kernels.swiglu import swiglu_fused
+    return {"flash_attention": flash_attention_bhsd,
+            "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda,
+            "rwkv6_wkv": wkv6_chunked_cuda}
+
+
+def layer_probe(cfg, params, probe: Dict[str, List], route: str
+                ) -> List[float]:
+    """RWKV-6's time-mix layer by layer on this rank's shards (under the
+    active ``spmd`` context), each from the unsharded run's input to that
+    layer (``probe["x"]``), against the unsharded output (``probe["tm"]``):
+    max |got - want| / max |want| per layer."""
+    from repro_torch.models import layers as Lm
+    from repro_torch.models import rwkv6 as rwkv_mod
+    rels = []
+    with torch.no_grad():
+        for i, (x, want) in enumerate(zip(probe["x"], probe["tm"])):
+            p = {k: {n: t[i] for n, t in sub.items()}
+                 for k, sub in params["layers"].items()}
+            x = x.to(params["embed"]["table"].device)
+            h = Lm.norm(p["ln1"], x, eps=cfg.norm_eps)
+            got = rwkv_mod.time_mix(p["tm"], h, cfg, route=route).float()
+            want = want.to(got.device)
+            rels.append(float((got - want).abs().max())
+                        / max(float(want.abs().max()), 1e-30))
+    return rels
+
+
 def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
                mesh_shape, *, backend: str = "gloo", device: str = "cpu",
                ref_logits: Optional[str] = None,
-               out_dir: Optional[str] = None) -> Dict[str, Any]:
+               out_dir: Optional[str] = None,
+               layer_probe_path: Optional[str] = None) -> Dict[str, Any]:
     """One rank: join the group, cut the seeded weights to its shard,
     serve under ``spmd`` and report (see ``drive``).  ``ref_logits`` (a
     ``torch.save``d list) is the unsharded run's logits, call by call;
-    ``out_dir`` receives this rank's logits as ``logits_<rank>.pt``."""
+    ``out_dir`` receives this rank's logits as ``logits_<rank>.pt``;
+    ``layer_probe_path`` (an RWKV-6 model's ``layer_probe`` inputs) adds,
+    after the serve and its launch counts, the per-layer time-mix
+    comparison as ``layer_rel``."""
     from repro_torch.core import CanaryChecker
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
-    from repro_torch.kernels.swiglu import swiglu_fused
     from repro_torch.train.runner import canary_stages
     t_start = time.perf_counter()
     # the ranks share the host's cores
@@ -267,7 +330,8 @@ def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
     full = spec.weights(cfg, dev)
     specs = partition.params_pspecs(full, mesh)
     local = partition.map_with_path(
-        partition.shard_tree(full, specs, mesh, coords),
+        partition.shard_tree(full, specs, mesh, coords,
+                             layout=partition.packed_layout(cfg)),
         lambda _, t: t.clone())
     del full
     if dev.type == "cuda":
@@ -276,7 +340,8 @@ def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
     ref = torch.load(ref_logits) if ref_logits else None
     on_logits, rec = logits_recorder(ref, until_step=spec.fault_step)
     coord = KVCoordinator()
-    for w in (flash_attention_bhsd, swiglu_fused):
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
         w.launches = 0
     with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
                    partition.DEFAULT_AXES, coords, comm,
@@ -292,16 +357,24 @@ def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
                 [s for s in canary_stages(cfg, device=dev)
                  if s.name == spec.fault_stage], route_hw=spec.hw_route)
         res = drive(eng, reqs, spec, rank=rank, canary=canary, rec=rec)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    collectives = comm.log.snapshot()
+    if layer_probe_path:
+        with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
+                       partition.DEFAULT_AXES, coords, comm,
+                       dims=spmd.logical_sizes(cfg)):
+            res["layer_rel"] = layer_probe(cfg, eng.params,
+                                           torch.load(layer_probe_path),
+                                           spec.hw_route)
     res.update({
         "rank": rank, "world": world, "coords": coords,
         "backend": rt.backend, "mesh": list(mesh_shape),
-        "launches": {"flash_attention": flash_attention_bhsd.launches,
-                     "swiglu_mlp": swiglu_fused.launches},
+        "launches": launches,
         "kernel_calls": seen.pop("calls"),
         "kernel_shapes": {k: sorted(map(list, v)) for k, v in seen.items()},
         "logits_rel": rec["rel"], "logit_kinds": rec["kinds"],
         "call_tokens": rec["tokens"],
-        "collectives": comm.log.snapshot(),
+        "collectives": collectives,
         "local_bytes": {"params": _nbytes(local),
                         "cache": _nbytes(eng._caches)},
         "process_s": time.perf_counter() - t_start,
@@ -326,7 +399,8 @@ def worker(argv) -> int:
     res = serve_rank(TPServeSpec(**a["spec"]), a["rank"], a["world"],
                      a["port"], a["mesh"], backend=a["backend"],
                      device=a["device"], ref_logits=a.get("ref_logits"),
-                     out_dir=a.get("out_dir"))
+                     out_dir=a.get("out_dir"),
+                     layer_probe_path=a.get("layer_probe_path"))
     sys.stdout.write(RESULT + json.dumps(res) + "\n")
     sys.stdout.flush()
     return 0
@@ -334,11 +408,13 @@ def worker(argv) -> int:
 
 def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
                  backend: str = "gloo", ref_logits: Optional[str] = None,
-                 out_dir: Optional[str] = None, timeout: float = 600.0,
+                 out_dir: Optional[str] = None,
+                 layer_probe_path: Optional[str] = None,
+                 timeout: float = 600.0,
                  src: Optional[str] = None, env=None) -> List[Dict]:
     """Start one process per rank of ``mesh_shape``, wait for all, and
-    return their results by rank; a rank that fails raises with its
-    stderr."""
+    return their results by rank (``serve_rank``'s arguments as they are
+    named there); a rank that fails raises with its stderr."""
     world = int(np.prod(mesh_shape))
     port = free_port()
     src = src or os.path.dirname(os.path.dirname(os.path.dirname(
@@ -351,7 +427,8 @@ def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
                           "world": world, "port": port,
                           "mesh": list(mesh_shape), "backend": backend,
                           "device": device, "ref_logits": ref_logits,
-                          "out_dir": out_dir})
+                          "out_dir": out_dir,
+                          "layer_probe_path": layer_probe_path})
         procs.append(subprocess.Popen(
             [sys.executable, "-c", WORKER, src, arg], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))

@@ -214,4 +214,4 @@ def rwkv_block(p, x, cfg: ModelConfig, routes, state=None, step=False):
     x = x + rwkv_mod.time_mix(p["tm"], h, cfg, route=route, state=state,
                               step=step)
     h = L.norm(p["ln2"], x, eps=cfg.norm_eps)
-    return x + rwkv_mod.channel_mix(p["tm"], h, state=state)
+    return x + rwkv_mod.channel_mix(p["tm"], h, state=state, d_ff=cfg.d_ff)

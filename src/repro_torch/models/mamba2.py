@@ -10,6 +10,15 @@ the plain ``ssd_chunked``; the port does not run the plain version on the
 card's main path); on SW it is the one the oracle's scan ends with; every
 other target (INTERPRET, the DEGRADED rungs, whose lanes are partly the
 oracle's) takes it from ``ssd_chunked``, as the reference does.
+
+Under the tensor-parallel runtime (``launch/spmd.py``) a rank holds the
+block of every packed leaf that ``partition.shard_tree`` gives it (1/m of
+z, x, B, C and dt; of the conv's x, B and C) and 1/m of the heads: the
+depthwise conv runs on its channels (exact per channel; its tail is the
+rank's ``conv`` cache shard), B and C are gathered (one group: every head
+reads all of both), the SSD runs on the rank's heads, the gated norm over
+the whole ``d_inner`` sums its squares over the ``ssm`` axis, and
+``out_proj``'s rows end in a partial sum.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from repro_torch import viscosity
 from repro_torch.core.routing import state_from_lowering
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan import ref as ssd_ref
+from repro_torch.launch import spmd
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import _he, rms_norm_simple
 
 
@@ -55,10 +66,12 @@ def init_mamba2(gen, L, cfg, dtype, device):
     }
 
 
-def _split(cfg, proj):
-    """in_proj output -> (z, xBC, dt_raw)."""
+def _split(cfg, proj, m=1):
+    """in_proj output -> (z, xBC, dt_raw); ``m``: the ranks the columns
+    are cut over (a rank's block holds 1/m of each)."""
     d_inner, nheads, conv_dim = dims(cfg)
-    return torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
+    return torch.split(proj, [d_inner // m, conv_dim // m, nheads // m],
+                       dim=-1)
 
 
 def _causal_conv(xbc, w, b, *, tail=None):
@@ -82,15 +95,24 @@ def mamba2_block(p, x, cfg, *, route=viscosity.SW, state=None, step=False):
     (B,H,N,P)}, views into the cache that the prefill (``step`` False) and
     the single-token decode (``step``) overwrite in place."""
     B, S, _ = x.shape
-    d_inner, nheads, _ = dims(cfg)
+    d_inner, nheads, conv_dim = dims(cfg)
     N = cfg.ssm.state_dim
     P = cfg.ssm.head_dim
-    proj = x @ p["in_proj"].to(x.dtype)
-    z, xbc, dt_raw = _split(cfg, proj)
+    ax = spmd.leaf_axis("in_proj", (cfg.d_model, d_inner + conv_dim
+                                    + nheads), -1)
+    m = spmd.axis_ranks(ax)
+    proj = spmd.replicate_over(x, ax) @ p["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = _split(cfg, proj, m)
+    xbc = constrain(xbc, "batch", "seq", "ssm_inner")
     tail = state["conv"] if state is not None else None
     xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], tail=tail)
-    xs, B_, C_ = torch.split(xbc, [d_inner, N, N], dim=-1)
-    xs = xs.reshape(B, S, nheads, P)
+    xs, B_, C_ = torch.split(xbc, [d_inner // m, N // m, N // m], dim=-1)
+    if ax is not None:
+        # every local head reads all of B and C (one group)
+        bc = spmd.gather_over(torch.stack([B_, C_]), ax, -1)
+        bc = spmd.replicate_over(bc, ax)
+        B_, C_ = bc[0], bc[1]
+    xs = xs.reshape(B, S, nheads // m, P)
     dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
 
@@ -110,10 +132,20 @@ def mamba2_block(p, x, cfg, *, route=viscosity.SW, state=None, step=False):
         state["conv"].copy_(new_tail)
         state["ssm"].copy_(new_ssm)
     y = y + xs.float() * p["D"][None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rms_norm_simple(y * F.silu(z), eps=cfg.norm_eps) * \
-        p["norm_scale"].to(x.dtype)
-    return y @ p["out_proj"].to(x.dtype)
+    y = y.reshape(B, S, d_inner // m).to(x.dtype)
+    if ax is None:
+        y = rms_norm_simple(y * F.silu(z), eps=cfg.norm_eps) * \
+            p["norm_scale"].to(x.dtype)
+        return constrain(y @ p["out_proj"].to(x.dtype), "batch", "seq",
+                         "embed")
+    # the gated norm over all of d_inner: the squares summed over the axis
+    g = (y * F.silu(z)).float()
+    ss = spmd.reduce_over(g.square().sum(-1, keepdim=True), ax)
+    ss = spmd.replicate_over(ss, ax)
+    y = (g * torch.rsqrt(ss / d_inner + cfg.norm_eps)).to(x.dtype) * \
+        spmd.scatter_over(p["norm_scale"], ax, -1).to(x.dtype)
+    out = spmd.reduce_over(y @ p["out_proj"].to(x.dtype), ax)
+    return constrain(out, "batch", "seq", "embed")
 
 
 def init_mamba2_state(L, B, cfg, dtype, device):

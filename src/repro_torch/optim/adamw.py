@@ -10,6 +10,13 @@ params, grads and moments).  The arithmetic is the reference's, in f32: ``count`
 incremented before ``schedule``, bias corrections ``1 - b**c``, weight
 decay on every leaf, the step computed in f32 and cast to the param
 dtype.  Scalars (``count``, ``lr``, the norm) stay on the params' device.
+
+Under the tensor-parallel runtime (``launch/spmd.py``) each leaf is the
+rank's shard, so the clip's norm takes ``specs`` (``partition.
+params_pspecs`` of the full tree): a leaf cut over some mesh axes adds
+its squares summed over exactly those axes, a replicated leaf its own
+once (``spmd.sum_by_spec``), and every rank clips by the global norm.
+Outside ``spmd`` the specs are not read.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.launch import spmd
 from repro_torch.viscosity.lang import tree_leaves, tree_map
 
 PyTree = Any
@@ -61,16 +69,22 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
+def global_norm(tree: PyTree, specs: PyTree = None) -> torch.Tensor:
+    """The L2 norm over every leaf; under ``spmd`` the whole tree's, from
+    the rank's shards and their ``specs``."""
     leaves = [x.float() for x in tree_leaves(tree)]
-    return torch.stack(torch._foreach_norm(leaves)).square().sum().sqrt()
+    squares = torch.stack(torch._foreach_norm(leaves)).square()
+    if spmd.current() is None:
+        return squares.sum().sqrt()
+    return spmd.sum_by_spec(squares, tree, specs).sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: PyTree, max_norm: float
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        specs: PyTree = None
                         ) -> Tuple[PyTree, torch.Tensor]:
     """Scales f32 ``grads`` in place; returns (grads, norm before)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     torch._foreach_mul_(tree_leaves(grads), scale)
     return grads, norm
@@ -78,15 +92,17 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState,
-           params: PyTree) -> Tuple[PyTree, AdamWState, dict]:
+           params: PyTree, *, specs: PyTree = None
+           ) -> Tuple[PyTree, AdamWState, dict]:
     """One AdamW step in place: ``params`` and the moments are overwritten
     and returned.  f32 ``grads`` are consumed: clipped, then overwritten
-    by the step (others are cast first)."""
+    by the step (others are cast first).  Under ``spmd`` ``specs`` (the
+    params' PartitionSpecs) makes the clip's norm the global one."""
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, specs)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs)
     count = state.count + 1
     lr = schedule(cfg, count)
     b1, b2 = cfg.b1, cfg.b2

@@ -6,9 +6,11 @@ two).
 
 JSON: rank, world, port, mesh (D, M), out (a directory), cases.  Each
 case names a reduced config, a ``torch.save``d full param tree (the
-reference's, converted by ``params_from_jax``), a route, optionally the
+reference's, converted by ``params_from_jax``; its packed Mamba2 leaves
+cut by component, ``partition.packed_layout``), a route, optionally the
 param axes (``partition.DEFAULT_AXES`` by default) and what to run
 (prefill + teacher-forced decode, a train step's loss and gradients, the
+AdamW update those gradients make under a clip that binds, the
 teacher-forced logits); the rank runs it on its shards under
 ``launch.spmd.spmd`` and saves what it got to ``out/rank<r>.pt``.
 """
@@ -40,9 +42,9 @@ def run_case(case, mesh, coords):
                                         target=case["route"])
     model = build_model(cfg, routes=routes)
     full = torch.load(case["params"])
-    local = partition.shard_tree(
-        full, partition.params_pspecs(full, mesh, case.get("axes")), mesh,
-        coords)
+    specs = partition.params_pspecs(full, mesh, case.get("axes"))
+    local = partition.shard_tree(full, specs, mesh, coords,
+                                 layout=partition.packed_layout(cfg))
     local = partition.map_with_path(local, lambda _, t: t.clone())
     nd = mesh.axis_sizes["data"]
     B, P, T = case["batch"], case["prompt"], case["decode"]
@@ -68,6 +70,16 @@ def run_case(case, mesh, coords):
             model.forward, local, {"tokens": toks, "targets": tgt})
         spmd.sync_grads(grads)
         out["loss"], out["metrics"], out["grads"] = loss, metrics, grads
+        if "update" in case["run"]:
+            from repro_torch import optim
+            params = partition.map_with_path(local, lambda _, t: t.clone())
+            state = optim.init(params)
+            _, state, stats = optim.update(
+                optim.AdamWConfig(clip_norm=case["clip"], eps=case["eps"]),
+                partition.map_with_path(grads, lambda _, t: t.clone()),
+                state, params, specs=specs)
+            out["update"] = {"params": params, "mu": state.mu,
+                             "nu": state.nu, "grad_norm": stats["grad_norm"]}
     if "logits" in case["run"]:
         toks = _tokens(case["seed"] + 3, (B, P))[rows]
         out["logits"] = model.logits_all(local, {"tokens": toks})

@@ -476,17 +476,22 @@ def test_tuning_phase_plans_on_the_cpu(tmp_path):
         tuning.reset()
 
 
-def test_tp_phase_on_the_cpu(monkeypatch):
+@pytest.mark.parametrize("arch,layers,kernels", [
+    ("qwen1.5-4b", 2, ("flash_attention", "swiglu_mlp")),
+    ("zamba2-1.2b", 4, ("flash_attention", "swiglu_mlp", "mamba2_ssd")),
+    ("rwkv6-1.6b", 3, ("rwkv6_wkv",))])
+def test_tp_phase_on_the_cpu(monkeypatch, arch, layers, kernels):
     """Phase 15's wiring at the reduced config on four gloo ranks of the
-    CPU: the ranks agree, demote the stage at the fault step together,
-    hold the unsharded engine's logits before it, call the wrappers at the
-    shard shapes as often as the card's counts want, and move the bytes a
-    tick the dry run's stub counts."""
+    CPU, model by model: the ranks agree, demote the model's own kernel
+    stage at the fault step together, hold the unsharded engine's logits
+    before it (rwkv6-1.6b layer by layer, and its prefill against the f32
+    model), call the wrappers at the shard shapes as often as the card's
+    counts want, and move the bytes a tick the dry run's stub counts."""
     from repro_torch.launch.tp_serve import TPServeSpec
     from repro_torch.viscosity import HW
 
-    def spec():
-        return TPServeSpec(arch="qwen1.5-4b", layers=2, dtype="bfloat16",
+    def spec(a=arch):
+        return TPServeSpec(arch=a, layers=layers, dtype="bfloat16",
                            hw_route=HW, fault_step=chip_smoke.TP_FAULT_STEP,
                            fault_rank=chip_smoke.TP_FAULT_RANK,
                            **{**chip_smoke.TP_WORKLOAD, "min_prompt": 8,
@@ -495,13 +500,17 @@ def test_tp_phase_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     counters = {name: types.SimpleNamespace(launches=0)
-                for name in ("checksum", "flash_attention", "swiglu_mlp")}
-    entry, launches = chip_smoke.tp_phase(torch.device("cpu"), counters,
-                                          "cpu", count="kernel_calls")
+                for name in ("checksum", "flash_attention", "swiglu_mlp",
+                             "mamba2_ssd", "rwkv6_wkv")}
+    entry, paths = chip_smoke.tp_phase(torch.device("cpu"), counters,
+                                       "cpu", count="kernel_calls",
+                                       archs=(arch,))
     cfg = spec().config()
-    assert len(entry["ranks"]) == 4 and entry["layers"] == cfg.num_layers
-    assert launches["flash_attention"] > 0 and launches["swiglu_mlp"] > 0
-    assert launches["checksum"] == 0
-    assert set(entry["stub_tick_bytes"]) == {"all-reduce", "all-gather"}
+    model = entry["models"][arch]
+    assert len(model["ranks"]) == 4 and model["layers"] == cfg.num_layers
+    launches = paths[f"tp {arch}"]
+    assert all(launches[k] > 0 for k in kernels), launches
+    assert all(n == 0 for k, n in launches.items() if k not in kernels)
+    assert set(model["stub_tick_bytes"]) == {"all-reduce", "all-gather"}
     assert all(r["logits_rel_max"] <= chip_smoke.LOGITS_REL
-               for r in entry["ranks"])
+               for r in model["ranks"]) or arch == "rwkv6-1.6b"

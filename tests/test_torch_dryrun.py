@@ -363,15 +363,23 @@ def test_sharded_cell_bytes_and_collectives(shape, tmp_path):
     assert reanalyze.reanalyze(rec) == rec
 
 
-def test_hybrid_cell_under_a_model_axis_is_a_skip_with_spec_bytes(tmp_path):
+@pytest.mark.parametrize("arch,status", [
+    ("zamba2-1.2b-smoke", "ok"), ("whisper-base-smoke", "skip")])
+def test_sharded_family_cell_status_with_spec_bytes(tmp_path, arch, status):
+    """Under a model axis the hybrid family runs one rank's step (its
+    Mamba2 leaves cut by component); the encoder-decoder family is still a
+    skip.  Either way the record's per-device bytes are the spec sums."""
     from repro_torch.launch import partition
-    rec = dryrun.run_cell("zamba2-1.2b-smoke", "train_4k",
-                          out_dir=str(tmp_path), shapes=SMOKE_SHAPES,
-                          mesh="1x2")
-    assert rec["status"] == "skip" and "packed projections" in rec["reason"]
-    p = params_specs(build_model(get_config("zamba2-1.2b-smoke")))
-    n = _spec_bytes(p, partition.params_pspecs(p, {"data": 1, "model": 2}),
-                    {"data": 1, "model": 2})
+    rec = dryrun.run_cell(arch, "train_4k", out_dir=str(tmp_path),
+                          shapes=SMOKE_SHAPES, mesh="1x2")
+    assert rec["status"] == status, rec.get("reason") or rec.get("error")
+    if status == "skip":
+        assert "encoder-decoder" in rec["reason"]
+    else:
+        assert rec["collectives"]["bytes_by_kind"]["all-gather"] > 0
+    sizes = {"data": 1, "model": 2}
+    p = params_specs(build_model(get_config(arch)))
+    n = _spec_bytes(p, partition.params_pspecs(p, sizes), sizes)
     assert rec["bytes"]["params"] == n == rec["spec_bytes"]["params"]
     assert rec["bytes"]["opt_state"] == 2 * n + 4
 

@@ -171,3 +171,93 @@ def test_shard_tree_round_trips(sizes):
     back = partition.unshard_tree(shards, specs, sizes)
     for (p, a), (_, b) in zip(_flat(back), _flat(tree)):
         assert torch.equal(a, b), p
+
+
+def _packed_tree(cfg, L=1, B=2):
+    """zamba2's packed leaves at ``cfg``'s width (``L`` layers, a conv
+    cache of ``B`` slots), random, under their model paths."""
+    from repro_torch.models.mamba2 import dims
+    g = torch.Generator().manual_seed(0)
+    d_inner, nheads, conv_dim = dims(cfg)
+    K = cfg.ssm.conv_kernel
+    params = {"layers": {"mix": {
+        "in_proj": torch.randn(L, cfg.d_model, d_inner + conv_dim + nheads,
+                               generator=g),
+        "conv_w": torch.randn(L, K, conv_dim, generator=g),
+        "conv_b": torch.randn(L, conv_dim, generator=g)}}}
+    cache = {"mamba": {"conv": torch.randn(L, B, K - 1, conv_dim,
+                                           generator=g)}}
+    return params, cache
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+def test_component_layout_round_trips_and_cuts_every_component(m):
+    """zamba2-1.2b at full width: ``shard_tree`` with ``packed_layout``
+    gives rank r the r-th 1/m of every component of ``in_proj`` (z, x, B,
+    C, dt), ``conv_w`` and the ``conv`` cache (x, B, C), in order, under
+    the unchanged spec, and ``unshard_tree`` puts the leaves back bit for
+    bit."""
+    cfg = get_config("zamba2-1.2b")
+    sizes = {"data": 1, "model": m}
+    layout = partition.packed_layout(cfg)
+    assert [c for c, _ in layout["in_proj"]] == ["z", "x", "B", "C", "dt"]
+    assert [w for _, w in layout["in_proj"]] == [4096, 4096, 64, 64, 64]
+    params, cache = _packed_tree(cfg)
+    for tree, specs in (
+            (params, partition.params_pspecs(params, sizes)),
+            (cache, partition.tree_pspecs(cache, sizes,
+                                          partition.make_cache_pspec_fn(
+                                              2, sizes)))):
+        for path, spec in partition.flatten(specs).items():
+            assert spec[-1] == "model", (path, spec)
+        shards = [partition.shard_tree(tree, specs, sizes, c, layout=layout)
+                  for c in partition.mesh_coords(sizes)]
+        flat = partition.flatten(tree)
+        for r, sh in enumerate(shards):
+            for path, t in partition.flatten(sh).items():
+                full = flat[path]
+                assert t.shape[-1] * m == full.shape[-1]
+                comps = layout[path.split("/")[-1]]
+                off, pos = 0, 0
+                for _, w in comps:       # rank r's 1/m of each, in order
+                    n = w // m
+                    assert torch.equal(
+                        t[..., pos:pos + n],
+                        full[..., off + r * n:off + (r + 1) * n]), path
+                    off, pos = off + w, pos + n
+        back = partition.unshard_tree(shards, specs, sizes, layout=layout)
+        for path, t in partition.flatten(back).items():
+            assert torch.equal(t, flat[path]), path
+
+
+def test_component_that_does_not_divide_is_refused_by_name():
+    """A leaf that divides m with a component that does not: ``shard_tree``
+    and the runtime raise ``NotImplementedError`` naming both; the dry run
+    records the cell as a skip."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, spmd
+    cfg = get_config("zamba2-1.2b")
+    odd = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           state_dim=48))
+    sizes = {"data": 1, "model": 32}        # 8352 columns: 261 a rank
+    params, _ = _packed_tree(odd)
+    specs = partition.params_pspecs(params, sizes)
+    assert partition.flatten(specs)["layers/mix/in_proj"][-1] == "model"
+    with pytest.raises(NotImplementedError,
+                       match=r"(in_proj|conv_[bw]): its B component \(48"):
+        partition.shard_tree(params, specs, sizes, {"data": 0, "model": 1},
+                             layout=partition.packed_layout(odd))
+    with spmd.spmd(sizes, partition.rules_for(odd, sizes)):
+        with pytest.raises(NotImplementedError, match=r"in_proj.*\bB\b"):
+            spmd.check_runtime(odd)
+    spmd.check_runtime(odd)                  # outside spmd: nothing
+    smoke = get_config("zamba2-1.2b-smoke")
+    rec = dryrun.run_cell(
+        "zamba2-1.2b-smoke", "decode_32k", mesh="1x2", force=True,
+        out_dir=str(__import__("tempfile").mkdtemp()),
+        shapes={"decode_32k": dataclasses.replace(SHAPES["decode_32k"],
+                                                  seq_len=64,
+                                                  global_batch=2)},
+        overrides={"ssm": dataclasses.replace(smoke.ssm, state_dim=17)})
+    assert rec["status"] == "skip" and "in_proj" in rec["reason"], rec

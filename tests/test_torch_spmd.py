@@ -15,6 +15,11 @@ on the reference's float32 params (``params_from_jax``) cut by
   * (2, 2): the reduced qwen1.5-4b on SW with the batch over "data" and
     the heads over "model".
 
+On both meshes the reduced qwen1.5-4b's gradients then go through one
+AdamW update whose clip binds (``clip_norm`` below the gradient norm):
+the clip scale comes from the global norm, so the updated params and
+moments equal the unsharded update's.
+
 Tolerances: against the unsharded port, 1e-5 of the largest magnitude
 (logits, loss) or of each gradient leaf's (float32 sums in another order);
 against the reference, the port's parity tolerances (logits and loss
@@ -55,9 +60,17 @@ GRAD_REL = 1e-4
 SHARD_REL = 1e-5
 OP_TOL = 2e-2
 B, P, T = 3, 8, 4
+# AdamW's default clip, below the reduced qwen's gradient norm (about
+# 20): the clip binds.  An eps at the clipped gradient's scale keeps the
+# first step m / (sqrt(v) + eps) a smooth function of the gradient; at
+# the default 1e-8 it is sign(g), and a leaf whose gradient is zero but
+# for rounding (``bk``: softmax ignores a bias shared by every key) steps
+# by lr in a direction no two summation orders agree on.
+CLIP, ADAM_EPS = 1.0, 1.0
 QWEN, MIXTRAL = "qwen1.5-4b-smoke", "mixtral-8x7b-smoke"
 CASES = {
-    "qwen_sw": dict(arch=QWEN, route="sw", run=["prefill", "train"]),
+    "qwen_sw": dict(arch=QWEN, route="sw", run=["prefill", "train", "update"],
+                    clip=CLIP, eps=ADAM_EPS),
     "qwen_interp": dict(arch=QWEN, route="interpret", run=["prefill"]),
     "mixtral_sw": dict(arch=MIXTRAL, route="sw", run=["train", "logits"]),
     # expert parallelism: the experts split over "model", d_ff whole
@@ -254,6 +267,29 @@ def test_train_step_loss_and_grads(runs, mesh, name, arch):
     for path, g in _flat(grads):
         _close(g, dict(_flat(plain["grads"]))[path], SHARD_REL)
         _close(g, ref[path], GRAD_REL)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_clipped_update_uses_the_global_norm(runs, mesh):
+    """AdamW under ``spmd`` clips by the norm of the whole gradient: each
+    sharded leaf's squares summed over the axes it is cut over, each
+    replicated leaf's once.  The params and moments rebuilt from the
+    shards equal the unsharded update's within 1e-5 of each leaf's largest
+    magnitude."""
+    run = runs[mesh]
+    plain = run["plain"]["qwen_sw"]["update"]
+    assert float(plain["grad_norm"]) > 10 * CLIP      # the clip binds
+    specs = partition.params_pspecs(plain["params"], run["mesh"])
+    for r in run["ranks"]:
+        _close(r["qwen_sw"]["update"]["grad_norm"], plain["grad_norm"],
+               SHARD_REL)
+    for key in ("params", "mu", "nu"):
+        got = partition.unshard_tree(
+            [r["qwen_sw"]["update"][key] for r in run["ranks"]], specs,
+            run["mesh"])
+        want = dict(_flat(plain[key]))
+        for path, t in _flat(got):
+            _close(t, want[path], SHARD_REL)
 
 
 def test_expert_parallel_logits(runs):
