@@ -82,7 +82,12 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              each of its workload's prompt lengths and the shortest it may
              draw, 6; phase 15's tensor-parallel ranks, qwen1.5-4b's 5 of 20
              heads at P = 16, 77 and 128 and zamba2-1.2b's 8 of 32 at
-             P = 16, 128 and 384); and its bits: two
+             P = 16, 128 and 384, then whisper-base's 2 of 8 heads of 64
+             (B = 4: the encoder over 1500 frames, the 4-token prompt,
+             cross-attention of Sq = 4 and 1 over 1500 keys) and
+             gemma3-1b's 1 of 4 query heads over its one kv head at head
+             dim 256 (window 512 at P = 128 and 600, global at P = 600));
+             and its bits: two
              calls, the contiguous (B, H, S, D) copies and
              ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200}; its
@@ -99,8 +104,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              2304 -> 9216, and gemma3-1b's GeGLU 1152 -> 6912: M in {4,
              128, 4200}, the last their ring prefill's; qwen2-vl-7b's
              SwiGLU 3584 -> 18944: M in {4, 128, 288}, the last its image
-             prefill's), then SwiGLU's bits (qwen1.5-4b, zamba2-1.2b, both
-             ranks, mistral-nemo-12b, gemma3-1b, qwen2-vl-7b,
+             prefill's; phase 15's gemma3-1b rank, GeGLU 1152 -> 1728 ->
+             1152: M in {4, 600}), then SwiGLU's bits (qwen1.5-4b,
+             zamba2-1.2b, the three ranks, mistral-nemo-12b, gemma3-1b,
+             qwen2-vl-7b,
              serve_with_faults' reduced qwen1.5-4b): each row of an
              M = 4 row-independent call equals that row alone, and two
              runs agree, at decode and at prefill;
@@ -370,15 +377,29 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              component) through ``ServeEngine`` on route hw: 4 requests of
              16-128 prompt tokens on 4 slots; a lane fault on rank 1's own
              kernel stage at step 6, found by its canary and agreed
-             through ``EventChannel``.  Model by model (``TP_LAYERS``):
-             qwen1.5-4b at full width and 8 of 40 layers (5 of 20 heads,
-             1728 of 6912 d_ff columns, a quarter of the vocab and of the
-             KV heads; the fault on ``swiglu_mlp``), zamba2-1.2b at 12 of
-             38 (two groups of six Mamba2 layers and the shared block: 16
-             of 64 SSD heads, 8 of 32 attention heads, 2048 of 8192 d_ff
-             columns; ``mamba2_ssd``) and rwkv6-1.6b at 6 of 24 (8 of 32
-             WKV heads; ``rwkv6_wkv``).  First this process serves the
-             same workload on one unsharded HW engine of the same weights.
+             through ``EventChannel``.  The four rank processes start
+             once, join their group once and serve the models in turn
+             (``tp_serve.launch_jobs``).  Model by model
+             (``TP_LAYERS``): qwen1.5-4b at full width and 4 of 40 layers
+             (5 of 20 heads, 1728 of 6912 d_ff columns, a quarter of the
+             vocab and of the KV heads; the fault on ``swiglu_mlp``),
+             zamba2-1.2b at 6 of 38 (one group of six Mamba2 layers and
+             the shared block: 16 of 64 SSD heads, 8 of 32 attention
+             heads, 2048 of 8192 d_ff columns; ``mamba2_ssd``),
+             rwkv6-1.6b at 3 of 24 (8 of 32 WKV heads; ``rwkv6_wkv``),
+             whisper-base at full width and
+             depth, 6 + 6 layers (2 of 8 heads, 512 of 2048 d_ff columns,
+             a quarter of the cross-KV's and the cache's kv heads; 4
+             requests of 1500 stub frames and a 4-token prompt, 16 greedy
+             decode steps through ``tp_serve.drive_encdec``, as it has no
+             ``ServeEngine`` path; ``flash_attention``) and gemma3-1b at 6
+             of 26 (five local layers and its global one: 1 of 4 query
+             heads, its one kv head's K/V gathered, a quarter of every
+             cache's slots, each decode step combining the ranks' softmax
+             partials; prompts of 600-640 tokens wrap the local rings of
+             512; ``swiglu_mlp``).  First this process serves the
+             same workload on one unsharded HW engine of the same weights
+             (whisper: the same ``drive_encdec`` unsharded).
              Checks: every rank emits the same tokens; each rank's
              gathered logits within ``LOGITS_REL`` of the unsharded
              engine's at every prefill and tick before the fault (the
@@ -391,8 +412,13 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              every rank demotes the stage at step 6; each rank launches
              attention once a layer a prefill, SwiGLU once a layer a call
              (until the fault where it is the faulted stage), the SSD or
-             the WKV once a layer a prefill until the fault, the faulted
-             rank's canary once more, each at the rank's shapes; each
+             the WKV once a layer a prefill until the fault (whisper:
+             attention 6 + 2 x 6 times a prefill and 6 a step until the
+             fault), the faulted rank's canary once more, each at the
+             rank's shapes; each rank's cache holds a quarter of the
+             unsharded one's kv heads, or of its slots where the kv heads
+             do not divide (gemma3-1b), and whisper's cross-KV a quarter
+             of the kv heads; each
              tick's collective bytes on the process group equal the dry
              run's counting stub for the same cell and depth.  Each rank's
              prefill and tick ms print, and the phase's seconds with the
@@ -524,6 +550,24 @@ TP_ATTN_CASES = (
     (1, 16, 16, 8, 8, 64, 64, dict(causal=True)),
     (1, 128, 128, 8, 8, 64, 64, dict(causal=True)),
     (1, 384, 384, 8, 8, 64, 64, dict(causal=True)),
+)
+# The rank shapes phase 15's whisper-base and gemma3-1b add, held after
+# every case above: whisper's 2 of 8 heads of 64 (B = 4: the encoder over
+# 1500 frames, the decoder's 4-token prompt, cross-attention of Sq = 4 and
+# of Sq = 1 over the 1500 frames) and gemma3-1b's 1 of 4 query heads over
+# its one kv head at head dim 256: a local layer (window 512) at P = 128
+# and past the window at 600, and the global layer at 600
+TP_GEMMA3_PROMPT = 600
+TP_WHISPER_GEMMA3_ATTN_CASES = (
+    (4, 1500, 1500, 2, 2, 64, 64, dict(causal=False)),
+    (4, 4, 4, 2, 2, 64, 64, dict(causal=True)),
+    (4, 4, 1500, 2, 2, 64, 64, dict(causal=False)),
+    (4, 1, 1500, 2, 2, 64, 64, dict(causal=False)),
+    (1, 128, 128, 1, 1, 256, 256, dict(causal=True, window=512)),
+    (1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT, 1, 1, 256, 256,
+     dict(causal=True, window=512)),
+    (1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT, 1, 1, 256, 256,
+     dict(causal=True)),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -3336,20 +3380,35 @@ def _run_examples(cfg, t1, outputs, t0, timeout):
 
 # Phase 15: tensor-parallel serving over a (1, 4) ("data", "model") mesh:
 # four gloo ranks on the one card, each serving its shard of one model
-# through ``ServeEngine`` under ``launch/spmd.py`` (seeded bf16 weights cut
-# by ``partition.shard_tree``, Mamba2's packed leaves by component), and a
-# lane fault on rank TP_FAULT_RANK's own kernel stage at step
-# TP_FAULT_STEP, found by its canary and agreed through ``EventChannel``.
-# The models and their depths: qwen1.5-4b 8 of 40 layers (5 of 20 heads,
-# 1728 of 6912 d_ff columns; the fault on ``swiglu_mlp``), zamba2-1.2b 12 of
-# 38 (two groups of six Mamba2 layers, each followed by the shared block:
-# 16 of 64 SSD heads, 8 of 32 attention heads, 2048 of 8192 d_ff columns;
-# ``mamba2_ssd``), rwkv6-1.6b 6 of 24 (8 of 32 WKV heads; ``rwkv6_wkv``).
+# after another through ``ServeEngine`` under ``launch/spmd.py`` (seeded
+# bf16 weights cut by ``partition.shard_tree``, Mamba2's packed leaves by
+# component), and a lane fault on rank TP_FAULT_RANK's own kernel stage at
+# step TP_FAULT_STEP, found by its canary and agreed through
+# ``EventChannel``.  The models and their depths (cut so that the whole
+# script stays near 1,000 s on the card): qwen1.5-4b 4 of 40 layers (5 of 20 heads, 1728 of 6912 d_ff
+# columns; the fault on ``swiglu_mlp``), zamba2-1.2b 6 of 38 (one group of
+# six Mamba2 layers, followed by the shared block: 16 of 64 SSD heads, 8
+# of 32 attention heads, 2048 of 8192 d_ff columns; ``mamba2_ssd``),
+# rwkv6-1.6b 3 of 24 (8 of 32 WKV heads; ``rwkv6_wkv``),
+# whisper-base at its full 6 + 6 (``layers`` cuts ``num_layers`` only: 2 of
+# 8 heads, 512 of 2048 d_ff columns; ``flash_attention``) and gemma3-1b 6
+# of 26 (five local layers and its global one: 1 of 4 query heads, its
+# one kv head's cache cut along the slots; ``swiglu_mlp``).
 TP_MESH = (1, 4)
-TP_LAYERS = {"qwen1.5-4b": 8, "zamba2-1.2b": 12, "rwkv6-1.6b": 6}
+TP_LAYERS = {"qwen1.5-4b": 4, "zamba2-1.2b": 6, "rwkv6-1.6b": 3,
+             "whisper-base": None, "gemma3-1b": 6}
 TP_FAULT_STEP, TP_FAULT_RANK = 6, 1
 TP_WORKLOAD = dict(requests=4, slots=4, min_prompt=16, max_prompt=128,
                    min_new=8, max_new=14, arrival_every=1, per_arrival=2)
+# whisper-base: one batch of 4 requests of 1500 stub frames, a 4-token
+# prompt and 16 decode steps; gemma3-1b: prompts of 600-640 tokens, past
+# its 512 window, so the local layers' rings wrap while cut, and a max_len
+# of 640 + 16 = 4 x 164, so the global layer's slots are cut too
+TP_WORKLOADS = {
+    "whisper-base": dict(TP_WORKLOAD, min_prompt=4, max_prompt=4,
+                         min_new=16, max_new=16, frames=ENCDEC_FRAMES),
+    "gemma3-1b": dict(TP_WORKLOAD, min_prompt=600, max_prompt=640,
+                      max_new=16)}
 TP_TIMEOUT_S = 300
 
 
@@ -3359,7 +3418,7 @@ def tp_spec(arch: str = "qwen1.5-4b"):
     return TPServeSpec(arch=arch, full=True, layers=TP_LAYERS[arch],
                        dtype="bfloat16", seed=0, hw_route=HW,
                        fault_step=TP_FAULT_STEP, fault_rank=TP_FAULT_RANK,
-                       **TP_WORKLOAD)
+                       **TP_WORKLOADS.get(arch, TP_WORKLOAD))
 
 
 def tp_collectives_stub(spec):
@@ -3381,9 +3440,12 @@ def tp_collectives_stub(spec):
 
 def tp_local_shapes(cfg):
     """What one rank of the (1, 4) mesh holds of ``cfg``: its attention
-    heads and kv heads, its d_ff columns, its SSD or WKV heads."""
+    heads and kv heads (every kv head where they do not divide: their
+    K/V are gathered), its d_ff columns, its SSD or WKV heads."""
     m = TP_MESH[1]
-    out = {"heads": cfg.num_heads // m, "kv_heads": cfg.num_kv_heads // m,
+    n_kv = cfg.num_kv_heads
+    out = {"heads": cfg.num_heads // m,
+           "kv_heads": n_kv // m if n_kv % m == 0 else n_kv,
            "d_ff": cfg.d_ff // m}
     if cfg.family == "hybrid":
         out["ssd_heads"] = cfg.ssm.expand * cfg.d_model // \
@@ -3402,7 +3464,13 @@ def tp_want_launches(cfg, stage, rank, n_pre, n_pre_before, n_before,
     L = cfg.num_layers
     want = dict.fromkeys(("flash_attention", "swiglu_mlp", "mamba2_ssd",
                           "rwkv6_wkv"), 0)
-    if cfg.family == "hybrid":
+    if cfg.is_encdec:
+        # the encoder's and the decoder's self- and cross-attention a
+        # prefill, a step's cross-attention (its self-attention is plain)
+        want["flash_attention"] = (
+            (cfg.enc_layers + 2 * cfg.dec_layers) * n_pre_before
+            + cfg.dec_layers * (n_before - n_pre_before))
+    elif cfg.family == "hybrid":
         groups = L // cfg.shared_attn_every
         want.update(flash_attention=groups * n_pre,
                     swiglu_mlp=groups * n_calls, mamba2_ssd=L * n_pre_before)
@@ -3417,13 +3485,20 @@ def tp_want_launches(cfg, stage, rank, n_pre, n_pre_before, n_before,
 def tp_shape_faults(cfg, shapes):
     """What of a rank's recorded kernel shapes is not its shard's (empty
     when every served call ran at the rank's shapes)."""
+    from repro_torch.train.runner import canary_stages
     loc, bad = tp_local_shapes(cfg), []
     if cfg.family != "ssm":
-        if not shapes["flash_attention"] or any(
-                q[1] != loc["heads"] or k[1] != loc["kv_heads"]
-                for q, k in shapes["flash_attention"]):
+        # the canary's probe (B, S, H, D) ports as the kernel sees them
+        probe = [[list(p.shape[i] for i in (0, 2, 1, 3)) for p in st.ports[:2]]
+                 for st in canary_stages(cfg, device="cpu")
+                 if st.name == "flash_attention"]
+        served = [qk for qk in shapes["flash_attention"]
+                  if list(qk) not in probe]
+        if not served or any(q[1] != loc["heads"] or k[1] != loc["kv_heads"]
+                             for q, k in served):
             bad.append(f"attention ran at {shapes['flash_attention']}, not "
                        f"at {loc['heads']} heads")
+    if cfg.family != "ssm" and not cfg.is_encdec:
         served = [sh for sh in shapes["swiglu_mlp"]
                   if sh[0][1] == cfg.d_model]     # not the canary's probe
         if not served or any(w1 != [cfg.d_model, loc["d_ff"]]
@@ -3443,6 +3518,39 @@ def tp_shape_faults(cfg, shapes):
                              or u != [loc["wkv_heads"], K]
                              for r, u in served):
             bad.append(f"the WKV ran at {shapes['rwkv6_wkv']}")
+    return bad
+
+
+def tp_cache_faults(spec, shapes):
+    """What of a rank's cache (``shapes``: its leaves' shapes by path) is
+    not its quarter of the unsharded one's: each KV leaf's kv heads, or
+    its slots where the kv heads do not divide the model axis, the
+    positions' slots where they divide it, and an encoder-decoder model's
+    cross-KV's kv heads (empty when all are)."""
+    import torch
+
+    from repro_torch.launch import partition
+    from repro_torch.models import build_model
+    cfg, m, meta = spec.config(), TP_MESH[1], torch.device("meta")
+    rows = spec.requests if cfg.is_encdec else spec.slots
+    full = build_model(cfg).init_cache(rows, spec.max_len, device=meta)
+    if cfg.is_encdec:
+        kv = torch.empty((cfg.dec_layers, rows, spec.frames,
+                          cfg.num_kv_heads, cfg.resolved_head_dim),
+                         device=meta)
+        full = {"self": full, "cross": (kv, kv)}
+    bad = []
+    for path, t in partition.flatten(full).items():
+        want, name = list(t.shape), path.split("/")[-1]
+        if name == "pos":
+            want[-1] //= m if want[-1] % m == 0 else 1
+        elif name in ("k", "v") or path.startswith("cross"):
+            want[-2 if cfg.num_kv_heads % m == 0 else -3] //= m
+        else:
+            continue
+        if shapes.get(path) != want:
+            bad.append(f"{path} {shapes.get(path)}, want {want} of "
+                       f"{list(t.shape)}")
     return bad
 
 
@@ -3492,44 +3600,55 @@ def tp_rwkv_reference(spec, dev, path):
     return logits
 
 
-def tp_model(arch, dev, wrappers, *, timeout: float, count: str):
-    """Phase 15 for one model: the unsharded HW engine of the same weights
-    serves the same workload in this process first (its logits, call by
-    call, are what each rank's gathered logits are held to before the
-    fault), then the four ranks.  Returns (entry, launches of the ranks,
-    launches of the unsharded run)."""
+def tp_reference(arch, dev, wrappers, tmp: str):
+    """Phase 15's unsharded run of one model, in this process, before the
+    ranks: the unsharded HW engine of the same weights (whisper-base:
+    ``drive_encdec`` unsharded) serves the same workload; its logits, call
+    by call, are what each rank's gathered logits are held to before the
+    fault (rwkv6-1.6b: also ``tp_rwkv_reference``).  Returns the model's
+    job for the ranks (its files under ``tmp``), the run's launches, the
+    rwkv6-1.6b references and the run's seconds."""
+    import torch
+
+    from repro_torch.launch import tp_serve
+
+    t0 = time.perf_counter()
+    spec = tp_spec(arch)
+    d = os.path.join(tmp, arch)
+    os.makedirs(d)
+    for w in wrappers.values():
+        w.launches = 0
+    ref_path = os.path.join(d, "ref.pt")
+    tp_serve.reference_run(spec, device=dev.type, path=ref_path)
+    ref_launches = {n: w.launches for n, w in wrappers.items()}
+    probe = e2e = None
+    if spec.config().family == "ssm":
+        probe = os.path.join(d, "probe.pt")
+        e2e = tp_rwkv_reference(spec, dev, probe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"spec": spec, "dir": d, "ref_launches": ref_launches,
+            "e2e": e2e, "ref_s": time.perf_counter() - t0,
+            "job": tp_serve.make_job(spec, ref_logits=ref_path,
+                                     out_dir=d if e2e else None,
+                                     layer_probe_path=probe)}
+
+
+def tp_model(arch, ref, res, *, count: str):
+    """Phase 15's checks of one model: ``ref`` its ``tp_reference``,
+    ``res`` its four ranks' reports from the phase's launch.  Returns
+    (entry, launches of the ranks, launches of the unsharded run)."""
     import numpy as np
     import torch
 
     from repro_torch.launch import tp_serve
     from repro_torch.viscosity import HW, SW
 
-    t0 = time.perf_counter()
-    spec = tp_spec(arch)
+    spec, e2e, ref_launches = ref["spec"], ref["e2e"], ref["ref_launches"]
     cfg = spec.config()
     stage = spec.fault_stage
-    for w in wrappers.values():
-        w.launches = 0
-    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
-        ref_path = os.path.join(tmp, "ref.pt")
-        ref = tp_serve.reference_run(spec, device=dev.type, path=ref_path)
-        ref_launches = {n: w.launches for n, w in wrappers.items()}
-        probe = e2e = None
-        if cfg.family == "ssm":
-            probe = os.path.join(tmp, "probe.pt")
-            e2e = tp_rwkv_reference(spec, dev, probe)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t_ranks = time.perf_counter()
-        res = tp_serve.launch_ranks(spec, TP_MESH, device=dev.type,
-                                    backend=MH_BACKEND, ref_logits=ref_path,
-                                    out_dir=tmp if e2e else None,
-                                    layer_probe_path=probe,
-                                    timeout=timeout,
-                                    src=str(SRC))
-        ranks_s = time.perf_counter() - t_ranks
-        first = ([torch.load(os.path.join(tmp, f"logits_{r['rank']}.pt"))[0]
-                  for r in res] if e2e else None)
+    first = ([torch.load(os.path.join(ref["dir"], f"logits_{r['rank']}.pt"))[0]
+              for r in res] if e2e else None)
     stub = tp_collectives_stub(spec)
     bad = tp_serve.check_agreement(res)
     check(not bad, f"tp {arch}: " + "; ".join(bad))
@@ -3590,6 +3709,9 @@ def tp_model(arch, dev, wrappers, *, timeout: float, count: str):
         shape_bad = tp_shape_faults(cfg, r["kernel_shapes"])
         check(not shape_bad, f"tp {arch}: rank {r['rank']}: "
               + "; ".join(shape_bad))
+        cache_bad = tp_cache_faults(spec, r["cache_shapes"])
+        check(not cache_bad, f"tp {arch}: rank {r['rank']}'s cache is not "
+              "its quarter: " + "; ".join(cache_bad))
         ticks = [c for c in calls if c["kind"] == "tick"]
         check(ticks and all(c["bytes"] == stub for c in ticks),
               f"tp {arch}: rank {r['rank']}'s collective bytes a tick "
@@ -3602,6 +3724,7 @@ def tp_model(arch, dev, wrappers, *, timeout: float, count: str):
                     "process_s": r["process_s"], "peak_gib": r["peak_gib"],
                     "launches": r["launches"],
                     "local_bytes": r["local_bytes"],
+                    "cache_shapes": r["cache_shapes"],
                     "collectives": r["collectives"]})
         entry["ranks"].append(row)
         detail = (f"logits within {row['logits_rel_max']:.3e} of the "
@@ -3619,39 +3742,54 @@ def tp_model(arch, dev, wrappers, *, timeout: float, count: str):
             " GiB")
     entry["tokens"] = res[0]["tokens"]
     entry["steps"] = res[0]["steps"]
-    entry["ranks_s"] = ranks_s
-    entry["model_s"] = time.perf_counter() - t0
-    launches = {n: sum(r[count].get(n, 0) for r in res) for n in wrappers}
+    entry["reference_s"] = ref["ref_s"]
+    entry["ranks_s"] = max(r["process_s"] for r in res)
+    entry["model_s"] = entry["reference_s"] + entry["ranks_s"]
+    launches = {n: sum(r[count].get(n, 0) for r in res)
+                for n in ref_launches}
     out(f"[tp] {arch}: {len(res)} ranks agree on "
         f"{sum(map(len, entry['tokens'].values()))} tokens over "
         f"{entry['steps']} steps; {stage} demoted on every rank at step "
         f"{TP_FAULT_STEP}; collective bytes a tick {stub} on every rank, as "
         f"the dry run counts them; a rank's shard {entry['local']}; "
-        f"launches {launches} (unsharded run {ref_launches}); ranks "
-        f"{ranks_s:.2f} s, model {entry['model_s']:.2f} s")
+        f"launches {launches} (unsharded run {ref_launches}); unsharded "
+        f"run {entry['reference_s']:.2f} s, ranks {entry['ranks_s']:.2f} s")
     return entry, launches, ref_launches
 
 
 def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
              count: str = "launches", archs=tuple(TP_LAYERS)):
-    """Phase 15 (see the constants above), model by model.  Returns (report
-    entry, {path: launches}: each model's ranks as "tp <arch>" and its
-    unsharded run as "tp <arch> unsharded").  ``count`` is what each
-    rank's kernel counts are read from: its wrappers' ``launches``, or on
-    the CPU (where nothing launches) its recorded ``kernel_calls``."""
+    """Phase 15 (see the constants above): each model's unsharded run in
+    this process, then one launch of the four ranks, which join their
+    group once and serve the models in turn, then each model's checks.
+    Returns (report entry, {path: launches}: each model's ranks as "tp
+    <arch>" and its unsharded run as "tp <arch> unsharded").  ``count`` is
+    what each rank's kernel counts are read from: its wrappers'
+    ``launches``, or on the CPU (where nothing launches) its recorded
+    ``kernel_calls``."""
+    from repro_torch.launch import tp_serve
     t0 = time.perf_counter()
     entry = {"mesh": list(TP_MESH), "backend": MH_BACKEND, "models": {},
              "nvidia_smi": smi}
     paths = {}
-    for arch in archs:
-        e, launches, ref_launches = tp_model(arch, dev, wrappers,
-                                             timeout=timeout, count=count)
-        entry["models"][arch] = e
-        paths[f"tp {arch}"] = launches
-        paths[f"tp {arch} unsharded"] = ref_launches
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        refs = {arch: tp_reference(arch, dev, wrappers, tmp)
+                for arch in archs}
+        t_ranks = time.perf_counter()
+        res_all = tp_serve.launch_jobs(
+            [refs[a]["job"] for a in archs], TP_MESH, device=dev.type,
+            backend=MH_BACKEND, timeout=timeout * len(archs), src=str(SRC))
+        entry["launch_s"] = time.perf_counter() - t_ranks
+        for arch, res in zip(archs, res_all):
+            e, launches, ref_launches = tp_model(arch, refs[arch], res,
+                                                 count=count)
+            entry["models"][arch] = e
+            paths[f"tp {arch}"] = launches
+            paths[f"tp {arch} unsharded"] = ref_launches
     entry["phase_s"] = time.perf_counter() - t0
-    out(f"[tp] phase {entry['phase_s']:.2f} s: " + ", ".join(
-        f"{a} {e['model_s']:.2f} s" for a, e in entry["models"].items())
+    out(f"[tp] phase {entry['phase_s']:.2f} s (the ranks' launch "
+        f"{entry['launch_s']:.2f} s): " + ", ".join(
+            f"{a} {e['model_s']:.2f} s" for a, e in entry["models"].items())
         + f"; {smi}")
     return entry, paths
 
@@ -3814,8 +3952,14 @@ def run(tuning_dir: str) -> int:
             c, name=f"{arch} tp{TP_MESH[1]}", num_heads=loc["heads"],
             num_kv_heads=loc["kv_heads"], d_ff=loc["d_ff"])
     qwen_tp, zamba_tp = rank_config("qwen1.5-4b"), rank_config("zamba2-1.2b")
-    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg, qwen_tp, zamba_tp):
-        rows_ = list(range(1, ZOO_WORKLOAD["max_prompt"] + 1))
+    whisper_tp, gemma3_tp = (rank_config("whisper-base"),
+                             rank_config("gemma3-1b"))
+    g3_prompts = range(TP_WORKLOADS["gemma3-1b"]["min_prompt"],
+                       TP_WORKLOADS["gemma3-1b"]["max_prompt"] + 1)
+    for c in (mistral, gemma, gemma3, qwen_vl, serve_cfg, qwen_tp, zamba_tp,
+              gemma3_tp):
+        rows_ = list(range(1, ZOO_WORKLOAD["max_prompt"] + 1)) + (
+            list(g3_prompts) if c is gemma3_tp else [])
         for M in rows_ + ([vl_tokens] if c.stub_frontend else []) + (
                 [RING_PROMPT] if c.window else []):
             pl = swiglu_plan(M, c.d_model, c.d_ff, c.d_model,
@@ -3824,7 +3968,8 @@ def run(tuning_dir: str) -> int:
                 rings[f"nwg={pl.nwg} nsub=0"],
                 rings[f"nwg={pl.nwg} nsub={pl.nsub}"]),
                 f"swiglu plan {c.name} M={M}: {pl}")
-            if M in (4, ZOO_PREFILL, vl_tokens, RING_PROMPT):
+            if M in (4, ZOO_PREFILL, vl_tokens, RING_PROMPT,
+                     TP_GEMMA3_PROMPT):
                 out(f"[build] swiglu {c.name} M={M}: {pl}")
     out(f"[build] swiglu dynamic shared memory by ring (nsub 0: phase A), "
         f"as the plan computes it: {rings}")
@@ -3835,7 +3980,8 @@ def run(tuning_dir: str) -> int:
     zh, zd = zamba.num_heads, zamba.resolved_head_dim
     attn_shapes = {(B_, H_, Hkv_, Sq_, Skv_, -(-D_ // 8) * 8, -(-Dv_ // 8) * 8)
                    for B_, Sq_, Skv_, H_, Hkv_, D_, Dv_, _
-                   in ATTN_CASES + TP_ATTN_CASES}
+                   in ATTN_CASES + TP_ATTN_CASES
+                   + TP_WHISPER_GEMMA3_ATTN_CASES}
     attn_shapes |= {(1, qh, qh, P_, P_, qd, qd) for P_ in range(16, 129)}
     for c in (qwen_tp, zamba_tp):
         cd = c.resolved_head_dim
@@ -3861,8 +4007,13 @@ def run(tuning_dir: str) -> int:
     for Sq_, Skv_ in ((ENCDEC_FRAMES, ENCDEC_FRAMES),
                       (ENCDEC_PROMPT, ENCDEC_PROMPT),
                       (ENCDEC_PROMPT, ENCDEC_FRAMES), (1, ENCDEC_FRAMES)):
-        attn_shapes.add((ENCDEC_BATCH, wh, whisper.num_kv_heads, Sq_, Skv_,
-                         wd, wd))
+        for c in (whisper, whisper_tp):       # phase 15's rank too
+            attn_shapes.add((ENCDEC_BATCH, c.num_heads, c.num_kv_heads, Sq_,
+                             Skv_, wd, wd))
+    # phase 15's gemma3-1b rank: its 600-640-token prompts
+    attn_shapes |= {(1, gemma3_tp.num_heads, gemma3_tp.num_kv_heads, P_, P_,
+                     gemma3.resolved_head_dim, gemma3.resolved_head_dim)
+                    for P_ in g3_prompts}
     plans = {}
     for shp in sorted(attn_shapes):
         pl = attention_plan(*shp)
@@ -4314,6 +4465,14 @@ def run(tuning_dir: str) -> int:
     swiglu_parity(zamba_tp.d_model, zamba_tp.d_ff, (4, 384),
                   tag=" (tp rank)")
     swiglu_bits(zamba_tp, 384)
+    # phase 15's whisper-base and gemma3-1b ranks, after every case above:
+    # attention at their rank shapes, and gemma3-1b's GeGLU 1152 -> 1728
+    # -> 1152 (a partial sum) at its decode rows and a 600-token prefill
+    for B_, Sq, Skv, H, Hkv, D, Dv, kw in TP_WHISPER_GEMMA3_ATTN_CASES:
+        attention_parity(B_, Sq, Skv, H, Hkv, D, Dv, kw)
+    swiglu_parity(gemma3_tp.d_model, gemma3_tp.d_ff, (4, TP_GEMMA3_PROMPT),
+                  tag=" (tp rank)", act="gelu")
+    swiglu_bits(gemma3_tp, TP_GEMMA3_PROMPT, act="gelu")
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4643,7 +4802,15 @@ def run(tuning_dir: str) -> int:
             (qwen_vl, 1, vl, vl, 0, 0, True),
             (whisper, B4, F_, F_, 0, 0, False),
             (whisper, B4, ENCDEC_PROMPT, F_, 0, 0, False),
-            (whisper, B4, 1, F_, 0, 0, False)):
+            (whisper, B4, 1, F_, 0, 0, False),
+            # phase 15's whisper-base and gemma3-1b ranks
+            (whisper_tp, B4, F_, F_, 0, 0, False),
+            (whisper_tp, B4, ENCDEC_PROMPT, F_, 0, 0, False),
+            (whisper_tp, B4, 1, F_, 0, 0, False),
+            (gemma3_tp, 1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT,
+             gemma3.window, 0, True),
+            (gemma3_tp, 1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT, 0, 0,
+             True)):
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         qs_ = randn(B_, Sq, H, D).transpose(1, 2)
         ks_, vs_ = (randn(B_, Skv, Hkv, D).transpose(1, 2) for _ in range(2))
@@ -4705,7 +4872,12 @@ def run(tuning_dir: str) -> int:
     # shared block), beside the main row
     kernels[-1]["tp_shapes"] = {k_: attn[k_] for k_ in (
         "B=1 H=5 P=16 D=128 causal", "B=1 H=5 P=128 D=128 causal",
-        "B=1 H=8 P=384 D=64 causal")}
+        "B=1 H=8 P=384 D=64 causal",
+        f"B={B4} H=2 P={F_} D=64 non-causal",
+        f"B={B4} H=2 Sq={ENCDEC_PROMPT} Skv={F_} D=64 non-causal",
+        f"B={B4} H=2 Sq=1 Skv={F_} D=64 non-causal",
+        f"B=1 H=1 P={TP_GEMMA3_PROMPT} D=256 causal window={gemma3.window}",
+        f"B=1 H=1 P={TP_GEMMA3_PROMPT} D=256 causal")}
 
     shapes, swiglu_kernels = {}, {}
     gates = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh")}
@@ -4714,7 +4886,8 @@ def run(tuning_dir: str) -> int:
                    (mistral, 4), (mistral, ZOO_PREFILL), (gemma, 4),
                    (gemma, ZOO_PREFILL), (gemma3, 4), (gemma3, ZOO_PREFILL),
                    (gemma3, RING_PROMPT), (qwen_vl, 4),
-                   (qwen_vl, ZOO_PREFILL), (qwen_vl, vl_tokens)):
+                   (qwen_vl, ZOO_PREFILL), (qwen_vl, vl_tokens),
+                   (gemma3_tp, 4), (gemma3_tp, TP_GEMMA3_PROMPT)):
         Dm, Ff, act = cfg.d_model, cfg.d_ff, cfg.mlp_act
         w1, w3, w2 = swiglu_weights(Dm, Ff)
         x = randn(M, Dm)
@@ -4750,7 +4923,8 @@ def run(tuning_dir: str) -> int:
         "qwen1.5-4b decode M=4 2560->6912->2560", **shapes["qwen1.5-4b M=4"]))
     kernels[-1]["tp_shapes"] = {k_: shapes[k_] for k_ in (
         "qwen1.5-4b tp4 M=4", "qwen1.5-4b tp4 M=128", "zamba2-1.2b tp4 M=4",
-        "zamba2-1.2b tp4 M=384")}
+        "zamba2-1.2b tp4 M=384", "gemma3-1b tp4 M=4 gelu",
+        f"gemma3-1b tp4 M={TP_GEMMA3_PROMPT} gelu")}
     # the SSD at zamba2-1.2b's prefill shape, with the final state (as the
     # prefill calls it): B=1 S=384 H=64 P=N=64, chunk 128; on contiguous
     # tensors, and on the model's strided views of one xbc tensor, where the

@@ -8,6 +8,10 @@ Ports of the reference's ``kernels/flash_attention/ref.py``:
     version of ``kernel.flash_attention_bhsd``;
   * ``attention_flops``.
 
+And the port's own ``attention_partials`` / ``combine_partials``: the
+naive oracle over one part of the keys, unnormalised, and the fold of the
+parts (decode over a KV cache whose slots are cut across ranks).
+
 Layout: q (B, Sq, H, D); k, v (B, Skv, Hkv, D); output (B, Sq, H, D),
 except ``attention_ref_blocked``, which is (B, H, S, D) like the kernel.
 Products take bf16/f32 inputs and accumulate in float32.
@@ -111,6 +115,55 @@ def attention_naive(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vf.dtype).float(),
                        vf.float())
     return out.to(q.dtype)
+
+
+def attention_partials(q, k, v, *, causal: bool = True, window: int = 0,
+                       softcap: float = 0.0, scale: float = 0.0,
+                       q_offset: Positions = None,
+                       k_positions: Optional[torch.Tensor] = None):
+    """``attention_naive`` over one part of the keys, unnormalised: (B, Sq,
+    H, Dv + 2) f32 holding, per query row and head, o = sum_j p_j v_j, the
+    row max m of the masked scores and l = sum_j p_j, with p_j = exp(s_j -
+    m) (rounded to v's dtype for the product, as ``attention_naive`` rounds
+    its probabilities).  ``combine_partials`` joins the parts of disjoint
+    key sets into the softmax over their union (a decode over a cache whose
+    slots are cut across ranks)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    sc = scale or (1.0 / D ** 0.5)
+    kf = _repeat_kv(k, H).float()
+    vf = _repeat_kv(v, H)
+    qf = (q.float() * sc).to(q.dtype).float()
+    scores = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kf), softcap)
+    q_pos = _positions(B, Sq, q_offset, q.device)
+    k_pos = (k_positions.to(torch.int32) if k_positions is not None
+             else _positions(B, Skv, None, q.device))
+    mask = _mask(q_pos, k_pos, causal=causal, window=window, kv_len=None,
+                 explicit_kpos=k_positions is not None)
+    scores = torch.where(mask[:, None], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(vf.dtype).float(), vf.float())
+    return torch.cat([o, m, p.sum(dim=-1, keepdim=True)],
+                     dim=-1).permute(0, 2, 1, 3)
+
+
+def combine_partials(parts: torch.Tensor) -> torch.Tensor:
+    """(R, B, Sq, H, Dv + 2) ``attention_partials`` of R disjoint key sets
+    -> the (B, Sq, H, Dv) f32 softmax output over their union.  The parts
+    are folded in order, so every holder of the same parts gets the same
+    bits.  A part whose keys are all masked weighs exp(NEG_INF - m) = 0
+    wherever another part admits a key."""
+    m = parts[0, ..., -2]
+    for r in range(1, parts.shape[0]):
+        m = torch.maximum(m, parts[r, ..., -2])
+    o = l = None
+    for r in range(parts.shape[0]):
+        w = torch.exp(parts[r, ..., -2] - m)
+        o_r, l_r = parts[r, ..., :-2] * w[..., None], parts[r, ..., -1] * w
+        o, l = (o_r, l_r) if o is None else (o + o_r, l + l_r)
+    return o / torch.clamp(l, min=1e-30)[..., None]
 
 
 def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,

@@ -42,14 +42,18 @@ the tensor-parallel runtime (``launch/spmd.py``) with the counting
 communicator on meta: its params, optimiser state and cache are the
 rank's shards (``partition.params_pspecs``, ``make_cache_pspec_fn``),
 its rows the batch over the batch axes, and the collectives the runtime
-calls are counted by kind, axis and bytes.  The collective term prices
-each axis's ring link bytes (all-reduce 2(m-1)/m, all-gather (m-1)/m) at
-NVLink's rate when the axis's group fits one 8-GPU node, else at the
-network's (``launch/mesh.py``).  What the runtime does not shard (the
-encoder-decoder family; a Mamba2 component that does not divide the
-``ssm`` axis; a cache whose KV heads do not divide, which needs the
-sequence-sharded cache) is a ``skip`` with the reason and its
-spec-derived per-device bytes.
+calls are counted by kind, axis and bytes (a sequence-cut KV cache's
+decode among them: its query heads and softmax partials gathered per
+slot and layer).  The collective term prices each axis's ring link bytes
+(all-reduce 2(m-1)/m, all-gather (m-1)/m) at NVLink's rate when the
+axis's group fits one 8-GPU node, else at the network's
+(``launch/mesh.py``).  An encoder-decoder decode state's cross-KV is the
+rank's kv heads, as the runtime projects it (``make_cache_pspec_fn``
+cuts its batch only).  What the runtime does not shard (a Mamba2
+component that does not divide the ``ssm`` axis; a KV cache whose heads
+and slots both do not divide; a cache whose layers the batch rule takes
+for its rows) is a ``skip`` with the reason and its spec-derived
+per-device bytes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
@@ -82,7 +86,7 @@ from repro_torch.launch import partition, spmd
 from repro_torch.launch.mesh import (GPUS_PER_NODE, NET_BW, NVLINK_BW,
                                      make_mesh, make_production_mesh)
 from repro_torch.launch.op_analysis import OpAnalysis, OpStats
-from repro_torch.launch.sharding import mesh_sizes
+from repro_torch.launch.sharding import PartitionSpec, axis_size, mesh_sizes
 from repro_torch.models import (build_model, compute_params,
                                 decode_state_specs, params_specs,
                                 prefill_batch_specs, train_batch_specs)
@@ -281,6 +285,18 @@ def _local(tree, specs, mesh):
         device=META))
 
 
+def _cross_kv_specs(cfg, specs, rules, mesh):
+    """The specs of an encoder-decoder decode state's cross-KV ((L, B,
+    S_enc, Hkv, Dh) each) as the runtime holds it: its kv heads cut as
+    ``rules`` cut "kv_heads" (``EncDecModel.cross_kv_cache`` under
+    ``spmd``), where ``make_cache_pspec_fn`` cuts the batch only."""
+    ax = rules.get("kv_heads")
+    m = axis_size(mesh_sizes(mesh), ax)
+    if m == 1 or cfg.num_kv_heads % m:
+        return specs
+    return type(specs)(PartitionSpec(*s[:-2], ax, s[-1]) for s in specs)
+
+
 def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, rules, axes):
     """The rank's params (and optimiser state) or serving params and
     cache, as meta shards of the specs, and the params' specs; raises
@@ -301,6 +317,9 @@ def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, rules, axes):
         cspecs = partition.tree_pspecs(full, mesh, partition.
                                        make_cache_pspec_fn(
                                            B, mesh, attn_axis=axes["attn"]))
+        if cfg.is_encdec and shape.kind == "decode":
+            cspecs["cross"] = _cross_kv_specs(cfg, cspecs["cross"], rules,
+                                              mesh)
         cache = _local(full, cspecs, mesh)
     spec_bytes = {"params": _nbytes(params),
                   "opt_state": _nbytes(opt) if opt is not None else 0,
@@ -424,6 +443,8 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
         e.extra = {**rec, **e.extra}
         raise
     coords = {a: 0 for a in sizes}
+    # decode at the last slot of the cache (whisper's: of max_target_len)
+    t_last = (min(S, cfg.max_target_len) if cfg.is_encdec else S) - 1
     # a variant's microbatch count past the rank's rows takes one row each
     k = min(microbatch or max(1, rows // 4), rows)
     while True:
@@ -451,7 +472,7 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
                         if shape.kind == "prefill":
                             model.prefill(params, batch)
                         else:
-                            model.decode_step(params, cache, tok, S - 1)
+                            model.decode_step(params, cache, tok, t_last)
         peak = oa.peak_bytes
         if (shape.kind != "train" or peak <= HBM_LIMIT or k >= rows
                 or microbatch):

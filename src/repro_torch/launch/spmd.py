@@ -481,16 +481,13 @@ def check_runtime(cfg) -> None:
 
 def unsharded_reason(cfg) -> Optional[str]:
     """Why the runtime cannot shard ``cfg`` under the active context, None
-    when it can (always outside ``spmd``): the encoder-decoder family has
-    no sharded step; a Mamba2 component that does not divide the ``ssm``
-    axis (``partition.packed_refusal``); RWKV-6 projections whose columns
-    split a head."""
+    when it can (always outside ``spmd``): a Mamba2 component that does
+    not divide the ``ssm`` axis (``partition.packed_refusal``); RWKV-6
+    projections whose columns split a head.  Every other family, the
+    encoder-decoder one included, is sharded."""
     c = current()
     if c is None:
         return None
-    if cfg.is_encdec:
-        return ("the encoder-decoder family has no sharded step yet: its "
-                "encoder and cross-attention path is not cut (ROADMAP)")
     if cfg.family == "hybrid":
         ax = c.axes.get("ssm")
         return partition.packed_refusal(cfg, c.size(ax), ax)
@@ -513,6 +510,22 @@ def leaf_axis(name: str, shape, dim: int) -> Axis:
         return None
     ax = partition.param_pspec(name, tuple(shape), c.mesh, c.axes)[dim]
     return ax if c.size(ax) > 1 else None
+
+
+def kv_seq_axis(n_kv: int) -> Axis:
+    """The axis a KV cache's slots are cut over under the active context:
+    ``make_cache_pspec_fn`` cuts the sequence where the ``n_kv`` kv heads
+    (the global count) do not divide the ``attn`` axis.  None where the
+    heads divide it, over one rank, or outside ``spmd``.  ``cache_specs``
+    refuses a cache whose slots do not divide the axis either, so a cache
+    the runtime built is cut along the sequence exactly when this is
+    not None."""
+    c = current()
+    if c is None:
+        return None
+    ax = c.axes.get("attn", "model")
+    m = c.size(ax)
+    return ax if m > 1 and n_kv % m else None
 
 
 def cache_axis(n: int) -> Axis:
@@ -620,22 +633,36 @@ def sum_by_spec(values: torch.Tensor, tree, specs) -> torch.Tensor:
 # ------------------------------------------------------------------ caches
 def cache_specs(model, batch: int, max_len: int):
     """The PartitionSpecs of ``model``'s serving cache (``make_cache_pspec
-    _fn`` over this rank's mesh); raises ``NotImplementedError`` where the
-    runtime cannot serve them yet."""
+    _fn`` over this rank's mesh): a KV cache's kv heads, or its slots where
+    the heads do not divide (``kv_seq_axis``: decode combines the ranks'
+    partial softmaxes).  Raises ``NotImplementedError`` where the runtime
+    cannot serve them: a leaf whose layers the rule takes for the batch
+    (as many layers as rows), a KV cache whose heads and slots both do not
+    divide, or a recurrent state cut otherwise than its writer."""
     c = current()
     meta = model.init_cache(batch, max_len, device=torch.device("meta"))
     attn_axis = c.axes.get("attn", "model")
     specs = partition.tree_pspecs(
         meta, c.mesh, partition.make_cache_pspec_fn(batch, c.mesh,
                                                     attn_axis=attn_axis))
+    flat_meta = partition.flatten(meta)
+    m = c.size(attn_axis)
     for path, spec in partition.flatten(specs).items():
         name = path.split("/")[-1]
-        if name in ("k", "v") and spec[-3] is not None:
+        shape = flat_meta[path].shape
+        if spec and c.size(spec[0]) > 1:
             raise NotImplementedError(
-                f"cache leaf {path} shards its sequence dim over "
-                f"{spec[-3]!r} (kv heads {model.cfg.num_kv_heads} do not "
-                "divide): the sequence-sharded KV cache needs a "
-                "partial-softmax combine across ranks (ROADMAP)")
+                f"cache leaf {path} {tuple(shape)}: make_cache_pspec_fn "
+                f"takes its first dim equal to the batch ({batch}) for the "
+                f"batch dim, here its {shape[0]} layers, and cuts them over "
+                f"{spec[0]!r}; the runtime does not cut a cache's layers")
+        if name in ("k", "v") and m > 1 and shape[-2] % m \
+                and spec[-3] is None:
+            raise NotImplementedError(
+                f"cache leaf {path} {tuple(shape)}: neither its {shape[-2]} "
+                f"kv heads nor its {shape[-3]} slots divide {attn_axis!r} "
+                f"({m} ranks), so it is cut by neither; a max_len that is a "
+                f"multiple of {m} cuts its slots")
     bad = _state_axis_mismatch(model.cfg, partition.flatten(specs), c)
     if bad:
         raise NotImplementedError(
@@ -675,8 +702,8 @@ def _state_axis_mismatch(cfg, flat_specs, c) -> List[str]:
 
 def init_cache(model, batch: int, max_len: int, device=None):
     """``model.init_cache`` outside ``spmd``; inside, this rank's shard of
-    it (local KV heads, the positions cut as ``make_cache_pspec_fn``
-    says), allocated at its local shape."""
+    it (its kv heads, or its slots, and the positions, cut as
+    ``make_cache_pspec_fn`` says), allocated at its local shape."""
     if current() is None:
         return model.init_cache(batch, max_len, device=device)
     c = current()
@@ -692,8 +719,10 @@ def init_cache(model, batch: int, max_len: int, device=None):
 
 
 def pos_axis(cache) -> Axis:
-    """The axis a KV cache's positions are sharded over along the
-    sequence (``make_cache_pspec_fn``'s "pos" rule), None when whole."""
+    """The axis a heads-cut KV cache's positions are sharded over along
+    the sequence (``make_cache_pspec_fn``'s "pos" rule), None when whole
+    or when k/v are cut along the sequence with them
+    (``kv_seq_axis``)."""
     c = current()
     if c is None or cache["pos"].shape[-1] == cache["k"].shape[2]:
         return None
@@ -723,8 +752,8 @@ __all__ = ["CollectiveLog", "CountingComm", "GroupComm", "SpmdContext",
            "AttnShard", "spmd", "current", "logical_sizes", "reduce_over",
            "replicate_over", "gather_over", "scatter_over", "reshard",
            "ffn_axis", "vocab_axis", "expert_axis", "axis_offset",
-           "leaf_axis", "cache_axis", "axis_ranks", "check_runtime",
-           "unsharded_reason", "mean_over_batch", "sum_over_batch",
-           "sync_grads", "sum_by_spec", "cache_specs",
+           "leaf_axis", "cache_axis", "kv_seq_axis", "axis_ranks",
+           "check_runtime", "unsharded_reason", "mean_over_batch",
+           "sum_over_batch", "sync_grads", "sum_by_spec", "cache_specs",
            "init_cache", "pos_axis", "collective_log", "rank_coords",
            "devices_spanned"]

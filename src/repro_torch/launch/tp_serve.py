@@ -4,7 +4,7 @@ mesh, each serving its shard of one model through ``ServeEngine`` under
 
     PYTHONPATH=src python -m repro_torch.launch.tp_serve --mesh 1x2 \\
         --device cpu [--arch zamba2-1.2b] [--hw-route interpret] \\
-        [--fault-step 3 --fault-rank 1]
+        [--fault-step 3 --fault-rank 1] [--frames 32]
 
 starts the ranks (gloo over a free local port; on the card every rank
 shares ``cuda:0`` unless ``--backend nccl``, which needs one card a rank),
@@ -16,16 +16,27 @@ the depth).  ``--fault-rank`` arms a lane fault on that rank's stage at
 through ``EventChannel`` and demote the stage together.  The stage is the
 arch's own kernel's (``fault_stage_for``): SwiGLU for the dense and MoE
 families, the SSD for the hybrid one (zamba2-1.2b), the WKV for the SSM
-one (rwkv6-1.6b).
+one (rwkv6-1.6b), attention for the encoder-decoder one (whisper-base).
 
-``serve_rank`` is one rank's work (also ``chip_smoke.py``'s phase 15 and
-the CPU tests); ``launch_ranks`` starts and collects the ranks.
+The encoder-decoder family has no ``ServeEngine`` path, in the reference
+or the port: ``drive_encdec`` serves it as ``EncDecModel.prefill`` over a
+batch of ``requests`` rows (``frames`` stub frame embeddings and a
+``max_prompt``-token prompt each, drawn from ``seed``) and ``max_new``
+greedy ``decode_step``s, one engine step each, with the same fault,
+canary and agreement.  ``layers`` cuts ``num_layers`` only, so whisper
+keeps its encoder and decoder depths.
+
+``serve_rank`` is one rank's work: it joins the group once and serves a
+list of jobs in turn (``chip_smoke.py``'s phase 15 serves its models in
+one launch); ``launch_jobs`` starts and collects the ranks,
+``launch_ranks`` for one job (the CLI and the CPU tests).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import socket
@@ -39,11 +50,12 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch import partition, spmd
-from repro_torch.launch.distributed import (EventChannel, KVCoordinator,
+from repro_torch.launch.distributed import (STAGE, EventChannel,
+                                            KVCoordinator,
                                             initialize_runtime,
                                             shutdown_runtime)
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import build_model
+from repro_torch.models import build_model, compute_params
 from repro_torch.serve import ServeConfig, ServeEngine, synthetic_workload
 from repro_torch.viscosity import HW, INTERPRET, SW
 from repro_torch.viscosity.lang import tree_leaves
@@ -75,6 +87,7 @@ class TPServeSpec:
     fault_step: int = -1
     fault_rank: int = -1
     fault_stage: str = ""                # "": the arch's (fault_stage_for)
+    frames: int = 32                     # encoder-decoder: frames a row
 
     def __post_init__(self):
         if not self.fault_stage:
@@ -102,15 +115,33 @@ class TPServeSpec:
             arrival_every=self.arrival_every, per_arrival=self.per_arrival)
 
     def weights(self, cfg, device):
-        """The full tree, drawn on ``device`` from ``seed``."""
+        """The full tree, drawn on ``device`` from ``seed`` (an
+        encoder-decoder model's in f32, then cast)."""
         dt = getattr(torch, self.dtype) if self.dtype else None
         gen = torch.Generator(device=device).manual_seed(self.seed)
+        if cfg.is_encdec:
+            params = build_model(cfg).init(gen, device=device)
+            return params if dt is None else compute_params(params, dt)
         return build_model(cfg).init(gen, device=device, dtype=dt)
+
+    def encdec_inputs(self, cfg, device):
+        """An encoder-decoder serve's batch: (B, frames, d_model) stub
+        frame embeddings and a (B, max_prompt) prompt, drawn on the CPU
+        from ``seed`` (the same on every device)."""
+        gen = torch.Generator().manual_seed(self.seed + 1)
+        emb = torch.randn((self.requests, self.frames, cfg.d_model),
+                          generator=gen)
+        toks = torch.randint(0, cfg.vocab_size,
+                             (self.requests, self.max_prompt), generator=gen)
+        return (emb.to(device=device, dtype=getattr(torch, cfg.dtype)),
+                toks.to(device))
 
 
 def fault_stage_for(cfg) -> str:
     """The stage a tensor-parallel serve faults by default: the kernel the
     family's layers are made of."""
+    if cfg.is_encdec:
+        return "flash_attention"
     return {"hybrid": "mamba2_ssd", "ssm": "rwkv6_wkv"}.get(cfg.family,
                                                            "swiglu_mlp")
 
@@ -133,32 +164,12 @@ def drive(engine: ServeEngine, reqs, spec: TPServeSpec, *, rank: int = 0,
     ``canary`` (a ``CanaryChecker`` over that stage) finds it, reports it.
     Returns tokens, per-step routes, timings and per-call collective
     bytes."""
-    from repro_torch.viscosity import lanefault
-    from repro_torch.viscosity.lanefault import STUCK, LaneFault
-    log = spmd.collective_log()
     calls: List[Dict[str, Any]] = []
     now = {"step": 0}
-
-    def timed(kind, fn):
-        def wrapped(*a, **kw):
-            before = dict(log.by_kind("bytes")) if log is not None else {}
-            if engine.device.type == "cuda":
-                torch.cuda.synchronize(engine.device)
-            t0 = time.perf_counter()
-            res = fn(*a, **kw)
-            if engine.device.type == "cuda":
-                torch.cuda.synchronize(engine.device)
-            after = log.by_kind("bytes") if log is not None else {}
-            if kind == "prefill" or res["active"]:
-                calls.append({"kind": kind, "step": now["step"],
-                              "ms": 1e3 * (time.perf_counter() - t0),
-                              "bytes": {k: after[k] - before.get(k, 0.0)
-                                        for k in after
-                                        if after[k] != before.get(k, 0.0)}})
-            return res
-        return wrapped
-    engine.admit = timed("prefill", engine.admit)
-    engine.decode_tick = timed("tick", engine.decode_tick)
+    timed = _timer(engine.device, calls, now)
+    engine.admit = timed("prefill", engine.admit, _always)
+    engine.decode_tick = timed("tick", engine.decode_tick,
+                               lambda res: res["active"])
     sess = engine.session()
     for r in sorted(reqs, key=lambda r: (r.arrival, r.rid)):
         sess.submit(r)
@@ -168,22 +179,129 @@ def drive(engine: ServeEngine, reqs, spec: TPServeSpec, *, rank: int = 0,
         step = now["step"] = sess.step_count
         if rec is not None:
             rec["now"] = step
-        if step == spec.fault_step and rank == spec.fault_rank:
-            lanefault.set_injection(spec.fault_stage, LaneFault(
-                STUCK, (1,), _canary_width(spec.fault_stage), value=3.0))
-            if canary is None or not canary.check_stage(canary.stages[0]):
-                engine.report_stage_fault(spec.fault_stage)
+        if _fault_found(spec, step, rank, canary):
+            engine.report_stage_fault(spec.fault_stage)
         tick = sess.step()
         if tick.get("agreed_faults") and faulted is None:
             faulted = step
         routes.append(_plan_route(engine._decode_key(), spec.fault_stage))
     wall = time.perf_counter() - t0
-    lanefault.clear_injection(spec.fault_stage)
+    _clear_fault(spec)
     stats = sess.close()
     done = {c.rid: c for c in sess.poll()}
     return {"tokens": {str(r): done[r].tokens.tolist() for r in sorted(done)},
             "routes": routes, "fault_applied_step": faulted,
             "steps": stats["steps"], "wall_s": wall, "calls": calls}
+
+
+def _always(_) -> bool:
+    return True
+
+
+def _timer(device, calls: List[Dict[str, Any]], now: Dict[str, int]):
+    """``timed(kind, fn, keep)``: ``fn`` timed (the card synchronised
+    around it) with the collective bytes it moved, recorded in ``calls``
+    at step ``now["step"]`` when ``keep(result)``."""
+    log = spmd.collective_log()
+
+    def timed(kind, fn, keep):
+        def wrapped(*a, **kw):
+            before = dict(log.by_kind("bytes")) if log is not None else {}
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            after = log.by_kind("bytes") if log is not None else {}
+            if keep(res):
+                calls.append({"kind": kind, "step": now["step"],
+                              "ms": 1e3 * (time.perf_counter() - t0),
+                              "bytes": {k: after[k] - before.get(k, 0.0)
+                                        for k in after
+                                        if after[k] != before.get(k, 0.0)}})
+            return res
+        return wrapped
+    return timed
+
+
+def _fault_found(spec: TPServeSpec, step: int, rank: int, canary) -> bool:
+    """At ``spec.fault_step`` on ``spec.fault_rank``: arm the lane fault on
+    ``spec.fault_stage``; True when its canary (if any) finds it."""
+    from repro_torch.viscosity import lanefault
+    from repro_torch.viscosity.lanefault import STUCK, LaneFault
+    if step != spec.fault_step or rank != spec.fault_rank:
+        return False
+    lanefault.set_injection(spec.fault_stage, LaneFault(
+        STUCK, (1,), _canary_width(spec.fault_stage), value=3.0))
+    return canary is None or not canary.check_stage(canary.stages[0])
+
+
+def _clear_fault(spec: TPServeSpec):
+    from repro_torch.viscosity import lanefault
+    lanefault.clear_injection(spec.fault_stage)
+
+
+def drive_encdec(cfg, params, spec: TPServeSpec, device, *, rank: int = 0,
+                 canary=None, channel=None,
+                 rec: Optional[Dict[str, Any]] = None,
+                 on_logits=None) -> Dict[str, Any]:
+    """An encoder-decoder serve (see the module docstring) with ``drive``'s
+    report, and its final ``state`` (the cross-KV and the self-attention
+    cache).  Step 0 is the prefill, step s >= 1 the decode step at
+    position ``max_prompt + s - 1``; the model runs on ``spec.hw_route``
+    until the step the ranks agree on a fault of ``spec.fault_stage``
+    (through ``channel``; without one, the step it is found), then on SW.
+    ``on_logits`` as ``ServeEngine.on_logits``."""
+    emb, prompt = spec.encdec_inputs(cfg, device)
+    B, P = prompt.shape
+    calls: List[Dict[str, Any]] = []
+    now = {"step": 0}
+    timed = _timer(device, calls, now)
+    route = spec.hw_route
+    model = build_model(cfg, routes={spec.fault_stage: route})
+
+    def prefill(m):
+        return m.prefill(params, {"embeds": emb, "dec_tokens": prompt,
+                                  "cache": spmd.init_cache(
+                                      m, B, spec.max_len, device=device)})
+
+    def decode(m, state, tok, t):
+        return m.decode_step(params, state, tok, t)
+    routes, faulted, out = [], None, []
+    state = tok = None
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for step in range(spec.max_new + 1):
+            now["step"] = step
+            if rec is not None:
+                rec["now"] = step
+            events = ([(STAGE, 0, spec.fault_stage)]
+                      if _fault_found(spec, step, rank, canary) else [])
+            agreed = ([ev.stage for ev in channel.exchange(step, events)
+                       if ev.kind == STAGE] if channel is not None
+                      else [ev[2] for ev in events])
+            if spec.fault_stage in agreed and route != SW:
+                route = SW
+                model = build_model(cfg, routes={spec.fault_stage: route})
+                faulted = step
+            if step == 0:
+                lg, state = timed("prefill", prefill, _always)(model)
+            else:
+                lg, state = timed("tick", decode, _always)(
+                    model, state, tok, P + step - 1)
+            forced = (on_logits("prefill" if step == 0 else "tick",
+                                lg[:, -1]) if on_logits else None)
+            tok = (forced.reshape(B, 1) if forced is not None
+                   else lg[:, -1].argmax(-1)[:, None])
+            out.append(tok)
+            routes.append(route)
+    wall = time.perf_counter() - t0
+    _clear_fault(spec)
+    toks = torch.cat(out, 1).tolist()
+    return {"tokens": {str(r): toks[r] for r in range(B)}, "routes": routes,
+            "fault_applied_step": faulted, "steps": spec.max_new + 1,
+            "wall_s": wall, "calls": calls, "state": state}
 
 
 def _nbytes(tree) -> int:
@@ -301,20 +419,12 @@ def layer_probe(cfg, params, probe: Dict[str, List], route: str
     return rels
 
 
-def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
-               mesh_shape, *, backend: str = "gloo", device: str = "cpu",
-               ref_logits: Optional[str] = None,
-               out_dir: Optional[str] = None,
-               layer_probe_path: Optional[str] = None) -> Dict[str, Any]:
-    """One rank: join the group, cut the seeded weights to its shard,
-    serve under ``spmd`` and report (see ``drive``).  ``ref_logits`` (a
-    ``torch.save``d list) is the unsharded run's logits, call by call;
-    ``out_dir`` receives this rank's logits as ``logits_<rank>.pt``;
-    ``layer_probe_path`` (an RWKV-6 model's ``layer_probe`` inputs) adds,
-    after the serve and its launch counts, the per-layer time-mix
-    comparison as ``layer_rel``."""
-    from repro_torch.core import CanaryChecker
-    from repro_torch.train.runner import canary_stages
+def serve_rank(jobs: Sequence[Dict[str, Any]], rank: int, world: int,
+               port: int, mesh_shape, *, backend: str = "gloo",
+               device: str = "cpu") -> List[Dict[str, Any]]:
+    """One rank: join the group once, then for each job cut its spec's
+    seeded weights to the rank's shard, serve under ``spmd`` and report
+    (see ``_serve_job``); the jobs' reports in order."""
     t_start = time.perf_counter()
     # the ranks share the host's cores
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -325,6 +435,41 @@ def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
                             backend=backend, timeout_s=600)
     mesh = make_mesh(tuple(mesh_shape), AXES, devices=[dev] * world)
     comm = spmd.GroupComm(mesh, rank)
+    coord = KVCoordinator()
+    out = []
+    for job in jobs:
+        comm.log.reset()
+        res = _serve_job(job, rank, dev, mesh, comm, coord)
+        res.update({"rank": rank, "world": world, "backend": rt.backend,
+                    "mesh": list(mesh_shape),
+                    "joined_s": time.perf_counter() - t_start})
+        out.append(res)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    coord.exchange("done")      # rank 0 serves the store: leave together
+    shutdown_runtime()
+    return out
+
+
+def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
+               ) -> Dict[str, Any]:
+    """One job of ``serve_rank``: ``job["spec"]`` (a ``TPServeSpec``)
+    served on the rank's shard, reported as ``drive`` or ``drive_encdec``
+    does, with the rank's launches, kernel shapes, collectives, bytes and
+    ``cache_shapes`` (each leaf of its cache, by path).  ``ref_logits`` (a
+    ``torch.save``d list) is the unsharded run's logits, call by call;
+    ``out_dir`` receives this rank's logits as ``logits_<rank>.pt``;
+    ``layer_probe_path`` (an RWKV-6 model's ``layer_probe`` inputs) adds,
+    after the serve and its launch counts, the per-layer time-mix
+    comparison as ``layer_rel``."""
+    from repro_torch.core import CanaryChecker
+    from repro_torch.train.runner import canary_stages
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    spec = TPServeSpec(**job["spec"])
+    ref_logits, out_dir = job.get("ref_logits"), job.get("out_dir")
     coords = spmd.rank_coords(mesh, rank)
     cfg = spec.config()
     full = spec.weights(cfg, dev)
@@ -339,51 +484,55 @@ def serve_rank(spec: TPServeSpec, rank: int, world: int, port: int,
     reqs = spec.workload(cfg)
     ref = torch.load(ref_logits) if ref_logits else None
     on_logits, rec = logits_recorder(ref, until_step=spec.fault_step)
-    coord = KVCoordinator()
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
                    partition.DEFAULT_AXES, coords, comm,
                    dims=spmd.logical_sizes(cfg)), kernel_shapes() as seen:
-        eng = ServeEngine(cfg, local, ServeConfig(
-            max_len=spec.max_len, max_slots=spec.slots,
-            hw_route=spec.hw_route), device=dev,
-            channel=EventChannel(coord))
-        eng.on_logits = on_logits
         canary = None
         if rank == spec.fault_rank:
             canary = CanaryChecker(
                 [s for s in canary_stages(cfg, device=dev)
                  if s.name == spec.fault_stage], route_hw=spec.hw_route)
-        res = drive(eng, reqs, spec, rank=rank, canary=canary, rec=rec)
+        if cfg.is_encdec:
+            local = compute_params(local, getattr(torch, cfg.dtype))
+            res = drive_encdec(cfg, local, spec, dev, rank=rank,
+                               canary=canary, channel=EventChannel(coord),
+                               rec=rec, on_logits=on_logits)
+            held, served = res.pop("state"), local
+        else:
+            eng = ServeEngine(cfg, local, ServeConfig(
+                max_len=spec.max_len, max_slots=spec.slots,
+                hw_route=spec.hw_route), device=dev,
+                channel=EventChannel(coord))
+            eng.on_logits = on_logits
+            res = drive(eng, reqs, spec, rank=rank, canary=canary, rec=rec)
+            held, served = eng._caches, eng.params
     launches = {n: w.launches for n, w in wrappers.items()}
     collectives = comm.log.snapshot()
-    if layer_probe_path:
+    if job.get("layer_probe_path"):
         with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
                        partition.DEFAULT_AXES, coords, comm,
                        dims=spmd.logical_sizes(cfg)):
-            res["layer_rel"] = layer_probe(cfg, eng.params,
-                                           torch.load(layer_probe_path),
-                                           spec.hw_route)
+            res["layer_rel"] = layer_probe(
+                cfg, served, torch.load(job["layer_probe_path"]),
+                spec.hw_route)
     res.update({
-        "rank": rank, "world": world, "coords": coords,
-        "backend": rt.backend, "mesh": list(mesh_shape),
-        "launches": launches,
+        "coords": coords, "launches": launches,
         "kernel_calls": seen.pop("calls"),
         "kernel_shapes": {k: sorted(map(list, v)) for k, v in seen.items()},
         "logits_rel": rec["rel"], "logit_kinds": rec["kinds"],
         "call_tokens": rec["tokens"],
         "collectives": collectives,
-        "local_bytes": {"params": _nbytes(local),
-                        "cache": _nbytes(eng._caches)},
+        "local_bytes": {"params": _nbytes(local), "cache": _nbytes(held)},
+        "cache_shapes": {path: list(t.shape) for path, t in
+                         partition.flatten(held).items()},
         "process_s": time.perf_counter() - t_start,
         "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                      if dev.type == "cuda" else None)})
     if out_dir:
         torch.save(rec["logits"], os.path.join(out_dir, f"logits_{rank}.pt"))
-    coord.exchange("done")      # rank 0 serves the store: leave together
-    shutdown_runtime()
     return res
 
 
@@ -393,28 +542,32 @@ WORKER = ("import sys, json; sys.path.insert(0, sys.argv[1]); "
 
 
 def worker(argv) -> int:
-    """One rank from the command line ``launch_ranks`` builds: prints one
-    ``RESULT {json}`` line."""
+    """One rank from the command line ``launch_jobs`` builds: prints one
+    ``RESULT {json}`` line, the list of its jobs' reports."""
     a = json.loads(argv[0])
-    res = serve_rank(TPServeSpec(**a["spec"]), a["rank"], a["world"],
-                     a["port"], a["mesh"], backend=a["backend"],
-                     device=a["device"], ref_logits=a.get("ref_logits"),
-                     out_dir=a.get("out_dir"),
-                     layer_probe_path=a.get("layer_probe_path"))
+    res = serve_rank(a["jobs"], a["rank"], a["world"], a["port"], a["mesh"],
+                     backend=a["backend"], device=a["device"])
     sys.stdout.write(RESULT + json.dumps(res) + "\n")
     sys.stdout.flush()
     return 0
 
 
-def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
-                 backend: str = "gloo", ref_logits: Optional[str] = None,
-                 out_dir: Optional[str] = None,
-                 layer_probe_path: Optional[str] = None,
-                 timeout: float = 600.0,
-                 src: Optional[str] = None, env=None) -> List[Dict]:
-    """Start one process per rank of ``mesh_shape``, wait for all, and
-    return their results by rank (``serve_rank``'s arguments as they are
-    named there); a rank that fails raises with its stderr."""
+def make_job(spec: TPServeSpec, *, ref_logits: Optional[str] = None,
+        out_dir: Optional[str] = None,
+        layer_probe_path: Optional[str] = None) -> Dict[str, Any]:
+    """One job of ``launch_jobs`` (see ``_serve_job`` for the paths)."""
+    return {"spec": dataclasses.asdict(spec), "ref_logits": ref_logits,
+            "out_dir": out_dir, "layer_probe_path": layer_probe_path}
+
+
+def launch_jobs(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
+                device: str = "cpu", backend: str = "gloo",
+                timeout: float = 600.0, src: Optional[str] = None,
+                env=None) -> List[List[Dict]]:
+    """Start one process per rank of ``mesh_shape``, which joins the group
+    once and serves ``jobs`` (``make_job(...)``) in turn; wait for all and
+    return, per job, its results by rank.  A rank that fails raises with
+    its stderr."""
     world = int(np.prod(mesh_shape))
     port = free_port()
     src = src or os.path.dirname(os.path.dirname(os.path.dirname(
@@ -423,12 +576,9 @@ def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     procs = []
     for rank in range(world):
-        arg = json.dumps({"spec": dataclasses.asdict(spec), "rank": rank,
-                          "world": world, "port": port,
-                          "mesh": list(mesh_shape), "backend": backend,
-                          "device": device, "ref_logits": ref_logits,
-                          "out_dir": out_dir,
-                          "layer_probe_path": layer_probe_path})
+        arg = json.dumps({"jobs": list(jobs), "rank": rank, "world": world,
+                          "port": port, "mesh": list(mesh_shape),
+                          "backend": backend, "device": device})
         procs.append(subprocess.Popen(
             [sys.executable, "-c", WORKER, src, arg], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -456,7 +606,22 @@ def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
     if failures:
         raise RuntimeError("tensor-parallel ranks failed:\n"
                            + "\n".join(failures))
-    return sorted(results, key=lambda r: r["rank"])
+    results.sort(key=lambda per_job: per_job[0]["rank"])
+    return [[r[i] for r in results] for i in range(len(jobs))]
+
+
+def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
+                 backend: str = "gloo", ref_logits: Optional[str] = None,
+                 out_dir: Optional[str] = None,
+                 layer_probe_path: Optional[str] = None,
+                 timeout: float = 600.0,
+                 src: Optional[str] = None, env=None) -> List[Dict]:
+    """``launch_jobs`` of one job: its results by rank."""
+    return launch_jobs([make_job(spec, ref_logits=ref_logits,
+                                 out_dir=out_dir,
+                                 layer_probe_path=layer_probe_path)],
+                       mesh_shape, device=device, backend=backend,
+                       timeout=timeout, src=src, env=env)[0]
 
 
 def reference_run(spec: TPServeSpec, device: str = "cpu",
@@ -468,12 +633,17 @@ def reference_run(spec: TPServeSpec, device: str = "cpu",
     cfg = spec.config()
     params = spec.weights(cfg, dev)
     on_logits, rec = logits_recorder()
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_len=spec.max_len, max_slots=spec.slots, hw_route=spec.hw_route),
-        device=dev)
-    eng.on_logits = on_logits
-    del params
-    res = drive(eng, spec.workload(cfg), spec, rec=rec)
+    if cfg.is_encdec:
+        res = drive_encdec(cfg, params, spec, dev, rec=rec,
+                           on_logits=on_logits)
+        del res["state"]
+    else:
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_len=spec.max_len, max_slots=spec.slots,
+            hw_route=spec.hw_route), device=dev)
+        eng.on_logits = on_logits
+        del params
+        res = drive(eng, spec.workload(cfg), spec, rec=rec)
     if path:
         torch.save({"logits": rec["logits"], "tokens": rec["tokens"]}, path)
     res["logit_kinds"] = rec["kinds"]
@@ -509,12 +679,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=32,
+                    help="encoder-decoder: stub frame embeddings a request")
     args = ap.parse_args(argv)
     shape = tuple(int(v) for v in args.mesh.lower().split("x"))
     spec = TPServeSpec(arch=args.arch, full=args.full, layers=args.layers,
                        requests=args.requests, slots=args.slots,
                        hw_route=args.hw_route, fault_step=args.fault_step,
-                       fault_rank=args.fault_rank, seed=args.seed)
+                       fault_rank=args.fault_rank, seed=args.seed,
+                       frames=args.frames)
     results = launch_ranks(spec, shape, device=args.device,
                            backend=args.backend)
     for r in results:

@@ -17,9 +17,15 @@ batch out.  Prefill and decode write the cache in place.
 Under the tensor-parallel runtime (``launch/spmd.py``) a rank holds its
 columns of ``wq``/``wk``/``wv`` and rows of ``wo``, computes its own query
 and kv heads (``AttnShard``: K/V that stay replicated are read through the
-global GQA map), and sums the ``wo`` products over the rank's axis; its
-cache holds its kv heads, the positions cut along the sequence as
-``make_cache_pspec_fn`` says (gathered where attention reads them).
+global GQA map), and sums the ``wo`` products over the rank's axis.  Its
+cache is cut as ``make_cache_pspec_fn`` says: by kv heads where they
+divide the axis (the positions cut along the sequence, gathered where
+attention reads them), else along the sequence (``spmd.kv_seq_axis``: the
+rank holds slots [s0, s0 + n) of k, v and the positions).  Over such a
+cache a decode step attends with every query head over the rank's slots,
+gathers the f32 softmax partials over the axis and folds them in rank
+order (``combine_partials``), and keeps its own heads' rows for ``wo``;
+prefill is unchanged and writes the rank's slots.
 """
 from __future__ import annotations
 
@@ -145,34 +151,39 @@ def init_kv_cache(L, B, smax, n_kv, head_dim, dtype, device):
     }
 
 
-def cache_write_prefill(cache, layer: int, k, v):
+def cache_write_prefill(cache, layer: int, k, v, *, n_kv: int = 0):
     """Write a prefill's k/v into ``layer`` of the cache (in place).
 
     S <= Smax: slots [0, S).  S > Smax (a ring buffer: windowed attention
     with Smax = window): keep the last Smax tokens, token ``pos`` at slot
     ``pos % Smax``, so decode's writes at ``t % Smax`` stay consistent.
-    Under ``spmd`` with the positions cut along the sequence, the rank
-    writes its own slots of them."""
+    Under ``spmd`` the rank writes its own slots [s0, s0 + n) of the
+    positions where they are cut along the sequence, and of k/v too where
+    the cache's slots are (``n_kv``, the layer's global kv head count,
+    does not divide the axis: ``spmd.kv_seq_axis``)."""
     S = k.shape[1]
-    smax = cache["k"].shape[2]
-    pax = spmd.pos_axis(cache)
+    kax = spmd.kv_seq_axis(n_kv) if n_kv else None
+    pax = kax if kax is not None else spmd.pos_axis(cache)
     n = cache["pos"].shape[-1]
     s0 = spmd.axis_offset(pax, n)
+    smax = n * spmd.axis_ranks(pax)     # the global slots
     if S <= smax:
-        cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
-        if pax is None:
-            cache["pos"][layer, :, :S] = torch.arange(S, dtype=torch.int32,
-                                                      device=k.device)
-        elif min(s0 + n, S) > s0:
-            hi = min(s0 + n, S)
-            cache["pos"][layer, :, :hi - s0] = torch.arange(
-                s0, hi, dtype=torch.int32, device=k.device)
+        lo, hi = s0, min(s0 + n, S)
+        if kax is None:
+            cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
+            cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
+        elif hi > lo:
+            cache["k"][layer, :, :hi - lo] = k[:, lo:hi].to(cache["k"].dtype)
+            cache["v"][layer, :, :hi - lo] = v[:, lo:hi].to(cache["v"].dtype)
+        if hi > lo:
+            cache["pos"][layer, :, :hi - lo] = torch.arange(
+                lo, hi, dtype=torch.int32, device=k.device)
         return cache
     p0 = S - smax                       # first kept absolute position
     idx = (torch.arange(smax, device=k.device) - p0) % smax
-    cache["k"][layer] = k[:, p0:][:, idx].to(cache["k"].dtype)
-    cache["v"][layer] = v[:, p0:][:, idx].to(cache["v"].dtype)
+    kidx = idx if kax is None else idx[s0:s0 + n]
+    cache["k"][layer] = k[:, p0:][:, kidx].to(cache["k"].dtype)
+    cache["v"][layer] = v[:, p0:][:, kidx].to(cache["v"].dtype)
     cache["pos"][layer] = (p0 + idx[s0:s0 + n]).to(torch.int32)
     return cache
 
@@ -191,6 +202,12 @@ def attn_decode(p, x, cache, layer: int, t: Sequence[int], tpos, cos, sin,
     decode bit for bit (under ``spmd`` the rows' ``wo`` partial sums are
     reduced together: an elementwise sum, the same per row)."""
     sh = spmd.AttnShard.of(n_heads, n_kv, head_dim)
+    kax = spmd.kv_seq_axis(n_kv)
+    if kax is not None:
+        return _decode_over_cut_slots(
+            p, x, cache, layer, t, tpos, cos, sin, sh, kax, n_heads=n_heads,
+            n_kv=n_kv, head_dim=head_dim, window=window, softcap=softcap,
+            scale=scale)
     smax = cache["k"].shape[2]
     pax = spmd.pos_axis(cache)
     pos_loc = cache["pos"][layer]
@@ -216,5 +233,44 @@ def attn_decode(p, x, cache, layer: int, t: Sequence[int], tpos, cos, sin,
             q, ka, va, causal=True, window=window, softcap=softcap,
             scale=scale, q_offset=tpos[i:i + 1],
             k_positions=pos_all[i:i + 1])
+        outs.append(sh.partial(o.reshape(1, 1, -1), p["wo"].to(x.dtype)))
+    return sh.finish(torch.cat(outs) if len(outs) > 1 else outs[0])
+
+
+def _decode_over_cut_slots(p, x, cache, layer, t, tpos, cos, sin, sh, kax,
+                           *, n_heads, n_kv, head_dim, window, softcap,
+                           scale):
+    """``attn_decode`` over a cache whose slots are cut along ``kax``: the
+    rank holds slots [s0, s0 + n) of every kv head.  Per row, the token's
+    k/v (every kv head) go to the rank that owns slot ``t % Smax``; every
+    rank attends with every query head (gathered over the heads axis) over
+    its own slots, the f32 partials are gathered over ``kax`` and folded
+    in rank order (the same bits on every rank), and the rank keeps its
+    own heads' rows for its ``wo`` term."""
+    n = cache["k"].shape[2]
+    s0 = spmd.axis_offset(kax, n)
+    smax = n * spmd.axis_ranks(kax)
+    pos = cache["pos"][layer]
+    outs = []
+    for i, ti in enumerate(t):
+        q, k, v = _project_qkv(p, x[i:i + 1], n_heads, n_kv, head_dim, sh)
+        if cos is not None:
+            q = rope_mod.apply_rope(q, cos[i:i + 1], sin[i:i + 1])
+            k = rope_mod.apply_rope(k, cos[i:i + 1], sin[i:i + 1])
+        k = spmd.gather_over(k, sh.kv_heads, 2)
+        v = spmd.gather_over(v, sh.kv_heads, 2)
+        slot = ti % smax
+        if s0 <= slot < s0 + n:
+            cache["k"][layer, i, slot - s0] = k[0, 0].to(cache["k"].dtype)
+            cache["v"][layer, i, slot - s0] = v[0, 0].to(cache["v"].dtype)
+            pos[i, slot - s0] = ti
+        hl = q.shape[2]
+        part = attn_ref.attention_partials(
+            spmd.gather_over(q, sh.heads, 2), cache["k"][layer, i:i + 1],
+            cache["v"][layer, i:i + 1], causal=True, window=window,
+            softcap=softcap, scale=scale, q_offset=tpos[i:i + 1],
+            k_positions=pos[i:i + 1])
+        o = attn_ref.combine_partials(spmd.gather_over(part[None], kax, 0))
+        o = o[:, :, sh.h0:sh.h0 + hl].to(x.dtype)
         outs.append(sh.partial(o.reshape(1, 1, -1), p["wo"].to(x.dtype)))
     return sh.finish(torch.cat(outs) if len(outs) > 1 else outs[0])

@@ -123,7 +123,8 @@ def attn_block(p, x, cfg: ModelConfig, meta: LayerMeta, ropes, routes,
                                  kv_chunk=cfg.attn_chunk, **kw)
         if cache is not None:
             attn_out, (k, v) = res
-            attn_mod.cache_write_prefill(cache, layer, k, v)
+            attn_mod.cache_write_prefill(cache, layer, k, v,
+                                         n_kv=cfg.num_kv_heads)
         else:
             attn_out = res
     attn_out = _post_norm(p, "post_ln1", attn_out, cfg, step)

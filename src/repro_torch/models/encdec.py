@@ -67,6 +67,9 @@ class EncDecModel:
     def _norm(self, p, x):
         return L.norm(p, x, eps=self.cfg.norm_eps, layernorm=True)
 
+    def _mlp(self, p, x):
+        return L.mlp(p, x, act="gelu_plain", d_ff=self.cfg.d_ff)
+
     # ------------------------------------------------------------- init
     def init(self, seed: Union[int, torch.Generator] = 0,
              device=None) -> PyTree:
@@ -107,7 +110,6 @@ class EncDecModel:
     # ---------------------------------------------------------- encoder
     def encode(self, params, enc_embeds: torch.Tensor) -> torch.Tensor:
         """(B, S_enc, D) frame embeddings -> the normed encoder output."""
-        spmd.check_runtime(self.cfg)
         cfg = self.cfg
         x = enc_embeds.to(self.compute_dtype)
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
@@ -121,7 +123,7 @@ class EncDecModel:
                                            causal=False, route=route,
                                            **self._attn_kw())
                 h = self._norm(p["ln2"], x)
-                return x + L.mlp(p["mlp"], h, act="gelu_plain")
+                return x + self._mlp(p["mlp"], h)
             x = stack.remat(cfg, body, x)(x)
         return self._norm(params["enc_norm"], x)
 
@@ -140,7 +142,8 @@ class EncDecModel:
                                      kv_out=cache is not None, **kw)
             if cache is not None:
                 a, (k, v) = res
-                attn_mod.cache_write_prefill(cache, layer, k, v)
+                attn_mod.cache_write_prefill(cache, layer, k, v,
+                                             n_kv=kw["n_kv"])
             else:
                 a = res
         x = x + a
@@ -152,16 +155,18 @@ class EncDecModel:
             cross_kv=None if cross is not None else enc_out,
             precomputed_kv=cross, **kw)
         h = self._norm(p["ln2"], x)
-        return x + L.mlp(p["mlp"], h, act="gelu_plain")
+        return x + self._mlp(p["mlp"], h)
 
     def cross_kv_cache(self, params, enc_out: torch.Tensor):
         """Per decoder layer, the cross-attention's keys and values of
         ``enc_out``, computed once at prefill: (k, v), each (L, B, S_enc,
-        Hkv, Dh)."""
+        Hkv, Dh); under ``spmd`` the rank's kv heads."""
         cfg = self.cfg
+        sh = spmd.AttnShard.of(cfg.num_heads, cfg.num_kv_heads,
+                               cfg.resolved_head_dim)
         kvs = [attn_mod.project_kv(
                    stack.layer(params["dec"], i)["cross_attn"], enc_out,
-                   cfg.num_kv_heads, cfg.resolved_head_dim)
+                   cfg.num_kv_heads, cfg.resolved_head_dim, sh)
                for i in range(cfg.dec_layers)]
         return (torch.stack([k for k, _ in kvs]),
                 torch.stack([v for _, v in kvs]))
@@ -173,10 +178,9 @@ class EncDecModel:
         step at the scalar position ``t`` (``step``).  ``cross``: the
         ``cross_kv_cache`` to attend over instead of ``enc_out``.  Returns
         (the normed hidden states, ``caches``)."""
-        spmd.check_runtime(self.cfg)
         cfg = self.cfg
         x = L.embed(params["embed"], dec_tokens,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype, vocab=cfg.vocab_size)
         tl = tpos = None
         if step:
             x = x + params["dec_pos"][t][None, None].to(x.dtype)
@@ -197,7 +201,8 @@ class EncDecModel:
         return self._norm(params["dec_norm"], x), caches
 
     def _logits(self, params, h):
-        return L.logits_from_embed(params["embed"]["table"], h)
+        return L.logits_from_embed(params["embed"]["table"], h,
+                                   vocab=self.cfg.vocab_size)
 
     # ------------------------------------------------------------ modes
     def forward(self, params, batch):
@@ -207,7 +212,8 @@ class EncDecModel:
         h, _ = self.decode(params, enc_out, batch["dec_tokens"])
         loss, denom = L.chunked_xent(
             h, batch["dec_targets"], params["embed"]["table"], tied=True,
-            chunk=self.cfg.loss_chunk, mask=batch.get("loss_mask"))
+            chunk=self.cfg.loss_chunk, mask=batch.get("loss_mask"),
+            vocab=self.cfg.vocab_size)
         return loss, {"xent": loss, "tokens": denom, "loss": loss}
 
     def logits_all(self, params, batch) -> torch.Tensor:

@@ -6,8 +6,9 @@ Under the tensor-parallel runtime (``launch/spmd.py``) the vocab-sharded
 embedding looks up the rank's rows (others zeroed) and sums them over the
 vocab axis; the logits of a vocab-sharded head or tied table are gathered
 before anyone samples them, and the loss gathers each chunk's logits
-(no vocab-parallel cross-entropy); the gated MLP runs on the rank's
-``w1``/``w3`` columns and ``w2`` rows and sums its partial output.
+(no vocab-parallel cross-entropy); the MLP, gated or plain, runs on the
+rank's ``w1``(/``w3``) columns and ``w2`` rows and sums its partial
+output.
 ``vocab`` and ``d_ff`` (the global sizes) say what is sharded; outside
 ``spmd`` they change nothing."""
 from __future__ import annotations
@@ -124,18 +125,18 @@ def mlp(p, x, *, act="silu", route=viscosity.SW,
         row_independent: bool = False, d_ff=None):
     """Gated MLP through the Viscosity SwiGLU stage; without ``w3`` the
     plain MLP (whisper's: ``w1``, tanh-gelu, ``w2``), two plain products
-    as in the reference, whatever the route.  Under ``spmd`` the stage
-    runs on the rank's d_ff slice and returns a partial sum, summed over
-    the FFN axis here."""
+    as in the reference, whatever the route.  Under ``spmd`` either runs
+    on the rank's d_ff slice (``w1``/``w3`` columns, ``w2`` rows) and its
+    partial sum is summed over the FFN axis here."""
     cd = x.dtype
+    ax = spmd.ffn_axis(d_ff) if d_ff else None
     if "w3" not in p:
-        h = x @ p["w1"].to(cd)
+        h = spmd.replicate_over(x, ax) @ p["w1"].to(cd)
         h = (torch.nn.functional.gelu(h, approximate="tanh")
              if act.startswith("gelu") else torch.nn.functional.silu(h))
-        return h @ p["w2"].to(cd)
+        return spmd.reduce_over(h @ p["w2"].to(cd), ax)
     lead = x.shape[:-1]
     act_name = "gelu" if act in ("gelu", "gelu_plain") else "silu"
-    ax = spmd.ffn_axis(d_ff) if d_ff else None
     y = swiglu_ops.swiglu(
         spmd.replicate_over(x.reshape(-1, x.shape[-1]), ax), p["w1"].to(cd),
         p["w3"].to(cd), p["w2"].to(cd), act=act_name, route=route,

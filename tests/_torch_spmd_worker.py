@@ -5,14 +5,18 @@ two).
     python -c "import _torch_spmd_worker as w; w.main(sys.argv[1:])" JSON
 
 JSON: rank, world, port, mesh (D, M), out (a directory), cases.  Each
-case names a reduced config, a ``torch.save``d full param tree (the
-reference's, converted by ``params_from_jax``; its packed Mamba2 leaves
-cut by component, ``partition.packed_layout``), a route, optionally the
-param axes (``partition.DEFAULT_AXES`` by default) and what to run
-(prefill + teacher-forced decode, a train step's loss and gradients, the
-AdamW update those gradients make under a clip that binds, the
-teacher-forced logits); the rank runs it on its shards under
-``launch.spmd.spmd`` and saves what it got to ``out/rank<r>.pt``.
+case names a reduced config (optionally cut to ``layers``), a
+``torch.save``d full param tree (the reference's, converted by
+``params_from_jax``; its packed Mamba2 leaves cut by component,
+``partition.packed_layout``), a route, optionally the param axes
+(``partition.DEFAULT_AXES`` by default) and what to run (prefill +
+teacher-forced decode, with the collectives of each decode step and the
+cache's leaf shapes; a train step's loss and gradients, the AdamW update
+those gradients make under a clip that binds, the teacher-forced logits);
+an encoder-decoder config takes ``frames`` stub frame embeddings and
+runs the encoder, prefill (keeping the cross-KV) and decode, and the
+train step.  The rank runs it on its shards under ``launch.spmd.spmd``
+and saves what it got to ``out/rank<r>.pt``.
 """
 import dataclasses
 import json
@@ -27,15 +31,79 @@ def _tokens(seed, shape):
         0, 512, size=shape).astype(np.int64))
 
 
+def _embeds(seed, shape):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def _decode_steps(model, params, state, toks, P, T, out):
+    """T teacher-forced decode steps from position P; each step's logits
+    and collectives (calls and bytes by kind) into ``out``."""
+    from repro_torch.launch import spmd
+    log = spmd.collective_log()
+    out["step_collectives"] = []
+    for i in range(T):
+        n0, b0 = (dict(log.by_kind("n")), dict(log.by_kind("bytes"))) \
+            if log is not None else ({}, {})
+        lg, state = model.decode_step(params, state,
+                                      toks[:, P + i:P + i + 1], P + i)
+        out[f"decode{i}"] = lg
+        if log is not None:
+            out["step_collectives"].append({
+                what: {k: v - before.get(k, 0)
+                       for k, v in log.by_kind(what).items()}
+                for what, before in (("n", n0), ("bytes", b0))})
+    return state
+
+
+def _cache_record(cache, out):
+    from repro_torch.launch import partition
+    from repro_torch.viscosity.lang import tree_leaves
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(cache))
+    out["cache_shapes"] = {path: tuple(t.shape) for path, t in
+                           partition.flatten(cache).items()}
+
+
+def run_encdec(case, model, params, rows):
+    """An encoder-decoder case on ``params`` (the rank's shards under
+    ``spmd``)."""
+    from repro_torch.launch import spmd
+    from repro_torch.train.runner import value_and_grad
+    cfg = model.cfg
+    B, P, T = case["batch"], case["prompt"], case["decode"]
+    emb = _embeds(case["seed"], (B, case["frames"], cfg.d_model))[rows]
+    toks = _tokens(case["seed"], (B, P + T))[rows]
+    out = {}
+    if "prefill" in case["run"]:
+        out["encode"] = model.encode(params, emb)
+        lg, state = model.prefill(params, {
+            "embeds": emb, "dec_tokens": toks[:, :P],
+            "cache": spmd.init_cache(model, toks.shape[0], P + T,
+                                     device=torch.device("cpu"))})
+        out["prefill"], out["cross"] = lg, state["cross"]
+        state = _decode_steps(model, params, state, toks, P, T, out)
+        _cache_record(state, out)
+    if "train" in case["run"]:
+        tgt = _tokens(case["seed"] + 2, (B, P + T))[rows]
+        (loss, metrics), grads = value_and_grad(
+            model.forward, params, {"embeds": emb, "dec_tokens": toks,
+                                    "dec_targets": tgt})
+        spmd.sync_grads(grads)
+        out["loss"], out["metrics"], out["grads"] = loss, metrics, grads
+    return out
+
+
 def run_case(case, mesh, coords):
     from repro_torch.configs import get_config
     from repro_torch.core.routing import RoutingPlan
     from repro_torch.launch import partition, spmd
     from repro_torch.models import build_model
     from repro_torch.train.runner import model_stage_names, value_and_grad
-    from repro_torch.viscosity.lang import tree_leaves
 
     cfg = dataclasses.replace(get_config(case["arch"]), dtype="float32")
+    if case.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=case["layers"])
     routes = None
     if case["route"] != "sw":
         routes = RoutingPlan.for_stages(model_stage_names(cfg),
@@ -49,6 +117,8 @@ def run_case(case, mesh, coords):
     nd = mesh.axis_sizes["data"]
     B, P, T = case["batch"], case["prompt"], case["decode"]
     rows = slice(coords["data"] * (B // nd), (coords["data"] + 1) * (B // nd))
+    if cfg.is_encdec:
+        return run_encdec(case, model, local, rows)
     out = {}
     if "prefill" in case["run"]:
         toks = _tokens(case["seed"], (B, P + T))[rows]
@@ -57,12 +127,8 @@ def run_case(case, mesh, coords):
         lg, cache = model.prefill(local, {"tokens": toks[:, :P],
                                           "cache": cache})
         out["prefill"] = lg
-        for i in range(T):
-            lg, cache = model.decode_step(local, cache,
-                                          toks[:, P + i:P + i + 1], P + i)
-            out[f"decode{i}"] = lg
-        out["cache_bytes"] = sum(t.numel() * t.element_size()
-                                 for t in tree_leaves(cache))
+        cache = _decode_steps(model, local, cache, toks, P, T, out)
+        _cache_record(cache, out)
     if "train" in case["run"]:
         toks = _tokens(case["seed"] + 1, (B, P))[rows]
         tgt = _tokens(case["seed"] + 2, (B, P))[rows]

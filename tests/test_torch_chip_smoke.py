@@ -476,17 +476,29 @@ def test_tuning_phase_plans_on_the_cpu(tmp_path):
         tuning.reset()
 
 
+# the workloads of phase 15's models that have their own (TP_WORKLOADS),
+# at the reduced configs: whisper-base one batch of 24 stub frames a row;
+# gemma3-1b prompts past its smoke window of 16, max_len 32 cut by four
+TP_SMOKE_WORK = {"whisper-base": dict(min_prompt=4, max_prompt=4, min_new=16,
+                                      max_new=16, frames=24),
+                 "gemma3-1b": dict(min_prompt=20, max_prompt=24, max_new=8)}
+
+
 @pytest.mark.parametrize("arch,layers,kernels", [
     ("qwen1.5-4b", 2, ("flash_attention", "swiglu_mlp")),
     ("zamba2-1.2b", 4, ("flash_attention", "swiglu_mlp", "mamba2_ssd")),
-    ("rwkv6-1.6b", 3, ("rwkv6_wkv",))])
+    ("rwkv6-1.6b", 3, ("rwkv6_wkv",)),
+    ("whisper-base", None, ("flash_attention",)),
+    ("gemma3-1b", 6, ("flash_attention", "swiglu_mlp"))])
 def test_tp_phase_on_the_cpu(monkeypatch, arch, layers, kernels):
     """Phase 15's wiring at the reduced config on four gloo ranks of the
     CPU, model by model: the ranks agree, demote the model's own kernel
     stage at the fault step together, hold the unsharded engine's logits
     before it (rwkv6-1.6b layer by layer, and its prefill against the f32
     model), call the wrappers at the shard shapes as often as the card's
-    counts want, and move the bytes a tick the dry run's stub counts."""
+    counts want, hold a quarter of the unsharded cache (whisper-base's
+    kv heads and cross-KV, gemma3-1b's slots), and move the bytes a tick
+    the dry run's stub counts."""
     from repro_torch.launch.tp_serve import TPServeSpec
     from repro_torch.viscosity import HW
 
@@ -495,7 +507,7 @@ def test_tp_phase_on_the_cpu(monkeypatch, arch, layers, kernels):
                            hw_route=HW, fault_step=chip_smoke.TP_FAULT_STEP,
                            fault_rank=chip_smoke.TP_FAULT_RANK,
                            **{**chip_smoke.TP_WORKLOAD, "min_prompt": 8,
-                              "max_prompt": 16})
+                              "max_prompt": 16, **TP_SMOKE_WORK.get(a, {})})
     monkeypatch.setattr(chip_smoke, "tp_spec", spec)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")

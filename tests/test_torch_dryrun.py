@@ -7,6 +7,8 @@ devices when imported, which every later subprocess of the test process
 would inherit, so no test imports it: its ``model_flops`` and active-param
 rule are restated here over ``repro.models.params_specs``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -363,25 +365,66 @@ def test_sharded_cell_bytes_and_collectives(shape, tmp_path):
     assert reanalyze.reanalyze(rec) == rec
 
 
-@pytest.mark.parametrize("arch,status", [
-    ("zamba2-1.2b-smoke", "ok"), ("whisper-base-smoke", "skip")])
-def test_sharded_family_cell_status_with_spec_bytes(tmp_path, arch, status):
+def _odd_ssm():
+    """zamba2's smoke SSM with a state of 17: its B and C components do
+    not divide a model axis of two."""
+    smoke = get_config("zamba2-1.2b-smoke")
+    return {"ssm": dataclasses.replace(smoke.ssm, state_dim=17)}
+
+
+@pytest.mark.parametrize("arch,overrides,status", [
+    ("zamba2-1.2b-smoke", None, "ok"), ("whisper-base-smoke", None, "ok"),
+    ("zamba2-1.2b-smoke", "odd_ssm", "skip")])
+def test_sharded_family_cell_status_with_spec_bytes(tmp_path, arch,
+                                                    overrides, status):
     """Under a model axis the hybrid family runs one rank's step (its
-    Mamba2 leaves cut by component); the encoder-decoder family is still a
-    skip.  Either way the record's per-device bytes are the spec sums."""
+    Mamba2 leaves cut by component), and so does the encoder-decoder
+    family; a Mamba2 component that does not divide the axis is a skip.
+    Either way the record's per-device bytes are the spec sums."""
     from repro_torch.launch import partition
+    over = _odd_ssm() if overrides else None
     rec = dryrun.run_cell(arch, "train_4k", out_dir=str(tmp_path),
-                          shapes=SMOKE_SHAPES, mesh="1x2")
+                          shapes=SMOKE_SHAPES, mesh="1x2", overrides=over)
     assert rec["status"] == status, rec.get("reason") or rec.get("error")
     if status == "skip":
-        assert "encoder-decoder" in rec["reason"]
+        assert "does not divide" in rec["reason"] and "B component" in \
+            rec["reason"], rec["reason"]
     else:
         assert rec["collectives"]["bytes_by_kind"]["all-gather"] > 0
     sizes = {"data": 1, "model": 2}
-    p = params_specs(build_model(get_config(arch)))
+    cfg = dataclasses.replace(get_config(arch), **(over or {}))
+    p = params_specs(build_model(cfg))
     n = _spec_bytes(p, partition.params_pspecs(p, sizes), sizes)
     assert rec["bytes"]["params"] == n == rec["spec_bytes"]["params"]
     assert rec["bytes"]["opt_state"] == 2 * n + 4
+
+
+@pytest.mark.parametrize("arch,shape", [("gemma3-1b-smoke", "decode_32k"),
+                                        ("whisper-base-smoke", "decode_32k")])
+def test_sharded_decode_over_a_cut_cache_is_ok(tmp_path, arch, shape):
+    """gemma3-1b's one kv head does not divide a model axis of two, so its
+    caches are cut along their slots: the decode cell runs one rank's step,
+    its cache half the whole one's bytes, and its gathers include each
+    slot and layer's query heads and softmax partials.  whisper-base's
+    decode state holds the rank's kv heads of the cross-KV."""
+    from repro_torch.launch import partition
+    from repro_torch.models import decode_state_specs
+    rec = dryrun.run_cell(arch, shape, out_dir=str(tmp_path),
+                          shapes=SMOKE_SHAPES, mesh="1x2")
+    assert rec["status"] == "ok", rec.get("reason") or rec.get("error")
+    cfg = get_config(arch)
+    spec = SMOKE_SHAPES[shape]
+    full, _, _ = decode_state_specs(cfg, build_model(cfg),
+                                    spec.global_batch, spec.seq_len)
+    whole = sum(t.numel() * t.element_size()
+                for t in partition.flatten(full).values())
+    assert rec["bytes"]["cache"] * 2 == whole
+    coll = rec["collectives"]["n_by_kind"]
+    B, L = spec.global_batch, cfg.num_layers
+    if arch.startswith("gemma3"):
+        # q, k, v and the partials per slot and layer; the logits per slot
+        assert coll["all-gather"] == 4 * B * L + B
+    assert coll["all-reduce"] > 0
 
 
 def test_hillclimb_base_against_a_variant(tmp_path, capsys):
