@@ -276,16 +276,16 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              repro_torch.obs.report``, whose MTTR and goodput must equal
              the campaigns' own summaries (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
-11. zoo    — mistral-nemo-12b (20 of 40 layers), mixtral-8x7b (8 of 32:
+11. zoo    — mistral-nemo-12b (10 of 40 layers), mixtral-8x7b (8 of 32:
              8 experts top-2, a 4096-token window on every layer),
              llama4-scout-17b-a16e (6 of 48: 16 experts top-1 and a
-             shared expert), gemma2-2b (14 of 26: head dim 256, local
+             shared expert), gemma2-2b (8 of 26: head dim 256, local
              and global layers in turn, both softcaps, post-norms, GeGLU),
              gemma3-1b (12 of 26: two groups of five local layers of
              window 512 and rope theta 1e4 to one global of 1e6, qk-norm,
-             GQA 4 -> 1) and qwen2-vl-7b (14 of 28: M-RoPE, QKV biases,
-             an untied head) at full width (PRs 22-24 served the dense
-             ones at full depth), each built (weights
+             GQA 4 -> 1) and qwen2-vl-7b (8 of 28: M-RoPE, QKV biases,
+             an untied head) at full width (the dense ones at about a
+             quarter to half of their depth), each built (weights
              drawn straight into bf16 by the port's own init; gemma3-1b's
              must carry its qk-norm scales), served and freed in turn, its
              peak memory printed.
@@ -363,7 +363,9 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              line; its wall time and its kernel launches, counted from 0
              in its process, are recorded (serve_with_faults must launch
              attention and SwiGLU, lane_fault_smoke SwiGLU with the lane
-             fault compiled in, casestudy_faults the checksum).
+             fault compiled in, casestudy_faults the checksum;
+             elastic_train starts its eight rank processes of the (2, 4)
+             mesh on ``cuda:0``, four of which go on over (1, 4)).
              Meanwhile the dry run (``launch/dryrun.py``) builds phase
              8's T1 cell on meta: its param bytes must equal phase 8's
              and its predicted peak come within 10% of phase 8's
@@ -423,8 +425,34 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              run's counting stub for the same cell and depth.  Each rank's
              prefill and tick ms print, and the phase's seconds with the
              card's name and power limit (rehearsed on the CPU by
-             ``test_torch_chip_smoke.py``).  Then the seconds of every
-             phase.
+             ``test_torch_chip_smoke.py``).
+16. tp_train — sharded training (``launch/tp_train.py``) at full width:
+             qwen1.5-4b (d_model 2560, d_ff 6912, the full vocab) cut to
+             4 of 40 layers (1.1 B params), eight gloo ranks over a (2, 4)
+             ("data", "model") mesh on the one card, B = 4, S = 128, f32
+             params, AdamW with a clip that binds.  First this process
+             takes the same 2 steps unsharded on the card (its initial
+             params, and its final params and first moments, saved to the
+             host, then freed); then the ranks start once and each takes
+             its shard of the initial params through 2 steps without
+             ZeRO-1 and, from the same state, 2 with it.  Meanwhile the
+             control: the unsharded steps on half of each batch, a wrong
+             gradient, held against the full batch's.  Checks: every
+             rank's losses and each step's grad norm the unsharded run's
+             within 1e-4 relative; its first moments (its ZeRO-1 blocks)
+             and its updated params within 1e-4 of each leaf's largest
+             magnitude of the unsharded run's (``tp_train.max_rel``), the
+             ZeRO-1 run's params within 1e-5 of the baseline's; each
+             rank's moment bytes halved under ZeRO-1 (dp = 2); each step's
+             collective bytes by kind equal to the dry run's counting stub
+             for the same step (``dryrun.analyze_cell``); and the
+             control's grad norms and first moments beyond the 1e-4 (the
+             checks see a wrong gradient: AdamW's decay moves the params
+             more than these clipped steps, so the params alone do not).
+             Each step's ms and each rank's peak print beside the card's
+             name and power limit (rehearsed on the CPU by
+             ``test_torch_chip_smoke.py``).
+             Then the seconds of every phase.
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
@@ -2335,16 +2363,16 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
 # at full width on one card, depth cut where the weights would not fit:
 # (arch, layers served, fault stage).  Each is built, served and freed in
 # turn.
-# (arch, layers served, fault stage): since PR 27 the dense models at
-# about half their depth (full depth ran in PRs 22-24): their ticks are
-# host-bound and scale with it; gemma2-2b keeps its alternation and
-# gemma3-1b two whole 5:1 groups
-ZOO = (("mistral-nemo-12b", 20, "swiglu_mlp"),
+# (arch, layers served, fault stage): the dense models cut, mistral-nemo-
+# 12b, gemma2-2b and qwen2-vl-7b to about a quarter of their depth, which
+# pays for phase 16: their ticks are host-bound and scale with depth;
+# gemma2-2b keeps its alternation and gemma3-1b two whole 5:1 groups
+ZOO = (("mistral-nemo-12b", 10, "swiglu_mlp"),
        ("mixtral-8x7b", 8, "flash_attention"),
        ("llama4-scout-17b-a16e", 6, "flash_attention"),
-       ("gemma2-2b", 14, "flash_attention"),
+       ("gemma2-2b", 8, "flash_attention"),
        ("gemma3-1b", 12, "swiglu_mlp"),
-       ("qwen2-vl-7b", 14, "flash_attention"))
+       ("qwen2-vl-7b", 8, "flash_attention"))
 ZOO_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                     arrival_every=2, per_arrival=2)
 ZOO_PREFILL = 128
@@ -3794,6 +3822,200 @@ def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
     return entry, paths
 
 
+# Phase 16: sharded training at full width (see the module docstring;
+# AdamW as ``tp_train.OCFG``: a clip that binds, eps 1.0)
+TPT_MESH = (2, 4)
+TPT_SPEC = dict(full=True, layers=4, batch=4, seq=128, steps=2)
+TPT_REF_REL = 1e-4          # a rank against the unsharded step
+TPT_PAIR_REL = 1e-5         # ZeRO-1 against the baseline
+TPT_TIMEOUT_S = 300
+
+
+def tpt_spec(zero1: bool = False):
+    from repro_torch.launch.tp_train import TPTrainSpec
+    return TPTrainSpec(**TPT_SPEC, zero1=zero1)
+
+
+def tpt_jobs(init: str, want: str, ready: str):
+    """The ranks' two jobs: the baseline, then ZeRO-1 from the same
+    initial params, held to each other; the first waits for ``ready``."""
+    from repro_torch.launch.tp_train import make_job
+    return [make_job(tpt_spec(), "baseline", init=init, want=want,
+                     ready=ready),
+            make_job(tpt_spec(True), "zero1", init=init, want=want,
+                     compare="baseline")]
+
+
+def tpt_stub(spec):
+    """The dry run's counting stub for one step of ``spec`` on one rank of
+    the (2, 4) mesh on meta: its collective bytes by kind."""
+    import torch
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    n = TPT_MESH[0] * TPT_MESH[1]
+    rec = dryrun.analyze_cell(
+        spec.config(), ShapeSpec("tp_train", spec.seq, spec.batch, "train"),
+        microbatch=1, zero1=spec.zero1,
+        mesh=make_mesh(TPT_MESH, ("data", "model"),
+                       devices=[torch.device("meta")] * n))
+    return rec["collectives"]["bytes_by_kind"]
+
+
+def _rel_gaps(got, want):
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def tpt_faults(ref, ctrl, res, stubs):
+    """What phase 16's ranks got wrong (empty: nothing): ``ref`` the
+    unsharded run's report, ``ctrl`` the half-batch control's (held
+    against ``ref``), ``res`` the ranks' reports by job (baseline, zero1),
+    ``stubs`` the dry run's bytes a step by job name."""
+    bad = []
+    world = TPT_MESH[0] * TPT_MESH[1]
+    base, zero = res
+    if not (min(_rel_gaps(ctrl["grad_norms"], ref["grad_norms"]))
+            > TPT_REF_REL and ctrl["vs"]["mu"] > TPT_REF_REL):
+        bad.append(f"the half-batch control reads grad norms "
+                   f"{ctrl['grad_norms']} against {ref['grad_norms']}, "
+                   f"first moments {ctrl['vs']['mu']:.3e}: within "
+                   f"{TPT_REF_REL}, so the checks cannot see a wrong "
+                   "gradient")
+    for job in res:
+        if len(job) != world:
+            bad.append(f"{len(job)} ranks, want {world}")
+            continue
+        for r in job:
+            who = f"{r['name']} rank {r['rank']}"
+            losses = [st["loss"] for st in r["steps"]]
+            norms = [st["grad_norm"] for st in r["steps"]]
+            for what, got, want in (("losses", losses, ref["losses"]),
+                                    ("grad norms", norms,
+                                     ref["grad_norms"])):
+                if len(got) != len(want) or not max(
+                        _rel_gaps(got, want)) <= TPT_REF_REL:
+                    bad.append(f"{who}: {what} {got}, unsharded {want}")
+            for what in ("params", "mu"):
+                if not r["vs_want"][what] <= TPT_REF_REL:
+                    bad.append(f"{who}: {what} {r['vs_want'][what]:.3e} "
+                               f"from the unsharded run's (tol "
+                               f"{TPT_REF_REL})")
+            if "vs_compare" in r and not r["vs_compare"] <= TPT_PAIR_REL:
+                bad.append(f"{who}: params {r['vs_compare']:.3e} from the "
+                           f"baseline's (tol {TPT_PAIR_REL})")
+            for i, st in enumerate(r["steps"]):
+                if st["collectives"]["bytes"] != stubs[r["name"]]:
+                    bad.append(f"{who} step {i}: collective bytes "
+                               f"{st['collectives']['bytes']}, the dry "
+                               f"run's stub {stubs[r['name']]}")
+    if not bad:
+        for b, z in zip(base, zero):
+            if 2 * z["moment_bytes"] != b["moment_bytes"]:
+                bad.append(f"rank {z['rank']}: moments {z['moment_bytes']} B "
+                           f"under ZeRO-1, {b['moment_bytes']} B without: "
+                           "not half")
+    return bad
+
+
+def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
+    """Phase 16 (see the module docstring and the constants above).
+    Returns its report entry."""
+    import torch
+
+    from repro_torch.launch import tp_train
+    import threading
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tp_train_") as tmp:
+        init, want, ready = (os.path.join(tmp, f) for f in
+                             ("init.pt", "want.pt", "ready"))
+        # the ranks start (imports, the card, the group) while this
+        # process takes the unsharded steps; their first job waits for it
+        box = {}
+
+        def ranks():
+            try:
+                box["res"] = tp_train.launch_ranks(
+                    tpt_jobs(init, want, ready), TPT_MESH, device=dev.type,
+                    backend=MH_BACKEND, timeout=timeout, src=str(SRC),
+                    env={**os.environ, "OMP_NUM_THREADS": "1"})
+            except Exception as e:  # noqa: BLE001 — raised below
+                box["error"] = e
+        th = threading.Thread(target=ranks)
+        th.start()
+        try:
+            ref = tp_train.reference_run(tpt_spec(), dev.type, init=init,
+                                         want=want)
+            t_ref = time.perf_counter() - t0
+        finally:
+            open(ready, "w").close()
+        # the control, while the ranks train: a wrong gradient (half of
+        # each batch) against the full batch's run
+        ctrl = tp_train.reference_run(
+            tpt_spec(), dev.type, rows=slice(0, tpt_spec().batch // 2),
+            against=want)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        stubs = {"baseline": tpt_stub(tpt_spec()),
+                 "zero1": tpt_stub(tpt_spec(True))}
+        th.join()
+        launch_s = time.perf_counter() - t0
+    if "error" in box:
+        raise box["error"]
+    res = box["res"]
+    bad = tpt_faults(ref, ctrl, res, stubs)
+    check(not bad, "tp_train: " + "; ".join(bad))
+    spec = tpt_spec()
+    entry = {"mesh": list(TPT_MESH), "backend": MH_BACKEND,
+             "spec": dataclasses.asdict(spec),
+             "layers": spec.config().num_layers,
+             "params": ref["param_bytes"] // 4, "unsharded": ref,
+             "control": ctrl,
+             "unsharded_s": t_ref, "launch_s": launch_s, "stub_bytes": stubs,
+             "jobs": {job[0]["name"]: job for job in res},
+             "nvidia_smi": smi}
+    out(f"[tp_train] unsharded {tp_train.ARCH} at {entry['layers']} layers "
+        f"({entry['params'] / 1e9:.3f} B params), B={spec.batch} "
+        f"S={spec.seq}: losses {ref['losses']}, grad norms "
+        f"{ref['grad_norms']}, step ms "
+        f"{[round(x, 2) for x in ref['ms']]}, moments "
+        f"{ref['moment_bytes'] / 2**30:.3f} GiB, peak "
+        f"{ref['peak_gib'] if ref['peak_gib'] is None else round(ref['peak_gib'], 2)}"
+        f" GiB; {t_ref:.1f} s with the saves; {smi}")
+    out(f"[tp_train] control (half of each batch): grad norms "
+        f"{ctrl['grad_norms']} (relative gaps "
+        f"{_rel_gaps(ctrl['grad_norms'], ref['grad_norms'])}), first "
+        f"moments {ctrl['vs']['mu']:.3e} and params "
+        f"{ctrl['vs']['params']:.3e} from the full batch's, against the "
+        f"limit {TPT_REF_REL:g}; {smi}")
+    for job in res:
+        for r in job:
+            out(f"[tp_train] {r['name']} rank {r['rank']} {r['coords']}: "
+                f"step ms {[round(st['ms'], 1) for st in r['steps']]}, "
+                f"losses {[st['loss'] for st in r['steps']]}, grad norms "
+                f"{[st['grad_norm'] for st in r['steps']]}; params "
+                f"{r['vs_want']['params']:.3e} and first moments "
+                f"{r['vs_want']['mu']:.3e} from the unsharded run's"
+                + (f", {r['vs_compare']:.3e} from the baseline's"
+                   if "vs_compare" in r else "")
+                + f", moments {r['moment_bytes'] / 2**30:.3f} GiB, params "
+                f"{r['param_bytes'] / 2**30:.3f} GiB, peak "
+                f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 2)}"
+                f" GiB; bytes a step {r['steps'][0]['collectives']['bytes']}"
+                f" (link {r['steps'][0]['collectives']['link_bytes']})")
+    entry["phase_s"] = time.perf_counter() - t0
+    out(f"[tp_train] {len(res[0])} ranks over {list(TPT_MESH)}: ZeRO-1 "
+        f"within {TPT_PAIR_REL:g} of the baseline, both within "
+        f"{TPT_REF_REL:g} of the unsharded run (losses, grad norms, first "
+        f"moments, params), the half-batch control beyond it, moments "
+        f"halved, bytes a "
+        f"step the dry run's stub {stubs}; phase {entry['phase_s']:.2f} s "
+        f"(the ranks' launch, overlapping the unsharded run, {launch_s:.2f} "
+        f"s); {smi}")
+    return entry
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -5137,6 +5359,11 @@ def run(tuning_dir: str) -> int:
                              if p.startswith("tp ")
                              and not p.endswith("unsharded")}
     lap("15 tp")
+    # ------------------------------------------------------ 16. tp_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["tp_train"] = tpt_phase(dev, smi)
+    lap("16 tp_train")
     report["phase_s"] = phase_s
     out("[times] phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))

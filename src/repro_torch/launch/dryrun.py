@@ -17,14 +17,14 @@ TPU pod.  For each cell the step runs eagerly on meta tensors under
     attention kernel keeps in shared memory).
 
 The step of each kind:
-  * train: ``value_and_grad(model.forward)`` then ``optim.update`` (the
-    port's ``TrainRunner`` step, called directly: its NaN guard reads the
-    loss on the host) with f32 params and AdamW.  With k > 1 microbatches
-    the grads of each microbatch are summed into an f32 accumulator, as
-    the reference's dry run does; k follows its rule: start at
-    max(1, rows / 4) and double until the peak fits or k reaches the
-    rows.  On meta every microbatch is the same, so two run and the rest
-    are counted as the second;
+  * train: ``launch/tp_train.py``'s ``train_step`` (``value_and_grad``
+    of ``model.forward``, then ``optim.update``; no NaN guard, which reads
+    the loss on the host) with f32 params and AdamW.  With k > 1
+    microbatches the grads of each microbatch are summed into an f32
+    accumulator, as the reference's dry run does; k follows its rule:
+    start at max(1, rows / 4) and double until the peak fits or k reaches
+    the rows.  On meta every microbatch is the same, so two run and the
+    rest are counted as the second (``_DryMeter``);
   * prefill: ``model.prefill`` on the params as the serving engine holds
     them (``compute_params``: the compute dtype) and a cache of
     ``seq_len`` slots;
@@ -44,16 +44,19 @@ rank's shards (``partition.params_pspecs``, ``make_cache_pspec_fn``),
 its rows the batch over the batch axes, and the collectives the runtime
 calls are counted by kind, axis and bytes (a sequence-cut KV cache's
 decode among them: its query heads and softmax partials gathered per
-slot and layer).  The collective term prices each axis's ring link bytes
-(all-reduce 2(m-1)/m, all-gather (m-1)/m) at NVLink's rate when the
-axis's group fits one 8-GPU node, else at the network's
-(``launch/mesh.py``).  An encoder-decoder decode state's cross-KV is the
-rank's kv heads, as the runtime projects it (``make_cache_pspec_fn``
-cuts its batch only).  What the runtime does not shard (a Mamba2
-component that does not divide the ``ssm`` axis; a KV cache whose heads
-and slots both do not divide; a cache whose layers the batch rule takes
-for its rows) is a ``skip`` with the reason and its spec-derived
-per-device bytes.
+slot and layer; a train step's grads all-reduced per microbatch, once
+under ``grad_unreduced``, or under ``zero1`` reduce-scattered into
+``partition.zero1_specs``, where its moments live, 1/dp of them a rank,
+and the updated params all-gathered once). The collective term prices
+each axis's ring link bytes (all-reduce 2(m-1)/m, all-gather and
+reduce-scatter (m-1)/m) at NVLink's rate when the axis's group fits one
+8-GPU node, else at the network's (``launch/mesh.py``). An
+encoder-decoder decode state's cross-KV is the rank's kv heads, as the
+runtime projects it
+(``make_cache_pspec_fn`` cuts its batch only). What the runtime does not
+shard (a Mamba2 component that does not divide the ``ssm`` axis; a KV
+cache whose heads and slots both do not divide) is a ``skip`` with the
+reason and its spec-derived per-device bytes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
@@ -68,6 +71,7 @@ constant changes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -82,7 +86,7 @@ import torch
 from repro_torch import optim
 from repro_torch.configs import ARCH_NAMES, SHAPES, applicable, get_config
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.launch import partition, spmd
+from repro_torch.launch import partition, spmd, tp_train
 from repro_torch.launch.mesh import (GPUS_PER_NODE, NET_BW, NVLINK_BW,
                                      make_mesh, make_production_mesh)
 from repro_torch.launch.op_analysis import OpAnalysis, OpStats
@@ -91,8 +95,7 @@ from repro_torch.models import (build_model, compute_params,
                                 decode_state_specs, params_specs,
                                 prefill_batch_specs, train_batch_specs)
 from repro_torch.obs.logging import configure as obs_configure, get_logger
-from repro_torch.train.runner import value_and_grad
-from repro_torch.viscosity.lang import tree_leaves, tree_map
+from repro_torch.viscosity.lang import tree_leaves
 
 log = get_logger("launch.dryrun")
 
@@ -229,52 +232,56 @@ def _within_node(mesh, axis) -> bool:
                 for r in spmd.devices_spanned(mesh, axis)}) == 1
 
 
+class _DryMeter:
+    """``tp_train.train_step``'s meter on meta, where the step runs two
+    of the k microbatches (every microbatch is the same there): each part
+    is counted, and the second's counts and collectives stand for the
+    k - 1 after the first."""
+
+    def __init__(self, oa: OpAnalysis, params, k: int):
+        self.oa, self.params, self.k = oa, params, k
+        self.log = spmd.collective_log()
+        self.st: Dict[Any, OpStats] = {}
+        self.before = None
+
+    @contextlib.contextmanager
+    def span(self, name: str, i: Optional[int]):
+        if name == "grads" and i == 1 and self.log is not None:
+            self.before = self.log.copy()
+        with self.oa.counting() as st:
+            if name == "grads":
+                self.oa.read_once(self.params)
+            yield
+        self.st[(name, i)] = st
+        if name == "accumulate" and i == 1 and self.log is not None:
+            self.log.repeat_since(self.before, self.k - 2)
+
+    def total(self) -> OpStats:
+        first = self.st[("grads", 0)].scaled_add(self.st[("accumulate", 0)])
+        if self.k > 1:
+            first = first.scaled_add(self.st[("grads", 1)].scaled_add(
+                self.st[("accumulate", 1)]), self.k - 1)
+        return first.scaled_add(self.st[("update", None)])
+
+
 def _train_step(oa: OpAnalysis, model, params, opt, cfg, rows, S, k, *,
-                sync_each: bool = True, specs=None):
-    """k microbatches of rows / k; returns the step's OpStats.  Under
-    ``spmd`` each microbatch's grads are summed over the batch axes
-    (``sync_each``, the reference's baseline) or the accumulated grads
-    once (its ``grad_unreduced``), and the clip's norm is the global one
+                grad_unreduced: bool = False, zero1: bool = False,
+                specs=None):
+    """``tp_train.train_step`` on meta, k microbatches of rows / k: the
+    step takes two of them (one when k = 1) and ``_DryMeter`` counts the
+    rest; returns the step's OpStats.  Under ``spmd`` the grads are
+    reduced as ``grad_unreduced`` and ``zero1`` say (``opt`` then
+    ``tp_train.init_opt``'s) and the clip's norm is the global one
     (``specs``: the params' PartitionSpecs)."""
-    ocfg = optim.AdamWConfig()
-    mb = train_batch_specs(cfg, rows // k, S)
-    log = spmd.collective_log()
-
-    def grads_of():
-        with oa.counting() as st:
-            oa.read_once(params)
-            _, grads = value_and_grad(model.forward, params, mb)
-            if sync_each:
-                spmd.sync_grads(grads)
-        return st, grads
-
-    st1, grads = grads_of()
-    total = st1
-    if k > 1:
-        with oa.counting() as st:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
-            torch._foreach_add_(tree_leaves(acc), tree_leaves(grads))
-        total = total.scaled_add(st)
-        del grads
-        before = log.copy() if log is not None else None
-        st2, grads = grads_of()
-        with oa.counting() as st:
-            torch._foreach_add_(tree_leaves(acc), tree_leaves(grads))
-        del grads
-        if log is not None:
-            log.repeat_since(before, k - 2)
-        total = total.scaled_add(st2.scaled_add(st), k - 1)
-        with oa.counting() as st:
-            torch._foreach_div_(tree_leaves(acc), float(k))
-        total = total.scaled_add(st)
-        grads = acc
-        del acc
-    with oa.counting() as st:
-        if not sync_each:
-            spmd.sync_grads(grads)
-        optim.update(ocfg, grads, opt, params, specs=specs)
-    return total.scaled_add(st)
+    if rows % k:
+        raise ValueError(f"{rows} rows do not cut into {k} microbatches")
+    meter = _DryMeter(oa, params, k)
+    runs = min(k, 2)
+    tp_train.train_step(model, optim.AdamWConfig(), params, opt,
+                        train_batch_specs(cfg, rows // k * runs, S),
+                        specs=specs, k=runs, grad_unreduced=grad_unreduced,
+                        zero1=zero1, meter=meter)
+    return meter.total()
 
 
 def _local(tree, specs, mesh):
@@ -297,9 +304,11 @@ def _cross_kv_specs(cfg, specs, rules, mesh):
     return type(specs)(PartitionSpec(*s[:-2], ax, s[-1]) for s in specs)
 
 
-def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, rules, axes):
-    """The rank's params (and optimiser state) or serving params and
-    cache, as meta shards of the specs, and the params' specs; raises
+def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, rules, axes,
+                    zero1: bool = False):
+    """The rank's params (and optimiser state: under ``zero1`` its
+    moments at ``partition.zero1_specs``, 1/dp of them) or serving params
+    and cache, as meta shards of the specs, and the params' specs; raises
     ``SkipCell`` with their bytes where the runtime does not shard the
     cell (``spmd.check_runtime``, ``spmd.cache_specs``)."""
     p_full = params_specs(model)
@@ -308,7 +317,8 @@ def _sharded_inputs(cfg, model, shape: ShapeSpec, mesh, rules, axes):
     B, S = shape.global_batch, shape.seq_len
     opt = cache = None
     if shape.kind == "train":
-        opt = optim.init(params)
+        with spmd.spmd(mesh, rules, axes):
+            opt = tp_train.init_opt(params, pspecs, zero1=zero1)
     else:
         params = compute_params(params, model.compute_dtype)
         full = (prefill_batch_specs(cfg, model, B, S)["cache"]
@@ -341,18 +351,20 @@ def analyze_cell(cfg, shape: ShapeSpec, chips: int = 1,
                  microbatch: Optional[int] = None, *, mesh=None,
                  rules: Optional[Mapping[str, Any]] = None,
                  axes: Optional[Mapping[str, Any]] = None,
-                 grad_unreduced: bool = False) -> Dict[str, Any]:
+                 grad_unreduced: bool = False,
+                 zero1: bool = False) -> Dict[str, Any]:
     """One cell's record (no cache, no status): the step of
     ``shape.kind`` at ``max(1, B // chips)`` rows on meta, or with
     ``mesh`` one rank's local step under the tensor-parallel runtime
     (``rules``/``axes``: a variant's, else ``rules_for`` and
-    ``DEFAULT_AXES``)."""
+    ``DEFAULT_AXES``; ``grad_unreduced`` and ``zero1`` the step's grad
+    reduction, ``tp_train.train_step``)."""
     ok, why = applicable(cfg, shape)
     if not ok:
         raise SkipCell(why)
     if mesh is not None:
         return _analyze_sharded(cfg, shape, mesh, microbatch, rules, axes,
-                                grad_unreduced)
+                                grad_unreduced, zero1)
     model = build_model(cfg)
     rows, S = _rows(shape, chips), shape.seq_len
     p_meta = params_specs(model)
@@ -411,7 +423,7 @@ def analyze_cell(cfg, shape: ShapeSpec, chips: int = 1,
 
 
 def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
-                     grad_unreduced) -> Dict[str, Any]:
+                     grad_unreduced, zero1) -> Dict[str, Any]:
     sizes = mesh_sizes(mesh)
     n_chips = int(np.prod(list(sizes.values())))
     dp = int(np.prod([sizes[a] for a in ("pod", "data") if a in sizes]))
@@ -435,10 +447,11 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
         "params": _count(p_meta),
         "active_params": _active_params(cfg, p_meta),
         "model_flops": model_flops(cfg, shape, p_meta),
-        "microbatch": None}
+        "microbatch": None, "grad_unreduced": grad_unreduced or zero1,
+        "zero1": zero1}
     try:
         params, opt, cache, spec_bytes, pspecs = _sharded_inputs(
-            cfg, model, shape, mesh, rules, axes)
+            cfg, model, shape, mesh, rules, axes, zero1)
     except SkipCell as e:
         e.extra = {**rec, **e.extra}
         raise
@@ -464,8 +477,8 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
                 oa.hold(inputs)
                 if shape.kind == "train":
                     st = _train_step(oa, model, params, opt, cfg, rows, S, k,
-                                     sync_each=not grad_unreduced,
-                                     specs=pspecs)
+                                     grad_unreduced=grad_unreduced,
+                                     zero1=zero1, specs=pspecs)
                 else:
                     with oa.counting() as st:
                         oa.read_once(params)
@@ -487,6 +500,7 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
         "bytes_by_kind": log.by_kind("bytes"),
         "link_bytes_by_kind": log.by_kind("link_bytes"),
         "link_bytes_by_axis": log.by_axis("link_bytes"),
+        "link_bytes_by_kind_axis": _by_kind_axis(log),
         "n_by_kind": {kd: n for kd, n in log.by_kind("n").items()},
         "within_node": {ax: _within_node(mesh, tuple(ax.split("+"))
                                          if "+" in ax else ax)
@@ -494,6 +508,14 @@ def _analyze_sharded(cfg, shape: ShapeSpec, mesh, microbatch, rules, axes,
         "entries": log.snapshot()}
     rec.update(_derived(rec, st))
     return rec
+
+
+def _by_kind_axis(log) -> Dict[str, float]:
+    """Link bytes per "kind|axis" (every dtype together)."""
+    out: Dict[str, float] = {}
+    for (kind, ax, _), e in sorted(log.entries.items()):
+        out[f"{kind}|{ax}"] = out.get(f"{kind}|{ax}", 0.0) + e["link_bytes"]
+    return out
 
 
 def _derived(rec: Mapping[str, Any], st: OpStats) -> Dict[str, Any]:
@@ -525,14 +547,14 @@ def run_cell(arch: str, shape_name: str, chips: int = 1,
              axes: Optional[Mapping[str, Any]] = None,
              overrides: Optional[Mapping[str, Any]] = None,
              microbatch: Optional[int] = None,
-             grad_unreduced: bool = False,
+             grad_unreduced: bool = False, zero1: bool = False,
              tag: str = "") -> Dict[str, Any]:
     """The cell's record, from the cache unless ``force`` (a failed cell
     runs again); ``arch`` may be a ``-smoke`` name.  ``mesh`` ("single",
     "multi", "DxM") runs it sharded (``mesh_obj`` a variant's mesh in its
     place, named by ``mesh``); ``rules``, ``axes``, ``overrides`` (config
-    fields), ``microbatch`` and ``grad_unreduced`` are a hillclimb
-    variant's, ``tag`` names its records."""
+    fields), ``microbatch``, ``grad_unreduced`` and ``zero1`` are a
+    hillclimb variant's, ``tag`` names its records."""
     os.makedirs(out_dir, exist_ok=True)
     path = cell_path(out_dir, arch, shape_name, chips, mesh, tag)
     if os.path.exists(path) and not force:
@@ -553,7 +575,8 @@ def run_cell(arch: str, shape_name: str, chips: int = 1,
             mesh_for(mesh) if mesh else None)
         rec.update(analyze_cell(cfg, shapes[shape_name], chips,
                                 microbatch, mesh=m, rules=rules, axes=axes,
-                                grad_unreduced=grad_unreduced))
+                                grad_unreduced=grad_unreduced,
+                                zero1=zero1))
         rec["status"] = "ok"
     except SkipCell as e:
         rec.update({**e.extra, "status": "skip", "reason": str(e)})

@@ -27,9 +27,9 @@ from repro_torch.obs.logging import configure as obs_configure, get_logger
 
 log = get_logger("launch.hillclimb")
 
-# train_kw knobs: what the port's dry-run step does with each
-TRAIN_KNOBS = {"grad_unreduced": True,   # one data all-reduce per step
-               "zero1": False}           # no sharded optimiser state yet
+# train_kw knobs the port's step takes (launch/tp_train.py): one data
+# all-reduce a step; ZeRO-1's moments, 1/dp of them a rank
+TRAIN_KNOBS = ("grad_unreduced", "zero1")
 REMAT_POLICIES = ("none", "full", "dots", "collectives")
 
 
@@ -45,8 +45,8 @@ def check_knobs(v: Mapping[str, Any], cfg) -> None:
     if pol is not None and pol not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {pol!r}: the port's remat knows "
                          f"{REMAT_POLICIES}")
-    for k, val in v.get("train_kw", {}).items():
-        if k not in TRAIN_KNOBS or (val and not TRAIN_KNOBS[k]):
+    for k in v.get("train_kw", {}):
+        if k not in TRAIN_KNOBS:
             raise ValueError(f"train_kw {k!r}: the port's training step "
                              "has no such knob yet (ROADMAP)")
     if v.get("moe_combine_first") and cfg.moe is None:
@@ -70,6 +70,7 @@ def run_variant(arch: str, shape: str, variant: str, *,
         axes=v.get("axes"), overrides=overrides or None,
         microbatch=microbatch or v.get("microbatch"),
         grad_unreduced=bool(v.get("train_kw", {}).get("grad_unreduced")),
+        zero1=bool(v.get("train_kw", {}).get("zero1")),
         tag=f"@{variant}")
 
 

@@ -15,7 +15,10 @@ Indivisible dims fall back to replication (a hillclimb target).
 
 Batch inputs shard over ("pod","data"); decode caches shard batch over
 ("pod","data") and kv-heads over "model" when divisible (else the
-sequence dim).
+sequence dim).  One difference from the reference: a stacked cache with
+as many layers as rows keeps its layers whole (the reference's rule
+takes its layer dim for the batch).  ``zero1_specs`` adds the data axes
+to each leaf's first free dim, the layout of ZeRO-1's AdamW moments.
 
 ``tree_pspecs`` walks nested dicts with the path keys of
 ``jax.tree_util`` (sorted dict keys joined by "/"); ``shard_tree`` cuts a
@@ -159,6 +162,43 @@ def opt_pspecs(opt_state, params_specs):
     return AdamWState(count=P(), mu=params_specs, nu=params_specs)
 
 
+def zero1_spec(spec: P, shape, mesh) -> P:
+    """``spec`` with the data axes (("pod", "data") present in ``mesh``)
+    added on the first dim it leaves whole whose global size they divide,
+    the reference's ZeRO-1 ``_extend`` (``launch/dryrun.py``); unchanged
+    where no such dim is."""
+    sizes = mesh_sizes(mesh)
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if not dp_axes:
+        return spec
+    dp_total = max(1, math.prod(sizes[a] for a in dp_axes))
+    lst = list(spec) + [None] * (len(shape) - len(spec))
+    for i, d in enumerate(shape):
+        if lst[i] is None and d % dp_total == 0:
+            lst[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            break
+    return P(*lst)
+
+
+def zero1_specs(specs, shapes, mesh):
+    """Every leaf's ``zero1_spec``: ``specs`` a tree of PartitionSpecs
+    (``params_pspecs``), ``shapes`` the full tree (tensors or anything
+    with a ``shape``) of the same structure.  The AdamW moments live at
+    these specs under ZeRO-1, each rank holding 1/dp of them."""
+    flat = flatten(shapes)
+    return map_with_path(specs, lambda path, s: zero1_spec(
+        s, tuple(flat[path].shape), mesh))
+
+
+def zero1_dim(spec: P, zspec: P) -> Optional[int]:
+    """The dim ``zero1_spec`` added the data axes on, None when it added
+    none."""
+    for i, z in enumerate(zspec):
+        if (spec[i] if i < len(spec) else None) != z:
+            return i
+    return None
+
+
 # ------------------------------------------------------------- activations
 def batch_pspec(path: str, shape, mesh) -> P:
     sizes = mesh_sizes(mesh)
@@ -186,12 +226,16 @@ def make_cache_pspec_fn(batch: int, mesh, attn_axis="model"):
     def fn(path: str, shape, _mesh) -> P:
         nd = len(shape)
         spec = [None] * nd
-        # find the batch dim (first dim equal to the serving batch)
+        # find the batch dim (first dim equal to the serving batch); a
+        # stacked (L, B, ...) leaf with as many layers as rows keeps its
+        # layers whole: the batch is the dim after them
         b_dim = None
         for i, s in enumerate(shape[:3]):
             if s == batch:
                 b_dim = i
                 break
+        if b_dim == 0 and nd >= 2 and shape[1] == batch:
+            b_dim = 1
         if b_dim is not None and b_axes and _div(batch, total):
             spec[b_dim] = b_axes
         name = path.split("/")[-1]

@@ -44,8 +44,10 @@ Communicators:
     the right shape and moves nothing.
 Both record each collective's kind, axis, dtype and bytes
 (``CollectiveLog``): the payload, and the per-device link bytes of a ring
-(all-reduce 2(m-1)/m of the payload, all-gather (m-1)/m of its output),
-as the reference's ``hlo_analysis`` counts them.
+(all-reduce 2(m-1)/m of the payload, all-gather (m-1)/m of its output,
+reduce-scatter (m-1)/m of its input), as the reference's
+``hlo_analysis`` counts them.  ``reduce_scatter`` is ZeRO-1's
+(``launch/tp_train.py``); the models call the four above.
 """
 from __future__ import annotations
 
@@ -144,6 +146,12 @@ class CountingComm:
                      out.numel() * out.element_size(), m)
         return out
 
+    def reduce_scatter(self, x, axis, dim):
+        m = axis_size(self.sizes, axis)
+        self.log.add("reduce-scatter", axis, x.dtype,
+                     x.numel() * x.element_size(), m)
+        return x.narrow(dim, 0, x.shape[dim] // m).clone()
+
 
 class GroupComm:
     """``torch.distributed`` process groups over a mesh whose ranks are
@@ -198,6 +206,20 @@ class GroupComm:
         self.log.add("all-gather", axis, x.dtype,
                      out.numel() * out.element_size(), m)
         return out
+
+    def reduce_scatter(self, x, axis, dim):
+        """The sum over ``axis`` of ``x``, cut along ``dim``: the rank's
+        1/m block (its index along ``axis``)."""
+        m = axis_size(self.sizes, axis)
+        self.log.add("reduce-scatter", axis, x.dtype,
+                     x.numel() * x.element_size(), m)
+        src = x.detach().to("cpu") if self.host else x.detach()
+        # the blocks along dim 0, each contiguous, as the collective takes
+        src = src.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // m,) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        self.dist.reduce_scatter_tensor(out, src, group=self._group(axis))
+        return out.movedim(0, dim).contiguous().to(x.device)
 
 
 # ---------------------------------------------------------------- context
@@ -260,6 +282,28 @@ def spmd(mesh, rules: Mapping[str, Axis], axes: Optional[Mapping] = None,
             yield ctx
     finally:
         _state.ctx = prev
+
+
+def bound(fn):
+    """``fn`` run under the context active now (and its axis rules)
+    wherever it is called: a remat body that autograd recomputes in the
+    backward, which on the card runs on a device thread where the
+    thread-local context is not set.  ``fn`` itself outside ``spmd``."""
+    c = current()
+    if c is None:
+        return fn
+
+    def run(*args, **kwargs):
+        if current() is c:
+            return fn(*args, **kwargs)
+        prev = current()
+        _state.ctx = c
+        try:
+            with axis_rules(c.rules, c.mesh):
+                return fn(*args, **kwargs)
+        finally:
+            _state.ctx = prev
+    return run
 
 
 def logical_sizes(cfg) -> Dict[str, int]:
@@ -635,9 +679,9 @@ def cache_specs(model, batch: int, max_len: int):
     """The PartitionSpecs of ``model``'s serving cache (``make_cache_pspec
     _fn`` over this rank's mesh): a KV cache's kv heads, or its slots where
     the heads do not divide (``kv_seq_axis``: decode combines the ranks'
-    partial softmaxes).  Raises ``NotImplementedError`` where the runtime
-    cannot serve them: a leaf whose layers the rule takes for the batch
-    (as many layers as rows), a KV cache whose heads and slots both do not
+    partial softmaxes).  A stacked cache's layers stay whole, as many as
+    its rows included.  Raises ``NotImplementedError`` where the runtime
+    cannot serve them: a KV cache whose heads and slots both do not
     divide, or a recurrent state cut otherwise than its writer."""
     c = current()
     meta = model.init_cache(batch, max_len, device=torch.device("meta"))
@@ -650,12 +694,6 @@ def cache_specs(model, batch: int, max_len: int):
     for path, spec in partition.flatten(specs).items():
         name = path.split("/")[-1]
         shape = flat_meta[path].shape
-        if spec and c.size(spec[0]) > 1:
-            raise NotImplementedError(
-                f"cache leaf {path} {tuple(shape)}: make_cache_pspec_fn "
-                f"takes its first dim equal to the batch ({batch}) for the "
-                f"batch dim, here its {shape[0]} layers, and cuts them over "
-                f"{spec[0]!r}; the runtime does not cut a cache's layers")
         if name in ("k", "v") and m > 1 and shape[-2] % m \
                 and spec[-3] is None:
             raise NotImplementedError(
@@ -749,7 +787,8 @@ def devices_spanned(mesh, axis: Axis) -> List[int]:
 
 
 __all__ = ["CollectiveLog", "CountingComm", "GroupComm", "SpmdContext",
-           "AttnShard", "spmd", "current", "logical_sizes", "reduce_over",
+           "AttnShard", "spmd", "current", "bound", "logical_sizes",
+           "reduce_over",
            "replicate_over", "gather_over", "scatter_over", "reshard",
            "ffn_axis", "vocab_axis", "expert_axis", "axis_offset",
            "leaf_axis", "cache_axis", "kv_seq_axis", "axis_ranks",

@@ -570,18 +570,29 @@ def launch_jobs(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
     its stderr."""
     world = int(np.prod(mesh_shape))
     port = free_port()
+    args = [json.dumps({"jobs": list(jobs), "rank": rank, "world": world,
+                        "port": port, "mesh": list(mesh_shape),
+                        "backend": backend, "device": device})
+            for rank in range(world)]
+    results = run_ranks(WORKER, args, timeout=timeout, src=src, env=env)
+    return [[r[i] for r in results] for i in range(len(jobs))]
+
+
+def run_ranks(worker: str, args: Sequence[str], *, timeout: float = 600.0,
+              src: Optional[str] = None, env=None) -> List[Any]:
+    """Start ``python -c worker src arg`` for each of ``args`` (one rank
+    each, ``src`` on ``PYTHONPATH``), wait for all and return each rank's
+    last ``RESULT {json}`` line, parsed, in rank order.  A rank that
+    fails, prints no result or outlives ``timeout`` raises with its
+    stderr; every process is gone when this returns."""
     src = src or os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(env or os.environ)
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    procs = []
-    for rank in range(world):
-        arg = json.dumps({"jobs": list(jobs), "rank": rank, "world": world,
-                          "port": port, "mesh": list(mesh_shape),
-                          "backend": backend, "device": device})
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", WORKER, src, arg], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", worker, src, arg], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arg in args]
     results, failures = [], []
     t0 = time.perf_counter()
     try:
@@ -606,8 +617,7 @@ def launch_jobs(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
     if failures:
         raise RuntimeError("tensor-parallel ranks failed:\n"
                            + "\n".join(failures))
-    results.sort(key=lambda per_job: per_job[0]["rank"])
-    return [[r[i] for r in results] for i in range(len(jobs))]
+    return results
 
 
 def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",

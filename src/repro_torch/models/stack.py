@@ -10,6 +10,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import spmd
 from repro_torch.models.blocks import CHECKPOINT_NAME
 
 
@@ -56,6 +57,10 @@ def remat(cfg: ModelConfig, body, x: torch.Tensor):
             create_selective_checkpoint_contexts, policy)
     elif cfg.remat_policy != "full":
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    # the recompute runs in the backward, on the card on autograd's device
+    # thread: it re-enters the forward's tensor-parallel context
+    body = spmd.bound(body)
 
     def wrapped(*args):
         return checkpoint(body, *args, use_reentrant=False, **kw)

@@ -11,8 +11,9 @@ case names a reduced config (optionally cut to ``layers``), a
 ``partition.packed_layout``), a route, optionally the param axes
 (``partition.DEFAULT_AXES`` by default) and what to run (prefill +
 teacher-forced decode, with the collectives of each decode step and the
-cache's leaf shapes; a train step's loss and gradients, the AdamW update
-those gradients make under a clip that binds, the teacher-forced logits);
+cache's leaf shapes; a train step's loss and gradients, the step of
+``launch/tp_train.py`` on the same batch under a clip that binds, its
+ZeRO-1 step with ``k`` microbatches, the teacher-forced logits);
 an encoder-decoder config takes ``frames`` stub frame embeddings and
 runs the encoder, prefill (keeping the cross-KV) and decode, and the
 train step.  The rank runs it on its shards under ``launch.spmd.spmd``
@@ -138,14 +139,30 @@ def run_case(case, mesh, coords):
         out["loss"], out["metrics"], out["grads"] = loss, metrics, grads
         if "update" in case["run"]:
             from repro_torch import optim
+            from repro_torch.launch import tp_train
             params = partition.map_with_path(local, lambda _, t: t.clone())
-            state = optim.init(params)
-            _, state, stats = optim.update(
-                optim.AdamWConfig(clip_norm=case["clip"], eps=case["eps"]),
-                partition.map_with_path(grads, lambda _, t: t.clone()),
-                state, params, specs=specs)
+            state = tp_train.init_opt(params, specs)
+            _, state, stats = tp_train.train_step(
+                model, optim.AdamWConfig(clip_norm=case["clip"],
+                                         eps=case["eps"]),
+                params, state, {"tokens": toks, "targets": tgt},
+                specs=specs)
             out["update"] = {"params": params, "mu": state.mu,
                              "nu": state.nu, "grad_norm": stats["grad_norm"]}
+    if "zero1" in case["run"]:
+        from repro_torch import optim
+        from repro_torch.launch import tp_train
+        toks = _tokens(case["seed"] + 1, (B, P))[rows]
+        tgt = _tokens(case["seed"] + 2, (B, P))[rows]
+        params = partition.map_with_path(local, lambda _, t: t.clone())
+        state = tp_train.init_opt(params, specs, zero1=True)
+        _, state, stats = tp_train.train_step(
+            model, optim.AdamWConfig(clip_norm=case["clip"], eps=case["eps"]),
+            params, state, {"tokens": toks, "targets": tgt}, specs=specs,
+            k=case.get("k", 1), zero1=True)
+        out["zero1"] = {"params": params, "mu": state.mu, "nu": state.nu,
+                        "grad_norm": stats["grad_norm"], "loss": stats["loss"],
+                        "moment_bytes": tp_train.moment_bytes(state)}
     if "logits" in case["run"]:
         toks = _tokens(case["seed"] + 3, (B, P))[rows]
         out["logits"] = model.logits_all(local, {"tokens": toks})

@@ -526,3 +526,88 @@ def test_tp_phase_on_the_cpu(monkeypatch, arch, layers, kernels):
     assert set(model["stub_tick_bytes"]) == {"all-reduce", "all-gather"}
     assert all(r["logits_rel_max"] <= chip_smoke.LOGITS_REL
                for r in model["ranks"]) or arch == "rwkv6-1.6b"
+
+
+def test_tp_train_phase_on_the_cpu(monkeypatch):
+    """Phase 16's wiring at the reduced qwen1.5-4b on eight gloo ranks of
+    the CPU over (2, 4): the unsharded steps, the half-batch control, the
+    ranks' baseline and ZeRO-1 jobs from its initial params, and every
+    check the card's run makes (the losses, grad norms, first moments and
+    params against the unsharded run's, params against each other, the
+    control beyond the limit, the moments halved, each step's collective
+    bytes the dry run's)."""
+    from repro_torch.launch.tp_train import TPTrainSpec
+
+    def spec(zero1=False):
+        return TPTrainSpec(**{**chip_smoke.TPT_SPEC, "full": False,
+                              "layers": None, "seq": 16}, zero1=zero1)
+    monkeypatch.setattr(chip_smoke, "tpt_spec", spec)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    entry = chip_smoke.tpt_phase(torch.device("cpu"), "cpu")
+    assert entry["mesh"] == [2, 4] and set(entry["jobs"]) == {"baseline",
+                                                             "zero1"}
+    stubs = entry["stub_bytes"]
+    assert set(stubs["baseline"]) == {"all-reduce", "all-gather"}
+    assert set(stubs["zero1"]) == {"all-reduce", "all-gather",
+                                   "reduce-scatter"}
+    for r in entry["jobs"]["zero1"]:
+        assert r["vs_compare"] <= chip_smoke.TPT_PAIR_REL
+        assert r["opt_count"] == spec().steps
+    for job in entry["jobs"].values():
+        for r in job:
+            assert max(r["vs_want"].values()) <= chip_smoke.TPT_REF_REL
+    assert entry["control"]["vs"]["mu"] > chip_smoke.TPT_REF_REL
+
+
+def test_tp_train_phase_spec_and_its_checks():
+    """Phase 16's cell is the full-width qwen1.5-4b at 4 layers, B = 4,
+    S = 128, over (2, 4), baseline then ZeRO-1 from one initial tree; its
+    checks catch each fault on a synthetic result."""
+    import copy
+    spec = chip_smoke.tpt_spec()
+    cfg = spec.config()
+    assert (cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_size) == \
+        (2560, 6912, 4, get_config("qwen1.5-4b").vocab_size)
+    assert (spec.batch, spec.seq, spec.zero1) == (4, 128, False)
+    assert chip_smoke.tpt_spec(True).zero1
+    jobs = chip_smoke.tpt_jobs("i.pt", "w.pt", "r")
+    assert [(j["name"], j["compare"], j["init"], j["want"], j["ready"])
+            for j in jobs] == [("baseline", None, "i.pt", "w.pt", "r"),
+                               ("zero1", "baseline", "i.pt", "w.pt", None)]
+    stubs = {"baseline": {"all-reduce": 10.0},
+             "zero1": {"all-reduce": 2.0, "reduce-scatter": 8.0}}
+    ref = {"losses": [2.0, 1.5], "grad_norms": [3.0, 2.5]}
+    ctrl = {"grad_norms": [3.3, 2.4], "vs": {"mu": 0.5, "params": 1e-6}}
+
+    def rank(name, r, moments, **kw):
+        out = {"name": name, "rank": r,
+               "vs_want": {"params": 1e-6, "mu": 2e-6},
+               "moment_bytes": moments,
+               "steps": [{"loss": x, "grad_norm": n,
+                          "collectives": {"bytes": stubs[name]}}
+                         for x, n in zip(ref["losses"], ref["grad_norms"])]}
+        return {**out, **kw}
+    good = [[rank("baseline", r, 16) for r in range(8)],
+            [rank("zero1", r, 8, vs_compare=1e-7) for r in range(8)]]
+    assert chip_smoke.tpt_faults(ref, ctrl, good, stubs) == []
+    for breaks, what in (
+            (lambda res: res[1][3].update(vs_compare=2e-5), "baseline's"),
+            (lambda res: res[0][1]["vs_want"].update(params=2e-4),
+             "params"),
+            (lambda res: res[1][4]["vs_want"].update(mu=2e-4), "mu"),
+            (lambda res: res[1][2].update(moment_bytes=16), "not half"),
+            (lambda res: res[0][0]["steps"][1].update(loss=1.6), "losses"),
+            (lambda res: res[1][6]["steps"][0].update(grad_norm=3.01),
+             "grad norms"),
+            (lambda res: res[1][5]["steps"][0].update(
+                collectives={"bytes": stubs["baseline"]}), "stub"),
+            (lambda res: res[0].pop(), "7 ranks")):
+        res = copy.deepcopy(good)
+        breaks(res)
+        bad = chip_smoke.tpt_faults(ref, ctrl, res, stubs)
+        assert bad and what in " ".join(bad), (what, bad)
+    for blind in ({"grad_norms": [3.0001, 2.4], "vs": ctrl["vs"]},
+                  {"grad_norms": ctrl["grad_norms"],
+                   "vs": {"mu": 5e-5, "params": 1e-6}}):
+        bad = chip_smoke.tpt_faults(ref, blind, good, stubs)
+        assert bad and "control" in " ".join(bad), (blind, bad)

@@ -427,6 +427,26 @@ def test_sharded_decode_over_a_cut_cache_is_ok(tmp_path, arch, shape):
     assert coll["all-reduce"] > 0
 
 
+def test_sharded_prefill_with_as_many_cache_layers_as_rows_is_ok(tmp_path):
+    """mixtral-8x7b's prefill_32k at ``--mesh single`` holds 32 rows in a
+    cache of 32 layers; here the reduced one's 4 layers and 4 rows over a
+    data axis of two: the cell runs, the rank's cache keeps every layer
+    and half the rows."""
+    from repro_torch.configs.shapes import ShapeSpec
+    cfg = get_config("mixtral-8x7b-smoke")
+    L = cfg.num_layers
+    shapes = {"prefill_32k": ShapeSpec("prefill_32k", 32, L, "prefill")}
+    rec = dryrun.run_cell("mixtral-8x7b-smoke", "prefill_32k",
+                          out_dir=str(tmp_path), shapes=shapes, mesh="2x2")
+    assert rec["status"] == "ok", rec.get("reason") or rec.get("error")
+    cache = build_model(cfg).init_cache(L, 32, device="meta")
+    whole = sum(t.numel() * t.element_size()
+                for t in dryrun.tree_leaves(cache))
+    # the rows over "data" (2), the kv heads over "model" (2); k and v
+    # carry all but the int32 positions, which the model axis cuts too
+    assert rec["bytes"]["cache"] * 4 == whole
+
+
 def test_hillclimb_base_against_a_variant(tmp_path, capsys):
     """``attn2d`` on the reduced qwen1.5-4b: its mesh, rules and axes
     reach ``run_cell`` as arguments; the table prints; a knob the port
@@ -446,6 +466,7 @@ def test_hillclimb_base_against_a_variant(tmp_path, capsys):
             ).exists()
     hillclimb.compare(base, var, "qwen1.5-4b-smoke/train_4k + attn2d")
     assert "collective_s" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="zero1"):
-        hillclimb.run_variant("qwen1.5-4b-smoke", "train_4k", "zero1",
-                              out_dir=str(tmp_path), shapes=SMOKE_SHAPES)
+    with pytest.raises(ValueError, match="no_such_knob"):
+        hillclimb.check_knobs({"train_kw": {"no_such_knob": True}},
+                              get_config("qwen1.5-4b-smoke"))
+    assert hillclimb.TRAIN_KNOBS == ("grad_unreduced", "zero1")

@@ -116,7 +116,7 @@ def test_casestudy_faults_latency_figures_match(capsys):
 def test_elastic_train(capsys):
     s = _port("elastic_train").main(device="cpu")
     assert _last_line(capsys.readouterr().out).startswith("OK:")
-    assert s["mesh"] == [[8], [4]] and s["quarantined"] == [4, 5, 6, 7]
+    assert s["mesh"] == [[2, 4], [1, 4]] and s["quarantined"] == [4, 5, 6, 7]
     assert s["opt_count"] == 20
     assert [len(x) for x in s["losses"]] == [10, 10]
 

@@ -38,7 +38,7 @@ from repro.models import build_model as ref_build_model
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.convert import params_from_jax
-from repro_torch.launch import dryrun, spmd
+from repro_torch.launch import dryrun, partition, spmd
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -158,12 +158,19 @@ def test_whole_heads_and_slots_that_do_not_divide_are_refused():
 
 
 def test_a_cache_whose_layers_equal_its_rows_is_refused():
-    """``make_cache_pspec_fn`` takes the first dim equal to the batch for
-    the batch dim: a stacked cache of as many layers as rows would have
-    its layers cut over the data axis, which the runtime refuses."""
+    """What is refused is the cut of its layers, no longer the cache:
+    ``make_cache_pspec_fn`` takes a stacked cache's leading dim for its
+    layers when the next dim is the batch too, so a cache of as many
+    layers as rows keeps its layers whole and cuts its rows over the data
+    axis (the reference's rule takes the layers for the batch there, the
+    one difference in ``tests/test_torch_partition.py``)."""
     cfg = get_config("qwen1.5-4b-smoke")
     sizes = {"data": 2, "model": 2}
+    L = cfg.num_layers
     with spmd.spmd(sizes, {}):
-        with pytest.raises(NotImplementedError, match="layers"):
-            spmd.cache_specs(build_model(cfg), cfg.num_layers, 16)
-        spmd.cache_specs(build_model(cfg), 2 * cfg.num_layers, 16)
+        meta, specs = spmd.cache_specs(build_model(cfg), L, 16)
+        for path, spec in partition.flatten(specs).items():
+            assert spec[0] is None and spec[1] == "data", (path, spec)
+        cache = spmd.init_cache(build_model(cfg), L, 16, device="cpu")
+        assert cache["k"].shape[:2] == (L, L // 2)
+        spmd.cache_specs(build_model(cfg), 2 * L, 16)
