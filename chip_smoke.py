@@ -86,8 +86,9 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              (B = 4: the encoder over 1500 frames, the 4-token prompt,
              cross-attention of Sq = 4 and 1 over 1500 keys) and
              gemma3-1b's 1 of 4 query heads over its one kv head at head
-             dim 256 (window 512 at P = 128 and 600, global at P = 600));
-             and its bits: two
+             dim 256 (window 512 at P = 128 and 600, global at P = 600),
+             then zamba2-1.2b's 16 of 32 under ``attn2d`` at P = 16, 128
+             and 384); and its bits: two
              calls, the contiguous (B, H, S, D) copies and
              ``_kernel_path`` agree.
              Then SwiGLU (qwen1.5-4b 2560 -> 6912: M in {1, 4, 200}; its
@@ -276,16 +277,16 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              repro_torch.obs.report``, whose MTTR and goodput must equal
              the campaigns' own summaries (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
-11. zoo    — mistral-nemo-12b (10 of 40 layers), mixtral-8x7b (8 of 32:
+11. zoo    — mistral-nemo-12b (6 of 40 layers), mixtral-8x7b (4 of 32:
              8 experts top-2, a 4096-token window on every layer),
-             llama4-scout-17b-a16e (6 of 48: 16 experts top-1 and a
+             llama4-scout-17b-a16e (4 of 48: 16 experts top-1 and a
              shared expert), gemma2-2b (8 of 26: head dim 256, local
              and global layers in turn, both softcaps, post-norms, GeGLU),
-             gemma3-1b (12 of 26: two groups of five local layers of
+             gemma3-1b (6 of 26: one group of five local layers of
              window 512 and rope theta 1e4 to one global of 1e6, qk-norm,
              GQA 4 -> 1) and qwen2-vl-7b (8 of 28: M-RoPE, QKV biases,
-             an untied head) at full width (the dense ones at about a
-             quarter to half of their depth), each built (weights
+             an untied head) at full width (the dense ones at a quarter
+             of their depth or less), each built (weights
              drawn straight into bf16 by the port's own init; gemma3-1b's
              must carry its qk-norm scales), served and freed in turn, its
              peak memory printed.
@@ -399,9 +400,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              heads, its one kv head's K/V gathered, a quarter of every
              cache's slots, each decode step combining the ranks' softmax
              partials; prompts of 600-640 tokens wrap the local rings of
-             512; ``swiglu_mlp``).  First this process serves the
-             same workload on one unsharded HW engine of the same weights
-             (whisper: the same ``drive_encdec`` unsharded).
+             512; ``swiglu_mlp``).  Then zamba2-1.2b once more, under
+             the ``attn2d`` variant over (1, 2, 2) ("data", "model_h",
+             "model_f") on the same ranks (``TP_JOBS``): its cache cut
+             over "model_h", its Mamba2 params over both axes, so every
+             layer moves its conv tail (by component) and SSM state
+             between the two cuts; 16 of 64 SSD heads, 16 of 32
+             attention heads, 2048 of 8192 d_ff columns.  First this
+             process serves each model's workload on one unsharded HW
+             engine of the same weights (whisper: the same
+             ``drive_encdec`` unsharded; the ``attn2d`` job reads its
+             (1, 4) job's run).
              Checks: every rank emits the same tokens; each rank's
              gathered logits within ``LOGITS_REL`` of the unsharded
              engine's at every prefill and tick before the fault (the
@@ -420,7 +429,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              rank's shapes; each rank's cache holds a quarter of the
              unsharded one's kv heads, or of its slots where the kv heads
              do not divide (gemma3-1b), and whisper's cross-KV a quarter
-             of the kv heads; each
+             of the kv heads (under ``attn2d`` a half of the kv heads,
+             the conv channels and the SSM heads); each
              tick's collective bytes on the process group equal the dry
              run's counting stub for the same cell and depth.  Each rank's
              prefill and tick ms print, and the phase's seconds with the
@@ -596,6 +606,15 @@ TP_WHISPER_GEMMA3_ATTN_CASES = (
      dict(causal=True, window=512)),
     (1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT, 1, 1, 256, 256,
      dict(causal=True)),
+)
+# The rank shapes phase 15's zamba2-1.2b under ``attn2d`` adds, held after
+# every case above: its shared block's 16 of 32 heads of 64 (the heads on
+# "model_h", 2 ways) at the workload's shortest and longest prompts and at
+# the unsharded serve's P = 384
+TP_ATTN2D_ATTN_CASES = (
+    (1, 16, 16, 16, 16, 64, 64, dict(causal=True)),
+    (1, 128, 128, 16, 16, 64, 64, dict(causal=True)),
+    (1, 384, 384, 16, 16, 64, 64, dict(causal=True)),
 )
 SWIGLU_TOL = (2e-2, 2e-2)
 # The SSD kernel and its plain version compute y and the state in f32 from
@@ -2364,14 +2383,15 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
 # (arch, layers served, fault stage).  Each is built, served and freed in
 # turn.
 # (arch, layers served, fault stage): the dense models cut, mistral-nemo-
-# 12b, gemma2-2b and qwen2-vl-7b to about a quarter of their depth, which
-# pays for phase 16: their ticks are host-bound and scale with depth;
-# gemma2-2b keeps its alternation and gemma3-1b two whole 5:1 groups
-ZOO = (("mistral-nemo-12b", 10, "swiglu_mlp"),
-       ("mixtral-8x7b", 8, "flash_attention"),
-       ("llama4-scout-17b-a16e", 6, "flash_attention"),
+# 12b, gemma2-2b and qwen2-vl-7b to about a quarter of their depth or
+# less, which pays for phase 16 and phase 15's ``attn2d`` job: their ticks
+# are host-bound and scale with depth; gemma2-2b keeps its alternation,
+# gemma3-1b one whole 5:1 group, the MoE models four and four layers
+ZOO = (("mistral-nemo-12b", 6, "swiglu_mlp"),
+       ("mixtral-8x7b", 4, "flash_attention"),
+       ("llama4-scout-17b-a16e", 4, "flash_attention"),
        ("gemma2-2b", 8, "flash_attention"),
-       ("gemma3-1b", 12, "swiglu_mlp"),
+       ("gemma3-1b", 6, "swiglu_mlp"),
        ("qwen2-vl-7b", 8, "flash_attention"))
 ZOO_WORKLOAD = dict(min_prompt=16, max_prompt=128, min_new=8, max_new=16,
                     arrival_every=2, per_arrival=2)
@@ -3406,7 +3426,8 @@ def _run_examples(cfg, t1, outputs, t0, timeout):
     return entry, ended, {name: p.returncode for name, (p, _) in procs.items()}
 
 
-# Phase 15: tensor-parallel serving over a (1, 4) ("data", "model") mesh:
+# Phase 15: tensor-parallel serving over a (1, 4) ("data", "model") mesh
+# (and zamba2-1.2b again over ``attn2d``'s (1, 2, 2), TP_JOBS):
 # four gloo ranks on the one card, each serving its shard of one model
 # after another through ``ServeEngine`` under ``launch/spmd.py`` (seeded
 # bf16 weights cut by ``partition.shard_tree``, Mamba2's packed leaves by
@@ -3425,6 +3446,15 @@ def _run_examples(cfg, t1, outputs, t0, timeout):
 TP_MESH = (1, 4)
 TP_LAYERS = {"qwen1.5-4b": 4, "zamba2-1.2b": 6, "rwkv6-1.6b": 3,
              "whisper-base": None, "gemma3-1b": 6}
+# zamba2-1.2b again under the ``attn2d`` variant over (1, 2, 2) ("data",
+# "model_h", "model_f"), on the same ranks: its cache cut over "model_h"
+# (2 ways), its Mamba2 params over both (4 ways), so every layer moves its
+# conv tail and SSM state between the two cuts; 16 of 64 SSD heads, 16 of
+# 32 attention heads ("model_h"), 2048 of 8192 d_ff columns.  The same
+# workload, weights, route and fault as its (1, 4) job, whose unsharded
+# run it shares.
+TP_VARIANT_MESH = (1, 2, 2)
+TP_JOBS = tuple((a, None) for a in TP_LAYERS) + (("zamba2-1.2b", "attn2d"),)
 TP_FAULT_STEP, TP_FAULT_RANK = 6, 1
 TP_WORKLOAD = dict(requests=4, slots=4, min_prompt=16, max_prompt=128,
                    min_new=8, max_new=14, arrival_every=1, per_arrival=2)
@@ -3440,46 +3470,75 @@ TP_WORKLOADS = {
 TP_TIMEOUT_S = 300
 
 
-def tp_spec(arch: str = "qwen1.5-4b"):
+def tp_spec(arch: str = "qwen1.5-4b", variant=None):
     from repro_torch.launch.tp_serve import TPServeSpec
     from repro_torch.viscosity import HW
     return TPServeSpec(arch=arch, full=True, layers=TP_LAYERS[arch],
                        dtype="bfloat16", seed=0, hw_route=HW,
                        fault_step=TP_FAULT_STEP, fault_rank=TP_FAULT_RANK,
+                       variant=variant,
                        **TP_WORKLOADS.get(arch, TP_WORKLOAD))
+
+
+def tp_name(arch: str, variant=None) -> str:
+    """A phase-15 job's name: the arch, and its variant after an "@"."""
+    return arch if variant is None else f"{arch}@{variant}"
+
+
+def tp_mesh(variant=None):
+    """A job's mesh on meta: (1, 4) ("data", "model"), or (1, 2, 2) over
+    its variant's axes."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.tp_serve import mesh_axes_of
+    return make_mesh(TP_VARIANT_MESH if variant else TP_MESH,
+                     mesh_axes_of(variant),
+                     devices=[torch.device("meta")] * 4)
 
 
 def tp_collectives_stub(spec):
     """The dry run's counting stub for one tick of the same cell and
     depth: a decode step over the pool's slots at its max_len, one rank
-    of the (1, 4) mesh on meta.  Returns its bytes by kind."""
-    import torch
-
+    of the job's mesh (its rules and param axes) on meta.  Returns its
+    bytes by kind."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.tp_serve import layout_of
+    cfg, mesh = spec.config(), tp_mesh(spec.variant)
+    rules, axes = layout_of(spec.variant, cfg, mesh)
     rec = dryrun.analyze_cell(
-        spec.config(), ShapeSpec("tp_tick", spec.max_len, spec.slots,
-                                 "decode"),
-        mesh=make_mesh(TP_MESH, ("data", "model"),
-                       devices=[torch.device("meta")] * 4))
+        cfg, ShapeSpec("tp_tick", spec.max_len, spec.slots, "decode"),
+        mesh=mesh, rules=rules, axes=axes)
     return rec["collectives"]["bytes_by_kind"]
 
 
-def tp_local_shapes(cfg):
-    """What one rank of the (1, 4) mesh holds of ``cfg``: its attention
-    heads and kv heads (every kv head where they do not divide: their
-    K/V are gathered), its d_ff columns, its SSD or WKV heads."""
-    m = TP_MESH[1]
-    n_kv = cfg.num_kv_heads
-    out = {"heads": cfg.num_heads // m,
-           "kv_heads": n_kv // m if n_kv % m == 0 else n_kv,
-           "d_ff": cfg.d_ff // m}
-    if cfg.family == "hybrid":
-        out["ssd_heads"] = cfg.ssm.expand * cfg.d_model // \
-            cfg.ssm.head_dim // m
-    elif cfg.family == "ssm":
-        out["wkv_heads"] = cfg.d_model // cfg.ssm.rwkv_head_dim // m
+def tp_local_shapes(cfg, variant=None):
+    """What one rank of the job's mesh holds of ``cfg`` (``tp_mesh``: (1,
+    4), or (1, 2, 2) under ``variant``): its attention heads and kv heads
+    (every kv head where they do not divide: their K/V are gathered), its
+    d_ff columns, its SSD or WKV heads; and the ranks its cache's kv
+    heads or slots, positions and recurrent states are cut over (the
+    ``attn`` axis)."""
+    from repro_torch.launch import spmd
+    from repro_torch.launch.tp_serve import layout_of
+    mesh = tp_mesh(variant)
+    rules, axes = layout_of(variant, cfg, mesh)
+    with spmd.spmd(mesh, rules, axes) as c:
+        def cut(n, ax):
+            return n // c.size(ax)
+        n_kv = cfg.num_kv_heads
+        out = {"heads": cut(cfg.num_heads, c.rule_axis("heads",
+                                                      cfg.num_heads)),
+               "kv_heads": cut(n_kv, c.rule_axis("kv_heads", n_kv)),
+               "d_ff": cut(cfg.d_ff, c.param_axis("ffn", cfg.d_ff)),
+               "cache_ranks": c.size(axes["attn"])}
+        if cfg.family == "hybrid":
+            n = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+            out["ssd_heads"] = cut(n, c.param_axis("ssm", n))
+        elif cfg.family == "ssm":
+            n = cfg.d_model // cfg.ssm.rwkv_head_dim
+            out["wkv_heads"] = cut(n, c.param_axis("attn", cfg.d_model))
     return out
 
 
@@ -3510,11 +3569,11 @@ def tp_want_launches(cfg, stage, rank, n_pre, n_pre_before, n_before,
     return want
 
 
-def tp_shape_faults(cfg, shapes):
+def tp_shape_faults(cfg, shapes, variant=None):
     """What of a rank's recorded kernel shapes is not its shard's (empty
     when every served call ran at the rank's shapes)."""
     from repro_torch.train.runner import canary_stages
-    loc, bad = tp_local_shapes(cfg), []
+    loc, bad = tp_local_shapes(cfg, variant), []
     if cfg.family != "ssm":
         # the canary's probe (B, S, H, D) ports as the kernel sees them
         probe = [[list(p.shape[i] for i in (0, 2, 1, 3)) for p in st.ports[:2]]
@@ -3551,15 +3610,18 @@ def tp_shape_faults(cfg, shapes):
 
 def tp_cache_faults(spec, shapes):
     """What of a rank's cache (``shapes``: its leaves' shapes by path) is
-    not its quarter of the unsharded one's: each KV leaf's kv heads, or
-    its slots where the kv heads do not divide the model axis, the
-    positions' slots where they divide it, and an encoder-decoder model's
-    cross-KV's kv heads (empty when all are)."""
+    not its share of the unsharded one's over the cache's axis (a
+    quarter over (1, 4), a half over ``attn2d``'s "model_h"): each KV
+    leaf's kv heads, or its slots where the kv heads do not divide the
+    axis, the positions' slots where they divide it, an encoder-decoder
+    model's cross-KV's kv heads, and Mamba2's conv channels and SSM heads
+    (empty when all are)."""
     import torch
 
     from repro_torch.launch import partition
     from repro_torch.models import build_model
-    cfg, m, meta = spec.config(), TP_MESH[1], torch.device("meta")
+    cfg, meta = spec.config(), torch.device("meta")
+    m = tp_local_shapes(cfg, spec.variant)["cache_ranks"]
     rows = spec.requests if cfg.is_encdec else spec.slots
     full = build_model(cfg).init_cache(rows, spec.max_len, device=meta)
     if cfg.is_encdec:
@@ -3574,6 +3636,8 @@ def tp_cache_faults(spec, shapes):
             want[-1] //= m if want[-1] % m == 0 else 1
         elif name in ("k", "v") or path.startswith("cross"):
             want[-2 if cfg.num_kv_heads % m == 0 else -3] //= m
+        elif name in ("conv", "ssm"):
+            want[-1 if name == "conv" else -3] //= m
         else:
             continue
         if shapes.get(path) != want:
@@ -3628,21 +3692,29 @@ def tp_rwkv_reference(spec, dev, path):
     return logits
 
 
-def tp_reference(arch, dev, wrappers, tmp: str):
+def tp_reference(arch, dev, wrappers, tmp: str, variant=None, shared=None):
     """Phase 15's unsharded run of one model, in this process, before the
     ranks: the unsharded HW engine of the same weights (whisper-base:
     ``drive_encdec`` unsharded) serves the same workload; its logits, call
     by call, are what each rank's gathered logits are held to before the
     fault (rwkv6-1.6b: also ``tp_rwkv_reference``).  Returns the model's
-    job for the ranks (its files under ``tmp``), the run's launches, the
-    rwkv6-1.6b references and the run's seconds."""
+    job for the ranks (its files under ``tmp``; under ``variant``, on
+    ``TP_VARIANT_MESH``), the run's launches, the rwkv6-1.6b references
+    and the run's seconds.  ``shared``: the ``tp_reference`` of the same
+    spec without the variant, whose unsharded run the job reads (nothing
+    runs again; its launches are that run's)."""
     import torch
 
     from repro_torch.launch import tp_serve
 
     t0 = time.perf_counter()
-    spec = tp_spec(arch)
-    d = os.path.join(tmp, arch)
+    spec = tp_spec(arch, variant)
+    mesh = TP_VARIANT_MESH if variant else None
+    if shared is not None:
+        return {**shared, "spec": spec, "ref_s": 0.0, "shared": True,
+                "job": tp_serve.make_job(
+                    spec, mesh=mesh, ref_logits=shared["job"]["ref_logits"])}
+    d = os.path.join(tmp, tp_name(arch, variant))
     os.makedirs(d)
     for w in wrappers.values():
         w.launches = 0
@@ -3656,16 +3728,17 @@ def tp_reference(arch, dev, wrappers, tmp: str):
     gc.collect()
     torch.cuda.empty_cache()
     return {"spec": spec, "dir": d, "ref_launches": ref_launches,
-            "e2e": e2e, "ref_s": time.perf_counter() - t0,
-            "job": tp_serve.make_job(spec, ref_logits=ref_path,
+            "e2e": e2e, "ref_s": time.perf_counter() - t0, "shared": False,
+            "job": tp_serve.make_job(spec, mesh=mesh, ref_logits=ref_path,
                                      out_dir=d if e2e else None,
                                      layer_probe_path=probe)}
 
 
 def tp_model(arch, ref, res, *, count: str):
-    """Phase 15's checks of one model: ``ref`` its ``tp_reference``,
-    ``res`` its four ranks' reports from the phase's launch.  Returns
-    (entry, launches of the ranks, launches of the unsharded run)."""
+    """Phase 15's checks of one job (``arch`` its ``tp_name``): ``ref``
+    its ``tp_reference``, ``res`` its four ranks' reports from the
+    phase's launch.  Returns (entry, launches of the ranks, launches of
+    the unsharded run)."""
     import numpy as np
     import torch
 
@@ -3682,9 +3755,12 @@ def tp_model(arch, ref, res, *, count: str):
     check(not bad, f"tp {arch}: " + "; ".join(bad))
     entry = {"layers": cfg.num_layers, "fault": [TP_FAULT_STEP,
                                                  TP_FAULT_RANK, stage],
+             "variant": spec.variant, "mesh": res[0]["mesh"],
+             "mesh_axes": res[0]["mesh_axes"],
              "stub_tick_bytes": stub, "ranks": [],
              "reference_launches": ref_launches,
-             "local": tp_local_shapes(cfg)}
+             "reference_shared": ref["shared"],
+             "local": tp_local_shapes(cfg, spec.variant)}
     if e2e:
         exact = e2e["f32"]
         scale = exact.abs().max().item()
@@ -3734,12 +3810,12 @@ def tp_model(arch, ref, res, *, count: str):
         got = {k: r[count].get(k, 0) for k in want}
         check(got == want,
               f"tp {arch}: rank {r['rank']} launched {got}, want {want}")
-        shape_bad = tp_shape_faults(cfg, r["kernel_shapes"])
+        shape_bad = tp_shape_faults(cfg, r["kernel_shapes"], spec.variant)
         check(not shape_bad, f"tp {arch}: rank {r['rank']}: "
               + "; ".join(shape_bad))
         cache_bad = tp_cache_faults(spec, r["cache_shapes"])
         check(not cache_bad, f"tp {arch}: rank {r['rank']}'s cache is not "
-              "its quarter: " + "; ".join(cache_bad))
+              "its share: " + "; ".join(cache_bad))
         ticks = [c for c in calls if c["kind"] == "tick"]
         check(ticks and all(c["bytes"] == stub for c in ticks),
               f"tp {arch}: rank {r['rank']}'s collective bytes a tick "
@@ -3786,34 +3862,39 @@ def tp_model(arch, ref, res, *, count: str):
 
 
 def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
-             count: str = "launches", archs=tuple(TP_LAYERS)):
-    """Phase 15 (see the constants above): each model's unsharded run in
-    this process, then one launch of the four ranks, which join their
-    group once and serve the models in turn, then each model's checks.
-    Returns (report entry, {path: launches}: each model's ranks as "tp
-    <arch>" and its unsharded run as "tp <arch> unsharded").  ``count`` is
+             count: str = "launches", jobs=TP_JOBS):
+    """Phase 15 (see the constants above): each job's unsharded run in
+    this process (a variant's job shares its model's), then one launch of
+    the four ranks, which join their group once and serve the jobs in
+    turn, each on its own mesh, then each job's checks.  Returns (report
+    entry, {path: launches}: each job's ranks as "tp <name>" and each
+    unsharded run as "tp <name> unsharded", ``tp_name``).  ``count`` is
     what each rank's kernel counts are read from: its wrappers'
     ``launches``, or on the CPU (where nothing launches) its recorded
     ``kernel_calls``."""
     from repro_torch.launch import tp_serve
     t0 = time.perf_counter()
-    entry = {"mesh": list(TP_MESH), "backend": MH_BACKEND, "models": {},
-             "nvidia_smi": smi}
+    entry = {"mesh": list(TP_MESH), "variant_mesh": list(TP_VARIANT_MESH),
+             "backend": MH_BACKEND, "models": {}, "nvidia_smi": smi}
     paths = {}
+    names = [tp_name(a, v) for a, v in jobs]
     with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
-        refs = {arch: tp_reference(arch, dev, wrappers, tmp)
-                for arch in archs}
+        refs = {}
+        for (arch, variant), name in zip(jobs, names):
+            refs[name] = tp_reference(arch, dev, wrappers, tmp, variant,
+                                      shared=refs.get(arch))
         t_ranks = time.perf_counter()
         res_all = tp_serve.launch_jobs(
-            [refs[a]["job"] for a in archs], TP_MESH, device=dev.type,
-            backend=MH_BACKEND, timeout=timeout * len(archs), src=str(SRC))
+            [refs[n]["job"] for n in names], TP_MESH, device=dev.type,
+            backend=MH_BACKEND, timeout=timeout * len(jobs), src=str(SRC))
         entry["launch_s"] = time.perf_counter() - t_ranks
-        for arch, res in zip(archs, res_all):
-            e, launches, ref_launches = tp_model(arch, refs[arch], res,
+        for name, res in zip(names, res_all):
+            e, launches, ref_launches = tp_model(name, refs[name], res,
                                                  count=count)
-            entry["models"][arch] = e
-            paths[f"tp {arch}"] = launches
-            paths[f"tp {arch} unsharded"] = ref_launches
+            entry["models"][name] = e
+            paths[f"tp {name}"] = launches
+            if not refs[name]["shared"]:
+                paths[f"tp {name} unsharded"] = ref_launches
     entry["phase_s"] = time.perf_counter() - t0
     out(f"[tp] phase {entry['phase_s']:.2f} s (the ranks' launch "
         f"{entry['launch_s']:.2f} s): " + ", ".join(
@@ -4167,13 +4248,15 @@ def run(tuning_dir: str) -> int:
           f"{served_ex}, the parity cases hold {SERVE_EXAMPLE}")
     # phase 15's ranks: qwen1.5-4b's and zamba2-1.2b's heads and d_ff cut
     # four ways (2560 -> 1728, 2048 -> 2048)
-    def rank_config(arch):
+    def rank_config(arch, variant=None):
         c = get_config(arch)
-        loc = tp_local_shapes(c)
+        loc = tp_local_shapes(c, variant)
         return dataclasses.replace(
-            c, name=f"{arch} tp{TP_MESH[1]}", num_heads=loc["heads"],
-            num_kv_heads=loc["kv_heads"], d_ff=loc["d_ff"])
+            c, name=f"{arch} {variant or f'tp{TP_MESH[1]}'}",
+            num_heads=loc["heads"], num_kv_heads=loc["kv_heads"],
+            d_ff=loc["d_ff"])
     qwen_tp, zamba_tp = rank_config("qwen1.5-4b"), rank_config("zamba2-1.2b")
+    zamba_2d = rank_config("zamba2-1.2b", "attn2d")
     whisper_tp, gemma3_tp = (rank_config("whisper-base"),
                              rank_config("gemma3-1b"))
     g3_prompts = range(TP_WORKLOADS["gemma3-1b"]["min_prompt"],
@@ -4203,9 +4286,9 @@ def run(tuning_dir: str) -> int:
     attn_shapes = {(B_, H_, Hkv_, Sq_, Skv_, -(-D_ // 8) * 8, -(-Dv_ // 8) * 8)
                    for B_, Sq_, Skv_, H_, Hkv_, D_, Dv_, _
                    in ATTN_CASES + TP_ATTN_CASES
-                   + TP_WHISPER_GEMMA3_ATTN_CASES}
+                   + TP_WHISPER_GEMMA3_ATTN_CASES + TP_ATTN2D_ATTN_CASES}
     attn_shapes |= {(1, qh, qh, P_, P_, qd, qd) for P_ in range(16, 129)}
-    for c in (qwen_tp, zamba_tp):
+    for c in (qwen_tp, zamba_tp, zamba_2d):
         cd = c.resolved_head_dim
         attn_shapes |= {(1, c.num_heads, c.num_kv_heads, P_, P_, cd, cd)
                         for P_ in range(TP_WORKLOAD["min_prompt"],
@@ -4695,6 +4778,16 @@ def run(tuning_dir: str) -> int:
     swiglu_parity(gemma3_tp.d_model, gemma3_tp.d_ff, (4, TP_GEMMA3_PROMPT),
                   tag=" (tp rank)", act="gelu")
     swiglu_bits(gemma3_tp, TP_GEMMA3_PROMPT, act="gelu")
+    # phase 15's zamba2-1.2b rank under attn2d, after every case above:
+    # attention at its 16 heads (its SSD's 16 heads and its SwiGLU's 2048
+    # -> 2048 -> 2048 are the (1, 4) rank's, held above)
+    check((zamba_2d.d_ff, tp_local_shapes(zamba, "attn2d")["ssd_heads"]) ==
+          (zamba_tp.d_ff, tp_local_shapes(zamba)["ssd_heads"]),
+          f"attn2d rank: d_ff {zamba_2d.d_ff}, SSD heads "
+          f"{tp_local_shapes(zamba, 'attn2d')['ssd_heads']}, not the (1, 4) "
+          "rank's")
+    for B_, Sq, Skv, H, Hkv, D, Dv, kw in TP_ATTN2D_ATTN_CASES:
+        attention_parity(B_, Sq, Skv, H, Hkv, D, Dv, kw)
     report["max_abs_err"] = max_err
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5032,7 +5125,11 @@ def run(tuning_dir: str) -> int:
             (gemma3_tp, 1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT,
              gemma3.window, 0, True),
             (gemma3_tp, 1, TP_GEMMA3_PROMPT, TP_GEMMA3_PROMPT, 0, 0,
-             True)):
+             True),
+            # phase 15's zamba2-1.2b rank under attn2d
+            (zamba_2d, 1, 16, 16, 0, 0, True),
+            (zamba_2d, 1, 128, 128, 0, 0, True),
+            (zamba_2d, 1, 384, 384, 0, 0, True)):
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         qs_ = randn(B_, Sq, H, D).transpose(1, 2)
         ks_, vs_ = (randn(B_, Skv, Hkv, D).transpose(1, 2) for _ in range(2))
@@ -5099,7 +5196,9 @@ def run(tuning_dir: str) -> int:
         f"B={B4} H=2 Sq={ENCDEC_PROMPT} Skv={F_} D=64 non-causal",
         f"B={B4} H=2 Sq=1 Skv={F_} D=64 non-causal",
         f"B=1 H=1 P={TP_GEMMA3_PROMPT} D=256 causal window={gemma3.window}",
-        f"B=1 H=1 P={TP_GEMMA3_PROMPT} D=256 causal")}
+        f"B=1 H=1 P={TP_GEMMA3_PROMPT} D=256 causal",
+        "B=1 H=16 P=16 D=64 causal", "B=1 H=16 P=128 D=64 causal",
+        "B=1 H=16 P=384 D=64 causal")}
 
     shapes, swiglu_kernels = {}, {}
     gates = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh")}

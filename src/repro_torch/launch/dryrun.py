@@ -53,10 +53,13 @@ reduce-scatter (m-1)/m) at NVLink's rate when the axis's group fits one
 8-GPU node, else at the network's (``launch/mesh.py``). An
 encoder-decoder decode state's cross-KV is the rank's kv heads, as the
 runtime projects it
-(``make_cache_pspec_fn`` cuts its batch only). What the runtime does not
-shard (a Mamba2 component that does not divide the ``ssm`` axis; a KV
-cache whose heads and slots both do not divide) is a ``skip`` with the
-reason and its spec-derived per-device bytes.
+(``make_cache_pspec_fn`` cuts its batch only).  A variant that cuts the
+cache otherwise than the params (Mamba2's state under ``attn2d`` and the
+``ep`` family) counts the step's moves between the two cuts.  What the
+runtime does not shard (a Mamba2 component that does not divide the
+``ssm`` axis or the cache's; a KV cache whose heads and slots both do
+not divide) is a ``skip`` with the reason and its spec-derived
+per-device bytes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k

@@ -217,6 +217,29 @@ def cache_pspec(path: str, shape, mesh) -> P:
     raise NotImplementedError  # replaced by make_cache_pspec_fn
 
 
+# The dims of each serving cache leaf, by name, stacked over its layers:
+# (L, B, S, Hkv, D) k, v and an encoder-decoder's cross-KV ("0", "1"),
+# (L, B, S) pos, (L, B, H, N, P) ssm, (L, B, H, K, V) wkv, (L, B, K-1, C)
+# conv, (L, B, D) the token shifts.
+CACHE_LEAF_DIMS = {"k": 5, "v": 5, "0": 5, "1": 5, "pos": 3, "ssm": 5,
+                   "wkv": 5, "conv": 4, "shift_tm": 3, "shift_cm": 3}
+
+
+def cache_batch_dim(path: str, nd: int) -> int:
+    """The batch dim of an ``nd``-dim cache leaf at ``path``, from its
+    layout, whatever the sizes: dim 1 of a stacked (L, B, ...) leaf, dim
+    0 of one layer's (B, ...) leaf (the reference keeps gemma3-1b's tail
+    layers unstacked).  Raises ``ValueError`` for a leaf of another
+    layout."""
+    name = path.split("/")[-1]
+    full = CACHE_LEAF_DIMS.get(name)
+    if full is None or nd not in (full, full - 1):
+        raise ValueError(f"cache leaf {path}: {nd} dims, not a stacked "
+                         f"layout ({full} dims, or one layer's {full} - 1)"
+                         if full else f"cache leaf {path}: no known layout")
+    return 1 - (full - nd)
+
+
 def make_cache_pspec_fn(batch: int, mesh, attn_axis="model"):
     sizes = mesh_sizes(mesh)
     b_axes = _batch_axes(mesh)
@@ -226,27 +249,18 @@ def make_cache_pspec_fn(batch: int, mesh, attn_axis="model"):
     def fn(path: str, shape, _mesh) -> P:
         nd = len(shape)
         spec = [None] * nd
-        # find the batch dim (first dim equal to the serving batch); a
-        # stacked (L, B, ...) leaf with as many layers as rows keeps its
-        # layers whole: the batch is the dim after them
-        b_dim = None
-        for i, s in enumerate(shape[:3]):
-            if s == batch:
-                b_dim = i
-                break
-        if b_dim == 0 and nd >= 2 and shape[1] == batch:
-            b_dim = 1
-        if b_dim is not None and b_axes and _div(batch, total):
+        b_dim = cache_batch_dim(path, nd)
+        if b_axes and _div(batch, total):
             spec[b_dim] = b_axes
         name = path.split("/")[-1]
-        if name in ("k", "v") and nd >= 2 and b_dim is not None:
+        if name in ("k", "v") and nd >= 2:
             # (..., B, S, Hkv, D): kv-heads over model if divisible, else
             # the sequence dim (a partial-softmax combine across ranks)
             if _div(shape[-2], m):
                 spec[-2] = attn_axis
             elif _div(shape[-3], m):
                 spec[-3] = attn_axis
-        elif name == "pos" and nd >= 2 and b_dim is not None:
+        elif name == "pos" and nd >= 2:
             if _div(shape[-1], m):
                 spec[-1] = attn_axis
         elif name == "ssm" and nd >= 3:
@@ -381,7 +395,7 @@ def _block_columns(comps, m: int, r: int):
     return torch.cat(cols)
 
 
-def _packed(path: str, spec: P, layout: Optional[Layout], mesh):
+def packed_cut(path: str, spec: P, layout: Optional[Layout], mesh):
     """(components, m, axis) when the leaf at ``path`` is packed and its
     last dim cut; raises ``NotImplementedError`` naming the leaf and the
     component that does not divide."""
@@ -409,7 +423,7 @@ def shard_tree(tree, specs, mesh, coords: Mapping[str, int],
 
     def cut(path, t):
         spec = flat[path]
-        packed = _packed(path, spec, layout, mesh)
+        packed = packed_cut(path, spec, layout, mesh)
         if packed is not None:
             comps, m, ax = packed
             cols = _block_columns(comps, m, axis_index(sizes, coords, ax))
@@ -457,7 +471,7 @@ def unshard_tree(shards: Sequence, specs, mesh,
             return torch.cat([build(level + 1, prefix + (i,))
                               for i in range(axis_size(sizes, ax))], dim=d)
         full = build(0, ())
-        packed = _packed(path, spec, layout, mesh)
+        packed = packed_cut(path, spec, layout, mesh)
         if packed is not None:      # blocks in rank order -> components
             comps, m, _ = packed
             cols = torch.cat([_block_columns(comps, m, r) for r in range(m)])

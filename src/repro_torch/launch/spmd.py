@@ -412,12 +412,69 @@ def scatter_over(x, axis: Axis, dim: int):
     return x if c is None else _Scatter.apply(x, c, axis, dim)
 
 
-def reshard(x, dim: int, have: Axis, want: Axis):
-    """``x`` sharded over ``have`` along ``dim`` -> sharded over
-    ``want`` (None: replicated)."""
+def _live(axis: Axis, c: SpmdContext) -> Axis:
+    """``axis`` without its names of one rank (None when none is left)."""
+    rest = tuple(a for a in _axes_tuple(axis) if c.size(a) > 1) \
+        if axis is not None else ()
+    return None if not rest else (rest[0] if len(rest) == 1 else rest)
+
+
+def _tail(a: Axis, b: Axis):
+    """The names of ``a`` after ``b``'s when ``b``'s names lead ``a``'s, so
+    that a rank's block over ``a`` lies inside its block over ``b`` (the
+    index over ``a`` is row-major over its names); None otherwise."""
+    at = _axes_tuple(a) if a is not None else ()
+    bt = _axes_tuple(b) if b is not None else ()
+    if len(at) <= len(bt) or at[:len(bt)] != bt:
+        return None
+    rest = at[len(bt):]
+    return rest[0] if len(rest) == 1 else rest
+
+
+def _parts(x, dim: int, widths):
+    return list(torch.split(x, widths, dim)) if len(widths) > 1 else [x]
+
+
+def _join(parts, dim: int):
+    return torch.cat(parts, dim) if len(parts) > 1 else parts[0]
+
+
+def reshard(x, dim: int, have: Axis, want: Axis,
+            parts: Optional[Tuple[int, ...]] = None):
+    """``x`` sharded over ``have`` along ``dim`` -> sharded over ``want``
+    (None: replicated).  ``parts``: the global widths of the components
+    packed along ``dim`` (``partition.packed_layout``), of which a rank's
+    block holds its share of each, in order; each moves on its own.
+
+    Where ``want``'s names begin with ``have``'s, the rank's new block lies
+    inside its old one: a slice, no collective.  Where ``have``'s begin
+    with ``want``'s, one all-gather over the names after them.  Otherwise
+    one all-gather over ``have``, then a slice."""
+    c = current()
+    if c is None:
+        return x
+    have, want = _live(have, c), _live(want, c)
     if have == want:
         return x
-    return scatter_over(gather_over(x, have, dim), want, dim)
+    m = c.size(have)
+    widths = [w // m for w in (parts or (x.shape[dim] * m,))]
+    inner = _tail(want, have)
+    if inner is not None:
+        return _join([scatter_over(p, inner, dim)
+                      for p in _parts(x, dim, widths)], dim)
+    outer = _tail(have, want)
+    over = outer if outer is not None else have
+    g = gather_over(x, over, dim)
+    if len(widths) > 1:     # k blocks of x's layout -> each part's k blocks
+        blocks = [_parts(b, dim, widths)
+                  for b in torch.chunk(g, c.size(over), dim)]
+        g = [torch.cat([b[i] for b in blocks], dim)
+             for i in range(len(widths))]
+    else:
+        g = [g]
+    if outer is not None:
+        return _join(g, dim)
+    return _join([scatter_over(p, want, dim) for p in g], dim)
 
 
 # ----------------------------------------------------------- model helpers
@@ -425,14 +482,16 @@ def reshard(x, dim: int, have: Axis, want: Axis):
 class AttnShard:
     """How one attention layer is cut on this rank: the axes of the
     q / kv projections' columns and of ``wo``'s rows (params), of the
-    query and kv heads (rules), and the rank's first global query and kv
-    head.  Outside ``spmd`` every axis is None and the rank holds every
-    head."""
+    query and kv heads (rules), of the serving cache's kv heads
+    (``cache_axis``: the ``attn`` axis, None where the cache is cut along
+    its slots), and the rank's first global query and kv head.  Outside
+    ``spmd`` every axis is None and the rank holds every head."""
     q_cols: Axis = None
     kv_cols: Axis = None
     wo_rows: Axis = None
     heads: Axis = None
     kv_heads: Axis = None
+    cache_kv: Axis = None
     n_heads: int = 0
     n_kv: int = 0
     h0: int = 0
@@ -449,7 +508,8 @@ class AttnShard:
             q_cols=c.param_axis("attn", n_heads * head_dim),
             kv_cols=c.param_axis("attn", n_kv * head_dim),
             wo_rows=c.param_axis("attn", n_heads * head_dim),
-            heads=h_ax, kv_heads=kv_ax, n_heads=n_heads, n_kv=n_kv,
+            heads=h_ax, kv_heads=kv_ax, cache_kv=c.param_axis("attn", n_kv),
+            n_heads=n_heads, n_kv=n_kv,
             h0=c.index(h_ax) * (n_heads // c.size(h_ax)),
             kv0=c.index(kv_ax) * (n_kv // c.size(kv_ax)))
 
@@ -459,6 +519,14 @@ class AttnShard:
 
     def kv(self, t):
         return reshard(t, -1, self.kv_cols, self.kv_heads)
+
+    def to_cache(self, t):
+        """K or V (..., kv heads, D) over the kv heads' axis -> over the
+        cache's (the ``ep`` variants cut the cache finer)."""
+        return reshard(t, -2, self.kv_heads, self.cache_kv)
+
+    def from_cache(self, t):
+        return reshard(t, -2, self.cache_kv, self.kv_heads)
 
     def kv_for_heads(self, k, v):
         """K/V (B, S, n, D) holding global kv heads [kv0, kv0 + n) ->
@@ -470,15 +538,38 @@ class AttnShard:
         ``replicate_over``."""
         extra = minus(self.heads, self.kv_heads)
         k, v = replicate_over(k, extra), replicate_over(v, extra)
+        return self._select(k, v, self.kv0)
+
+    def _wanted(self, first: int) -> List[int]:
+        """The local indices, in K/V whose first global kv head is
+        ``first``, of the kv heads the rank's query heads read."""
         c = current()
         hl = self.n_heads // (c.size(self.heads) if c is not None else 1)
-        n = k.shape[2]
-        idx = [(self.h0 + j) * self.n_kv // self.n_heads - self.kv0
-               for j in range(hl)]
-        if idx == [j * n // hl for j in range(hl)]:
+        return [(self.h0 + j) * self.n_kv // self.n_heads - first
+                for j in range(hl)]
+
+    def _select(self, k, v, first: int):
+        idx, n = self._wanted(first), k.shape[2]
+        # the kernels map query head j to kv head j * n // hl (hl % n == 0)
+        if len(idx) % n == 0 and \
+                idx == [j * n // len(idx) for j in range(len(idx))]:
             return k, v
         sel = torch.tensor(idx, device=k.device)
         return k.index_select(2, sel), v.index_select(2, sel)
+
+    def cached_kv_for_heads(self, k, v):
+        """``kv_for_heads`` of K/V read from the cache (cut over
+        ``cache_kv``): taken from the rank's cache block where it holds
+        every kv head the rank's query heads read, else moved to the kv
+        heads' cut first (``from_cache``)."""
+        c = current()
+        if c is not None and _live(self.cache_kv, c) != _live(self.kv_heads,
+                                                              c):
+            first = c.index(self.cache_kv) * k.shape[2]
+            if all(0 <= i < k.shape[2] for i in self._wanted(first)):
+                return self._select(k, v, first)
+            k, v = self.from_cache(k), self.from_cache(v)
+        return self.kv_for_heads(k, v)
 
     def head_param(self, t):
         """A replicated per-head-dim param (qk-norm's q scale) applied to
@@ -581,6 +672,13 @@ def cache_axis(n: int) -> Axis:
     return None if c is None else c.param_axis("attn", n)
 
 
+def kv_heads_axis(n_kv: int) -> Axis:
+    """The axis the rules cut ``n_kv`` kv heads over (None when whole or
+    outside ``spmd``): the K/V a layer projects, before the cache."""
+    c = current()
+    return None if c is None else c.rule_axis("kv_heads", n_kv)
+
+
 def axis_ranks(axis: Axis) -> int:
     """Ranks along ``axis`` in the active context (1 outside)."""
     c = current()
@@ -679,10 +777,14 @@ def cache_specs(model, batch: int, max_len: int):
     """The PartitionSpecs of ``model``'s serving cache (``make_cache_pspec
     _fn`` over this rank's mesh): a KV cache's kv heads, or its slots where
     the heads do not divide (``kv_seq_axis``: decode combines the ranks'
-    partial softmaxes).  A stacked cache's layers stay whole, as many as
-    its rows included.  Raises ``NotImplementedError`` where the runtime
-    cannot serve them: a KV cache whose heads and slots both do not
-    divide, or a recurrent state cut otherwise than its writer."""
+    partial softmaxes); a recurrent state's heads or channels over the
+    ``attn`` axis, whatever the axis of the params that write it
+    (``state_axes``: the step moves the state between the two cuts).  A
+    stacked cache's layers stay whole, as many as its rows included.
+    Raises ``NotImplementedError`` where the runtime cannot serve them: a
+    KV cache whose heads and slots both do not divide, or a packed state
+    (Mamba2's conv tail) whose components do not divide the cache's
+    axis."""
     c = current()
     meta = model.init_cache(batch, max_len, device=torch.device("meta"))
     attn_axis = c.axes.get("attn", "model")
@@ -691,6 +793,7 @@ def cache_specs(model, batch: int, max_len: int):
                                                     attn_axis=attn_axis))
     flat_meta = partition.flatten(meta)
     m = c.size(attn_axis)
+    layout = partition.packed_layout(model.cfg)
     for path, spec in partition.flatten(specs).items():
         name = path.split("/")[-1]
         shape = flat_meta[path].shape
@@ -701,41 +804,35 @@ def cache_specs(model, batch: int, max_len: int):
                 f"kv heads nor its {shape[-3]} slots divide {attn_axis!r} "
                 f"({m} ranks), so it is cut by neither; a max_len that is a "
                 f"multiple of {m} cuts its slots")
-    bad = _state_axis_mismatch(model.cfg, partition.flatten(specs), c)
-    if bad:
-        raise NotImplementedError(
-            f"cache leaves {', '.join(bad)} are cut over {attn_axis!r}, "
-            "the params that write them over another axis: the runtime "
-            "does not reshard a recurrent state (ROADMAP)")
+        partition.packed_cut(path, spec, layout, c.mesh)   # raises
     return meta, specs
 
 
-def _state_axis_mismatch(cfg, flat_specs, c) -> List[str]:
-    """The recurrent-state cache leaves whose cut (the ``attn`` axis, as
-    ``make_cache_pspec_fn`` cuts them) is not the one of the params that
-    write them: Mamba2's ``ssm`` heads and ``conv`` channels against the
-    ``ssm`` param axis, RWKV-6's ``wkv`` heads against ``wr``'s columns.
-    A token shift may be cut over any axis: the step gathers it."""
+def state_axes(cfg) -> Dict[str, Tuple[int, Axis, Axis]]:
+    """Per recurrent-state cache leaf of ``cfg``'s layers: (its dim, the
+    axis the cache cuts it over, the axis of the params that write it),
+    under the active context (empty outside ``spmd``).  The cache cuts a
+    state over the ``attn`` axis (``cache_axis``); Mamba2's ``ssm`` heads
+    and ``conv`` channels are written by params on the ``ssm`` axis, which
+    the ``attn2d`` variant cuts finer and the ``ep`` variants coarser, so
+    the step moves them (``reshard``).  RWKV-6's ``wkv`` heads come from
+    ``wr``'s columns, on the ``attn`` axis too.  A token shift is gathered
+    whole where it is read."""
+    c = current()
+    if c is None:
+        return {}
     if cfg.family == "hybrid":
         d_inner = cfg.ssm.expand * cfg.d_model
         heads = d_inner // cfg.ssm.head_dim
-        want = {"ssm": c.param_axis("ssm", heads),
-                "conv": c.param_axis("ssm", d_inner
-                                     + 2 * cfg.ssm.state_dim)}
-        dims = {"ssm": -3, "conv": -1}
-    elif cfg.family == "ssm":
-        want = {"wkv": c.param_axis("attn", cfg.d_model)}
-        dims = {"wkv": -3}
-    else:
-        return []
-    bad = []
-    for path, spec in flat_specs.items():
-        name = path.split("/")[-1]
-        if name in want:
-            have = spec[dims[name]]
-            if (have if c.size(have) > 1 else None) != want[name]:
-                bad.append(path)
-    return bad
+        conv = d_inner + 2 * cfg.ssm.state_dim
+        writer = leaf_axis("in_proj", (cfg.d_model, d_inner + conv + heads),
+                           -1)
+        return {"ssm": (-3, cache_axis(heads), writer),
+                "conv": (-1, cache_axis(conv), writer)}
+    if cfg.family == "ssm":
+        return {"wkv": (-3, cache_axis(cfg.d_model // cfg.ssm.rwkv_head_dim),
+                        leaf_axis("wr", (cfg.d_model, cfg.d_model), -1))}
+    return {}
 
 
 def init_cache(model, batch: int, max_len: int, device=None):
@@ -792,6 +889,7 @@ __all__ = ["CollectiveLog", "CountingComm", "GroupComm", "SpmdContext",
            "replicate_over", "gather_over", "scatter_over", "reshard",
            "ffn_axis", "vocab_axis", "expert_axis", "axis_offset",
            "leaf_axis", "cache_axis", "kv_seq_axis", "axis_ranks",
+           "state_axes", "kv_heads_axis",
            "check_runtime", "unsharded_reason", "mean_over_batch",
            "sum_over_batch", "sync_grads", "sum_by_spec", "cache_specs",
            "init_cache", "pos_axis", "collective_log", "rank_coords",

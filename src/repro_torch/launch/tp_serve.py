@@ -1,17 +1,23 @@
 """Tensor-parallel serving: one process per rank of a ("data", "model")
-mesh, each serving its shard of one model through ``ServeEngine`` under
+mesh, or of a hillclimb variant's (``launch/variants.py``: ``attn2d``'s
+("data", "model_h", "model_f"), the ``ep`` family's ("data", "expert",
+"tp")), each serving its shard of one model through ``ServeEngine`` under
 ``launch.spmd.spmd``.
 
     PYTHONPATH=src python -m repro_torch.launch.tp_serve --mesh 1x2 \\
         --device cpu [--arch zamba2-1.2b] [--hw-route interpret] \\
-        [--fault-step 3 --fault-rank 1] [--frames 32]
+        [--fault-step 3 --fault-rank 1] [--frames 32] \\
+        [--variant attn2d --mesh 1x2x2]
 
 starts the ranks (gloo over a free local port; on the card every rank
 shares ``cuda:0`` unless ``--backend nccl``, which needs one card a rank),
 serves a synthetic workload on each, and checks that every rank emitted
 the same tokens and changed route at the same step.  The arch's reduced
 config by default; ``--full`` serves it at full width (``--layers`` cuts
-the depth).  ``--fault-rank`` arms a lane fault on that rank's stage at
+the depth).  ``--variant`` takes the variant's mesh axes, logical-axis
+rules and param axes (its config overrides and train knobs do not apply
+to serving); ``--mesh`` then gives one size per axis.  ``--fault-rank``
+arms a lane fault on that rank's stage at
 ``--fault-step`` and reports what its canary finds; the ranks agree on it
 through ``EventChannel`` and demote the stage together.  The stage is the
 arch's own kernel's (``fault_stage_for``): SwiGLU for the dense and MoE
@@ -27,9 +33,11 @@ canary and agreement.  ``layers`` cuts ``num_layers`` only, so whisper
 keeps its encoder and decoder depths.
 
 ``serve_rank`` is one rank's work: it joins the group once and serves a
-list of jobs in turn (``chip_smoke.py``'s phase 15 serves its models in
-one launch); ``launch_jobs`` starts and collects the ranks,
-``launch_ranks`` for one job (the CLI and the CPU tests).
+list of jobs in turn, each on its own mesh over the same ranks
+(``chip_smoke.py``'s phase 15 serves its models in one launch);
+``launch_jobs`` starts and collects the ranks, ``launch_ranks`` for one
+job (the CLI and the CPU tests).  They and ``reference_run`` run on the
+card unless given ``device="cpu"`` (``device.resolve_device``).
 """
 from __future__ import annotations
 
@@ -49,12 +57,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.device import resolve_device
 from repro_torch.launch import partition, spmd
 from repro_torch.launch.distributed import (STAGE, EventChannel,
                                             KVCoordinator,
                                             initialize_runtime,
                                             shutdown_runtime)
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.variants import VARIANTS
 from repro_torch.models import build_model, compute_params
 from repro_torch.serve import ServeConfig, ServeEngine, synthetic_workload
 from repro_torch.viscosity import HW, INTERPRET, SW
@@ -68,8 +78,10 @@ RESULT = "RESULT "
 class TPServeSpec:
     """What every rank serves: the model (``full`` width or the reduced
     config, ``layers`` deep when given, computing in ``dtype`` when
-    given), its weights (``seed``, drawn in ``dtype``), the workload and
-    the fault."""
+    given), its weights (``seed``, drawn in ``dtype``), the workload, the
+    fault, and the hillclimb ``variant`` whose mesh axes, rules and param
+    axes the ranks take (None: ("data", "model"), ``partition.rules_for``
+    and ``DEFAULT_AXES``)."""
     arch: str = "qwen1.5-4b"
     full: bool = False
     layers: Optional[int] = None
@@ -88,6 +100,7 @@ class TPServeSpec:
     fault_rank: int = -1
     fault_stage: str = ""                # "": the arch's (fault_stage_for)
     frames: int = 32                     # encoder-decoder: frames a row
+    variant: Optional[str] = None
 
     def __post_init__(self):
         if not self.fault_stage:
@@ -135,6 +148,21 @@ class TPServeSpec:
                              (self.requests, self.max_prompt), generator=gen)
         return (emb.to(device=device, dtype=getattr(torch, cfg.dtype)),
                 toks.to(device))
+
+
+def mesh_axes_of(variant: Optional[str]) -> tuple:
+    """The mesh axes of a serve under ``variant`` (None: ``AXES``)."""
+    return tuple(VARIANTS[variant]["mesh_axes"]) if variant else AXES
+
+
+def layout_of(variant: Optional[str], cfg, mesh):
+    """(logical-axis rules, param axes) of a rank's ``spmd`` under
+    ``variant``: the variant's, or ``partition.rules_for`` and
+    ``DEFAULT_AXES``."""
+    if variant:
+        v = VARIANTS[variant]
+        return dict(v["rules"]), dict(v["axes"])
+    return partition.rules_for(cfg, mesh), dict(partition.DEFAULT_AXES)
 
 
 def fault_stage_for(cfg) -> str:
@@ -421,27 +449,34 @@ def layer_probe(cfg, params, probe: Dict[str, List], route: str
 
 def serve_rank(jobs: Sequence[Dict[str, Any]], rank: int, world: int,
                port: int, mesh_shape, *, backend: str = "gloo",
-               device: str = "cpu") -> List[Dict[str, Any]]:
+               device=None) -> List[Dict[str, Any]]:
     """One rank: join the group once, then for each job cut its spec's
     seeded weights to the rank's shard, serve under ``spmd`` and report
-    (see ``_serve_job``); the jobs' reports in order."""
+    (see ``_serve_job``); the jobs' reports in order.  A job's mesh is
+    its ``"mesh"`` (``mesh_shape`` without one) over its spec's mesh
+    axes; the process groups of each mesh are made at its first job."""
     t_start = time.perf_counter()
     # the ranks share the host's cores
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
     rt = initialize_runtime(f"127.0.0.1:{port}", world, rank,
                             backend=backend, timeout_s=600)
-    mesh = make_mesh(tuple(mesh_shape), AXES, devices=[dev] * world)
-    comm = spmd.GroupComm(mesh, rank)
+    meshes: Dict[tuple, Any] = {}
     coord = KVCoordinator()
     out = []
     for job in jobs:
+        shape = tuple(job.get("mesh") or mesh_shape)
+        axes = mesh_axes_of(job["spec"]["variant"])
+        if (shape, axes) not in meshes:
+            mesh = make_mesh(shape, axes, devices=[dev] * world)
+            meshes[shape, axes] = (mesh, spmd.GroupComm(mesh, rank))
+        mesh, comm = meshes[shape, axes]
         comm.log.reset()
         res = _serve_job(job, rank, dev, mesh, comm, coord)
         res.update({"rank": rank, "world": world, "backend": rt.backend,
-                    "mesh": list(mesh_shape),
+                    "mesh": list(shape), "mesh_axes": list(axes),
                     "joined_s": time.perf_counter() - t_start})
         out.append(res)
         gc.collect()
@@ -472,8 +507,9 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
     ref_logits, out_dir = job.get("ref_logits"), job.get("out_dir")
     coords = spmd.rank_coords(mesh, rank)
     cfg = spec.config()
+    rules, axes = layout_of(spec.variant, cfg, mesh)
     full = spec.weights(cfg, dev)
-    specs = partition.params_pspecs(full, mesh)
+    specs = partition.params_pspecs(full, mesh, axes)
     local = partition.map_with_path(
         partition.shard_tree(full, specs, mesh, coords,
                              layout=partition.packed_layout(cfg)),
@@ -487,8 +523,7 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
-                   partition.DEFAULT_AXES, coords, comm,
+    with spmd.spmd(mesh, rules, axes, coords, comm,
                    dims=spmd.logical_sizes(cfg)), kernel_shapes() as seen:
         canary = None
         if rank == spec.fault_rank:
@@ -512,8 +547,7 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
     launches = {n: w.launches for n, w in wrappers.items()}
     collectives = comm.log.snapshot()
     if job.get("layer_probe_path"):
-        with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
-                       partition.DEFAULT_AXES, coords, comm,
+        with spmd.spmd(mesh, rules, axes, coords, comm,
                        dims=spmd.logical_sizes(cfg)):
             res["layer_rel"] = layer_probe(
                 cfg, served, torch.load(job["layer_probe_path"]),
@@ -552,27 +586,38 @@ def worker(argv) -> int:
     return 0
 
 
-def make_job(spec: TPServeSpec, *, ref_logits: Optional[str] = None,
-        out_dir: Optional[str] = None,
-        layer_probe_path: Optional[str] = None) -> Dict[str, Any]:
-    """One job of ``launch_jobs`` (see ``_serve_job`` for the paths)."""
+def make_job(spec: TPServeSpec, *, mesh=None,
+             ref_logits: Optional[str] = None, out_dir: Optional[str] = None,
+             layer_probe_path: Optional[str] = None) -> Dict[str, Any]:
+    """One job of ``launch_jobs`` (see ``_serve_job`` for the paths):
+    served on ``mesh`` (one size per axis of ``mesh_axes_of(spec.variant)``;
+    None: the launch's mesh)."""
+    axes = mesh_axes_of(spec.variant)
+    if mesh is not None and len(mesh) != len(axes):
+        raise ValueError(f"mesh {tuple(mesh)} for the axes {axes}")
     return {"spec": dataclasses.asdict(spec), "ref_logits": ref_logits,
-            "out_dir": out_dir, "layer_probe_path": layer_probe_path}
+            "out_dir": out_dir, "layer_probe_path": layer_probe_path,
+            "mesh": list(mesh) if mesh is not None else None}
 
 
 def launch_jobs(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
-                device: str = "cpu", backend: str = "gloo",
+                device=None, backend: str = "gloo",
                 timeout: float = 600.0, src: Optional[str] = None,
                 env=None) -> List[List[Dict]]:
     """Start one process per rank of ``mesh_shape``, which joins the group
-    once and serves ``jobs`` (``make_job(...)``) in turn; wait for all and
-    return, per job, its results by rank.  A rank that fails raises with
-    its stderr."""
+    once and serves ``jobs`` (``make_job(...)``) in turn, each on its own
+    mesh of as many ranks; wait for all and return, per job, its results
+    by rank.  A rank that fails raises with its stderr."""
+    dev = resolve_device(device)
     world = int(np.prod(mesh_shape))
+    for job in jobs:
+        if job.get("mesh") and int(np.prod(job["mesh"])) != world:
+            raise ValueError(f"a job's mesh {job['mesh']} is not "
+                             f"{world} ranks")
     port = free_port()
     args = [json.dumps({"jobs": list(jobs), "rank": rank, "world": world,
                         "port": port, "mesh": list(mesh_shape),
-                        "backend": backend, "device": device})
+                        "backend": backend, "device": str(dev)})
             for rank in range(world)]
     results = run_ranks(WORKER, args, timeout=timeout, src=src, env=env)
     return [[r[i] for r in results] for i in range(len(jobs))]
@@ -620,7 +665,7 @@ def run_ranks(worker: str, args: Sequence[str], *, timeout: float = 600.0,
     return results
 
 
-def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
+def launch_ranks(spec: TPServeSpec, mesh_shape, *, device=None,
                  backend: str = "gloo", ref_logits: Optional[str] = None,
                  out_dir: Optional[str] = None,
                  layer_probe_path: Optional[str] = None,
@@ -634,12 +679,12 @@ def launch_ranks(spec: TPServeSpec, mesh_shape, *, device: str = "cpu",
                        timeout=timeout, src=src, env=env)[0]
 
 
-def reference_run(spec: TPServeSpec, device: str = "cpu",
+def reference_run(spec: TPServeSpec, device=None,
                   path: Optional[str] = None) -> Dict[str, Any]:
     """The same workload on one unsharded engine of the same weights; its
     logits and greedy tokens, call by call, are saved to ``path`` when
     given (what ``serve_rank``'s ``ref_logits`` reads)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     cfg = spec.config()
     params = spec.weights(cfg, dev)
     on_logits, rec = logits_recorder()
@@ -678,7 +723,14 @@ def check_agreement(results: Sequence[Dict]) -> List[str]:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen1.5-4b", choices=list(ARCH_NAMES))
-    ap.add_argument("--mesh", default="1x2", help="DxM: data x model ranks")
+    ap.add_argument("--mesh", default="1x2",
+                    help="DxM: data x model ranks; under --variant one "
+                         "size per variant axis (attn2d: 1x2x2)")
+    ap.add_argument("--variant", default=None,
+                    choices=[n for n, v in VARIANTS.items()
+                             if "mesh_axes" in v],
+                    help="serve under this variant's mesh axes, rules and "
+                         "param axes")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--requests", type=int, default=4)
@@ -686,7 +738,8 @@ def main(argv=None):
     ap.add_argument("--hw-route", default=SW, choices=[HW, SW, INTERPRET])
     ap.add_argument("--fault-step", type=int, default=-1)
     ap.add_argument("--fault-rank", type=int, default=-1)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="cpu to run on the CPU (default: the card)")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=32,
@@ -697,7 +750,10 @@ def main(argv=None):
                        requests=args.requests, slots=args.slots,
                        hw_route=args.hw_route, fault_step=args.fault_step,
                        fault_rank=args.fault_rank, seed=args.seed,
-                       frames=args.frames)
+                       frames=args.frames, variant=args.variant)
+    if len(shape) != len(mesh_axes_of(spec.variant)):
+        raise SystemExit(f"--mesh {args.mesh}: one size per axis of "
+                         f"{mesh_axes_of(spec.variant)}")
     results = launch_ranks(spec, shape, device=args.device,
                            backend=args.backend)
     for r in results:

@@ -55,6 +55,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
 from repro_torch.launch import partition, spmd
 from repro_torch.launch.sharding import axis_size, mesh_sizes
 from repro_torch.train.runner import value_and_grad
@@ -434,12 +435,12 @@ def _nbytes(tree) -> int:
 
 def train_rank(jobs: Sequence[Dict[str, Any]], rank: int, world: int,
                port: int, mesh_shape, *, backend: str = "gloo",
-               device: str = "cpu") -> List[Dict[str, Any]]:
+               device=None) -> List[Dict[str, Any]]:
     """One rank: join the group once, run the jobs in turn
     (``train_job``); their reports in order."""
     t_start = time.perf_counter()
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
     mesh, comm, _ = join(port, world, rank, mesh_shape, dev, backend=backend)
@@ -476,18 +477,19 @@ def worker(argv) -> int:
 
 
 def launch_ranks(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
-                 device: str = "cpu", backend: str = "gloo",
+                 device=None, backend: str = "gloo",
                  timeout: float = 600.0, src: Optional[str] = None,
                  env=None) -> List[List[Dict]]:
     """Start one process per rank of ``mesh_shape``, which joins the group
     once and runs ``jobs`` (``make_job(...)``) in turn; per job, its
     reports by rank.  A rank that fails raises with its stderr."""
     from repro_torch.launch.tp_serve import free_port, run_ranks
+    dev = resolve_device(device)
     world = int(np.prod(mesh_shape))
     port = free_port()
     args = [json.dumps({"jobs": list(jobs), "rank": r, "world": world,
                         "port": port, "mesh": list(mesh_shape),
-                        "backend": backend, "device": device})
+                        "backend": backend, "device": str(dev)})
             for r in range(world)]
     results = run_ranks(WORKER, args, timeout=timeout, src=src, env=env)
     return [[r[i] for r in results] for i in range(len(jobs))]
@@ -497,7 +499,7 @@ def _host(tree):
     return tree_map(lambda t: t.cpu(), tree)
 
 
-def reference_run(spec: TPTrainSpec, device: str = "cpu", *,
+def reference_run(spec: TPTrainSpec, device=None, *,
                   init: Optional[str] = None, want: Optional[str] = None,
                   rows: slice = slice(None),
                   against: Optional[str] = None) -> Dict[str, Any]:
@@ -508,7 +510,7 @@ def reference_run(spec: TPTrainSpec, device: str = "cpu", *,
     are held against those (``max_rel``, "vs").  Returns the losses, the
     grad norms, each step's ms and the peak."""
     from repro_torch.models import build_model
-    dev = torch.device(device)
+    dev = resolve_device(device)
     cfg = spec.config()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

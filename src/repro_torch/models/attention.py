@@ -20,7 +20,9 @@ and kv heads (``AttnShard``: K/V that stay replicated are read through the
 global GQA map), and sums the ``wo`` products over the rank's axis.  Its
 cache is cut as ``make_cache_pspec_fn`` says: by kv heads where they
 divide the axis (the positions cut along the sequence, gathered where
-attention reads them), else along the sequence (``spmd.kv_seq_axis``: the
+attention reads them; where the rules cut the kv heads otherwise, as the
+``ep`` variants do, each write and read moves them: ``AttnShard.to_cache``
+and ``from_cache``), else along the sequence (``spmd.kv_seq_axis``: the
 rank holds slots [s0, s0 + n) of k, v and the positions).  Over such a
 cache a decode step attends with every query head over the rank's slots,
 gathers the f32 softmax partials over the axis and folds them in rank
@@ -160,8 +162,12 @@ def cache_write_prefill(cache, layer: int, k, v, *, n_kv: int = 0):
     Under ``spmd`` the rank writes its own slots [s0, s0 + n) of the
     positions where they are cut along the sequence, and of k/v too where
     the cache's slots are (``n_kv``, the layer's global kv head count,
-    does not divide the axis: ``spmd.kv_seq_axis``)."""
+    does not divide the axis: ``spmd.kv_seq_axis``); k/v come cut over
+    the rules' kv heads axis and are moved to the cache's first."""
     S = k.shape[1]
+    if n_kv:
+        k, v = (spmd.reshard(t, -2, spmd.kv_heads_axis(n_kv),
+                             spmd.cache_axis(n_kv)) for t in (k, v))
     kax = spmd.kv_seq_axis(n_kv) if n_kv else None
     pax = kax if kax is not None else spmd.pos_axis(cache)
     n = cache["pos"].shape[-1]
@@ -221,14 +227,16 @@ def attn_decode(p, x, cache, layer: int, t: Sequence[int], tpos, cos, sin,
             q = rope_mod.apply_rope(q, cos[i:i + 1], sin[i:i + 1])
             k = rope_mod.apply_rope(k, cos[i:i + 1], sin[i:i + 1])
         slot = ti % smax
-        cache["k"][layer, i, slot] = k[0, 0].to(cache["k"].dtype)
-        cache["v"][layer, i, slot] = v[0, 0].to(cache["v"].dtype)
+        cache["k"][layer, i, slot] = sh.to_cache(k)[0, 0].to(
+            cache["k"].dtype)
+        cache["v"][layer, i, slot] = sh.to_cache(v)[0, 0].to(
+            cache["v"].dtype)
         if s0 <= slot < s0 + n:
             pos_loc[i, slot - s0] = ti
         if pax is not None:
             pos_all[i, slot] = ti
-        ka, va = sh.kv_for_heads(cache["k"][layer, i:i + 1],
-                                 cache["v"][layer, i:i + 1])
+        ka, va = sh.cached_kv_for_heads(cache["k"][layer, i:i + 1],
+                                        cache["v"][layer, i:i + 1])
         o = attn_ref.attention_naive(
             q, ka, va, causal=True, window=window, softcap=softcap,
             scale=scale, q_offset=tpos[i:i + 1],

@@ -185,10 +185,21 @@ def mamba_block(p, x, cfg: ModelConfig, routes, state=None, step=False):
     """Returns x after one Mamba2 layer.  ``state`` (views of the layer's
     conv tail and SSM state) is written in place by a prefill and by a
     decode step; decode runs each slot on its own, as a B=1 decode would,
-    so batched decode equals single-request decode bit for bit."""
+    so batched decode equals single-request decode bit for bit.  Under
+    ``spmd`` a state cut otherwise than the params is moved to their cut
+    before the layer and back after it, every slot at once."""
+    if state is None:
+        return _mamba_layer(p, x, cfg, routes, None, step)
+    work = mamba_mod.to_params_cut(state, cfg)
+    y = _mamba_layer(p, x, cfg, routes, work, step)
+    mamba_mod.to_cache_cut(work, state, cfg)
+    return y
+
+
+def _mamba_layer(p, x, cfg: ModelConfig, routes, state, step):
     if step and x.shape[0] > 1:
-        return _per_slot(lambda xi, si: mamba_block(p, xi, cfg, routes, si,
-                                                    step=True), x, state)
+        return _per_slot(lambda xi, si: _mamba_layer(p, xi, cfg, routes, si,
+                                                     step=True), x, state)
     route = routes.get("mamba2_ssd", viscosity.SW)
     h = L.norm(p["ln1"], x, eps=cfg.norm_eps)
     return x + mamba_mod.mamba2_block(p["mix"], h, cfg, route=route,

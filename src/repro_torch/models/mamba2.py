@@ -18,7 +18,13 @@ depthwise conv runs on its channels (exact per channel; its tail is the
 rank's ``conv`` cache shard), B and C are gathered (one group: every head
 reads all of both), the SSD runs on the rank's heads, the gated norm over
 the whole ``d_inner`` sums its squares over the ``ssm`` axis, and
-``out_proj``'s rows end in a partial sum.
+``out_proj``'s rows end in a partial sum.  The serving cache cuts the
+state over the ``attn`` axis (``spmd.state_axes``), which a variant may
+set apart from the ``ssm`` one (``attn2d`` cuts the params finer, the
+``ep`` variants coarser): ``to_params_cut`` moves a layer's state, every
+slot at once, to the params' cut before the step and ``to_cache_cut``
+moves the new one back after it.  The conv tail is packed (x, B, C), so
+each component moves on its own.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch import viscosity
 from repro_torch.core.routing import state_from_lowering
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan import ref as ssd_ref
-from repro_torch.launch import spmd
+from repro_torch.launch import partition, spmd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import _he, rms_norm_simple
 
@@ -146,6 +152,39 @@ def mamba2_block(p, x, cfg, *, route=viscosity.SW, state=None, step=False):
         spmd.scatter_over(p["norm_scale"], ax, -1).to(x.dtype)
     out = spmd.reduce_over(y @ p["out_proj"].to(x.dtype), ax)
     return constrain(out, "batch", "seq", "embed")
+
+
+def _move(state, cfg, to_params: bool):
+    """Each leaf of a layer's state moved between the cache's cut and the
+    params' (``spmd.reshard``; the conv tail by component): the leaf
+    itself where the two cuts agree."""
+    moves = spmd.state_axes(cfg)
+    parts = tuple(w for _, w in partition.packed_layout(cfg)["conv"])
+    out = {}
+    for name, t in state.items():
+        dim, cache_ax, param_ax = moves.get(name, (0, None, None))
+        have, want = ((cache_ax, param_ax) if to_params
+                      else (param_ax, cache_ax))
+        out[name] = spmd.reshard(t, dim, have, want,
+                                 parts if name == "conv" else None)
+    return out
+
+
+def to_params_cut(state, cfg):
+    """A layer's state views (cut as the cache is) -> the state at the
+    params' cut, ``state`` itself where nothing moves (always outside
+    ``spmd``)."""
+    moved = _move(state, cfg, to_params=True)
+    return state if all(moved[k] is state[k] for k in state) else moved
+
+
+def to_cache_cut(work, state, cfg):
+    """Write ``work`` (``to_params_cut``'s result, which the step updated)
+    back into the cache views ``state``, moved to the cache's cut."""
+    if work is state:
+        return
+    for name, t in _move(work, cfg, to_params=False).items():
+        state[name].copy_(t)
 
 
 def init_mamba2_state(L, B, cfg, dtype, device):

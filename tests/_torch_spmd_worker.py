@@ -4,14 +4,18 @@ two).
 
     python -c "import _torch_spmd_worker as w; w.main(sys.argv[1:])" JSON
 
-JSON: rank, world, port, mesh (D, M), out (a directory), cases.  Each
-case names a reduced config (optionally cut to ``layers``), a
-``torch.save``d full param tree (the reference's, converted by
-``params_from_jax``; its packed Mamba2 leaves cut by component,
+JSON: rank, world, port, mesh (one size per mesh axis), out (a
+directory), cases.  Each case names a reduced config (optionally cut to
+``layers``), a ``torch.save``d full param tree (the reference's, converted
+by ``params_from_jax``; its packed Mamba2 leaves cut by component,
 ``partition.packed_layout``), a route, optionally the param axes
-(``partition.DEFAULT_AXES`` by default) and what to run (prefill +
-teacher-forced decode, with the collectives of each decode step and the
-cache's leaf shapes; a train step's loss and gradients, the step of
+(``partition.DEFAULT_AXES`` by default) or a hillclimb ``variant`` (its
+mesh axes, rules and param axes; ("data", "model") and
+``partition.rules_for`` without one: the rank keeps one mesh per set of
+axes) and what to run (prefill + teacher-forced decode, with the
+collectives of each decode step, the cache's leaf shapes and, with
+``keep_state``, its recurrent-state leaves; a train step's loss and
+gradients, the step of
 ``launch/tp_train.py`` on the same batch under a clip that binds, its
 ZeRO-1 step with ``k`` microbatches, the teacher-forced logits);
 an encoder-decoder config takes ``frames`` stub frame embeddings and
@@ -95,6 +99,14 @@ def run_encdec(case, model, params, rows):
     return out
 
 
+def case_layout(case, cfg, mesh):
+    """(logical-axis rules, param axes) of a case on ``mesh``: its
+    variant's, or ``partition.rules_for`` and its ``axes``."""
+    from repro_torch.launch.tp_serve import layout_of
+    rules, axes = layout_of(case.get("variant"), cfg, mesh)
+    return rules, (case.get("axes") or axes)
+
+
 def run_case(case, mesh, coords):
     from repro_torch.configs import get_config
     from repro_torch.core.routing import RoutingPlan
@@ -111,7 +123,8 @@ def run_case(case, mesh, coords):
                                         target=case["route"])
     model = build_model(cfg, routes=routes)
     full = torch.load(case["params"])
-    specs = partition.params_pspecs(full, mesh, case.get("axes"))
+    specs = partition.params_pspecs(full, mesh,
+                                    case_layout(case, cfg, mesh)[1])
     local = partition.shard_tree(full, specs, mesh, coords,
                                  layout=partition.packed_layout(cfg))
     local = partition.map_with_path(local, lambda _, t: t.clone())
@@ -130,6 +143,8 @@ def run_case(case, mesh, coords):
         out["prefill"] = lg
         cache = _decode_steps(model, local, cache, toks, P, T, out)
         _cache_record(cache, out)
+        if case.get("keep_state"):
+            out["state"] = {k: t.clone() for k, t in cache["mamba"].items()}
     if "train" in case["run"]:
         toks = _tokens(case["seed"] + 1, (B, P))[rows]
         tgt = _tokens(case["seed"] + 2, (B, P))[rows]
@@ -175,26 +190,33 @@ def main(argv):
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import partition, spmd
+    from repro_torch.launch import spmd
     from repro_torch.launch.distributed import (initialize_runtime,
                                                 shutdown_runtime)
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.tp_serve import mesh_axes_of
 
     rank, world = a["rank"], a["world"]
     initialize_runtime(f"127.0.0.1:{a['port']}", world, rank,
                        backend="gloo", timeout_s=300)
-    mesh = make_mesh(tuple(a["mesh"]), ("data", "model"),
-                     devices=[torch.device("cpu")] * world)
-    comm = spmd.GroupComm(mesh, rank)
-    coords = spmd.rank_coords(mesh, rank)
-    res = {"coords": coords}
+    meshes = {}
+    res = {}
     for case in a["cases"]:
         cfg = get_config(case["arch"])
+        names = mesh_axes_of(case.get("variant"))
+        if names not in meshes:
+            mesh = make_mesh(tuple(a["mesh"]), names,
+                             devices=[torch.device("cpu")] * world)
+            meshes[names] = (mesh, spmd.GroupComm(mesh, rank))
+        mesh, comm = meshes[names]
+        coords = spmd.rank_coords(mesh, rank)
+        res.setdefault("coords", coords)
+        rules, axes = case_layout(case, cfg, mesh)
         comm.log.reset()
-        with spmd.spmd(mesh, partition.rules_for(cfg, mesh),
-                       case.get("axes") or partition.DEFAULT_AXES, coords,
-                       comm, dims=spmd.logical_sizes(cfg)):
+        with spmd.spmd(mesh, rules, axes, coords, comm,
+                       dims=spmd.logical_sizes(cfg)):
             res[case["name"]] = run_case(case, mesh, coords)
+        res[case["name"]]["coords"] = coords
         res[case["name"]]["collectives"] = comm.log.snapshot()
     torch.save(res, f"{a['out']}/rank{rank}.pt")
     dist.barrier()

@@ -489,23 +489,30 @@ TP_SMOKE_WORK = {"whisper-base": dict(min_prompt=4, max_prompt=4, min_new=16,
     ("zamba2-1.2b", 4, ("flash_attention", "swiglu_mlp", "mamba2_ssd")),
     ("rwkv6-1.6b", 3, ("rwkv6_wkv",)),
     ("whisper-base", None, ("flash_attention",)),
-    ("gemma3-1b", 6, ("flash_attention", "swiglu_mlp"))])
+    ("gemma3-1b", 6, ("flash_attention", "swiglu_mlp")),
+    ("zamba2-1.2b@attn2d", 4, ("flash_attention", "swiglu_mlp",
+                               "mamba2_ssd"))])
 def test_tp_phase_on_the_cpu(monkeypatch, arch, layers, kernels):
     """Phase 15's wiring at the reduced config on four gloo ranks of the
-    CPU, model by model: the ranks agree, demote the model's own kernel
+    CPU, job by job: the ranks agree, demote the model's own kernel
     stage at the fault step together, hold the unsharded engine's logits
     before it (rwkv6-1.6b layer by layer, and its prefill against the f32
     model), call the wrappers at the shard shapes as often as the card's
-    counts want, hold a quarter of the unsharded cache (whisper-base's
-    kv heads and cross-KV, gemma3-1b's slots), and move the bytes a tick
-    the dry run's stub counts."""
+    counts want, hold their share of the unsharded cache (a quarter over
+    (1, 4): whisper-base's kv heads and cross-KV, gemma3-1b's slots; a
+    half of zamba2-1.2b's kv heads, conv channels and SSM heads over
+    ``attn2d``'s "model_h", whose Mamba2 params are cut four ways), and
+    move the bytes a tick the dry run's stub counts."""
     from repro_torch.launch.tp_serve import TPServeSpec
     from repro_torch.viscosity import HW
+    name = arch
+    arch, _, variant = name.partition("@")
+    variant = variant or None
 
-    def spec(a=arch):
+    def spec(a=arch, v=variant):
         return TPServeSpec(arch=a, layers=layers, dtype="bfloat16",
                            hw_route=HW, fault_step=chip_smoke.TP_FAULT_STEP,
-                           fault_rank=chip_smoke.TP_FAULT_RANK,
+                           fault_rank=chip_smoke.TP_FAULT_RANK, variant=v,
                            **{**chip_smoke.TP_WORKLOAD, "min_prompt": 8,
                               "max_prompt": 16, **TP_SMOKE_WORK.get(a, {})})
     monkeypatch.setattr(chip_smoke, "tp_spec", spec)
@@ -516,11 +523,13 @@ def test_tp_phase_on_the_cpu(monkeypatch, arch, layers, kernels):
                              "mamba2_ssd", "rwkv6_wkv")}
     entry, paths = chip_smoke.tp_phase(torch.device("cpu"), counters,
                                        "cpu", count="kernel_calls",
-                                       archs=(arch,))
+                                       jobs=((arch, variant),))
     cfg = spec().config()
-    model = entry["models"][arch]
+    model = entry["models"][name]
     assert len(model["ranks"]) == 4 and model["layers"] == cfg.num_layers
-    launches = paths[f"tp {arch}"]
+    assert model["mesh"] == list(chip_smoke.TP_VARIANT_MESH if variant
+                                 else chip_smoke.TP_MESH)
+    launches = paths[f"tp {name}"]
     assert all(launches[k] > 0 for k in kernels), launches
     assert all(n == 0 for k, n in launches.items() if k not in kernels)
     assert set(model["stub_tick_bytes"]) == {"all-reduce", "all-gather"}

@@ -336,8 +336,9 @@ def test_lane_fault_on_one_rank_demotes_the_stage_on_both():
                                 slots=2, dtype="float32")
     with tempfile.TemporaryDirectory() as d:
         ref_path = os.path.join(d, "ref.pt")
-        ref = tp_serve.reference_run(spec, path=ref_path)
-        res = tp_serve.launch_ranks(spec, (1, 2), ref_logits=ref_path,
+        ref = tp_serve.reference_run(spec, "cpu", path=ref_path)
+        res = tp_serve.launch_ranks(spec, (1, 2), device="cpu",
+                                    ref_logits=ref_path,
                                     env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert tp_serve.check_agreement(res) == []
     for r in res:
@@ -348,3 +349,15 @@ def test_lane_fault_on_one_rank_demotes_the_stage_on_both():
                   if c["step"] < 3]
         assert len(before) >= 3 and max(before) <= OP_TOL, r["logits_rel"]
     assert sorted(res[0]["tokens"]) == sorted(ref["tokens"])
+
+
+def test_launchers_need_the_card_unless_given_the_cpu(monkeypatch):
+    """The tensor-parallel launchers run on the card by default: without
+    one (and without ``device="cpu"``) they raise ``resolve_device``'s
+    error before starting a rank."""
+    from repro_torch.launch import tp_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tp_serve.launch_ranks(tp_serve.TPServeSpec(), (1, 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tp_train.reference_run(tp_train.TPTrainSpec())

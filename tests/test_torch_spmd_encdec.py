@@ -200,8 +200,9 @@ def test_lane_fault_on_rank_1s_attention_demotes_it_on_both():
     assert spec.fault_stage == "flash_attention"
     with tempfile.TemporaryDirectory() as d:
         ref_path = os.path.join(d, "ref.pt")
-        ref = tp_serve.reference_run(spec, path=ref_path)
-        res = tp_serve.launch_ranks(spec, MESH, ref_logits=ref_path,
+        ref = tp_serve.reference_run(spec, "cpu", path=ref_path)
+        res = tp_serve.launch_ranks(spec, MESH, device="cpu",
+                                    ref_logits=ref_path,
                                     env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert tp_serve.check_agreement(res) == []
     for r in res:

@@ -26,6 +26,14 @@ float32 tolerances of ``test_torch_zamba2.py`` and ``test_torch_rwkv6.py``
 ``test_torch_train.py``); INTERPRET at the op's 2e-2 against the
 unsharded port's INTERPRET.  Then ``launch/tp_serve.py``'s serve over two
 ranks with a lane fault on rank 1's scan stage.
+
+Then the reduced zamba2-1.2b once more, over four processes of a
+(1, 2, 2) mesh under the ``attn2d`` and ``ep`` variants, whose serving
+cache cuts the Mamba2 state otherwise than its params: the same
+prefill and decode steps against the unsharded port (1e-5) and the
+reference, the ranks' states put together against the unsharded cache,
+each decode step's bytes against the dry run's; and, at full width on
+meta, every variant mesh's cache specs.
 """
 import dataclasses
 import os
@@ -44,6 +52,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import partition, tp_serve
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.variants import VARIANTS
 from repro_torch.viscosity import INTERPRET, SW
 from _torch_threads import one_torch_thread  # noqa: F401
 import _torch_spmd_worker as worker
@@ -219,8 +228,9 @@ def test_lane_fault_on_rank_1s_scan_demotes_it_on_both(arch, stage):
     assert tp_serve.fault_stage_for(spec.config()) == stage
     with tempfile.TemporaryDirectory() as d:
         ref_path = os.path.join(d, "ref.pt")
-        ref = tp_serve.reference_run(spec, path=ref_path)
-        res = tp_serve.launch_ranks(spec, MESH, ref_logits=ref_path,
+        ref = tp_serve.reference_run(spec, "cpu", path=ref_path)
+        res = tp_serve.launch_ranks(spec, MESH, device="cpu",
+                                    ref_logits=ref_path,
                                     env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert tp_serve.check_agreement(res) == []
     for r in res:
@@ -233,21 +243,131 @@ def test_lane_fault_on_rank_1s_scan_demotes_it_on_both(arch, stage):
     assert sorted(res[0]["tokens"]) == sorted(ref["tokens"])
 
 
-def test_state_cut_over_another_axis_than_its_params_is_refused():
-    """``attn2d`` puts the Mamba2 params on ("model_h", "model_f") and the
-    serving cache on "model_h": the runtime does not reshard a recurrent
-    state, so ``cache_specs`` refuses, naming the leaves."""
-    from repro_torch.launch import spmd
+# the variants whose Mamba2 state the serving cache cuts otherwise than
+# its params, at (1, 2, 2): (the cache's axis, the params', the cache's
+# ranks) -- ``attn2d`` the cache over "model_h" (2 ranks), the params over
+# ("model_h", "model_f") (4); ``ep`` the cache over ("expert", "tp") (4),
+# the params over "tp" (2)
+VARIANT_MESH = (1, 2, 2)
+MOVES = {"attn2d": ("model_h", ("model_h", "model_f"), 2),
+         "ep": (("expert", "tp"), "tp", 4)}
+
+
+@pytest.fixture(scope="module")
+def variant_runs(tmp_path_factory):
+    """One launch of four gloo ranks over (1, 2, 2): the reduced
+    zamba2-1.2b on SW under each variant of ``MOVES`` (prefill and the
+    teacher-forced decode steps, the ranks' recurrent states kept), and
+    the unsharded port's run of the same case."""
+    tmp = tmp_path_factory.mktemp("spmd_variants")
+    cfg, model, tree = _ref_params(ZAMBA)
+    path = str(tmp / "zamba.pt")
+    torch.save(params_from_jax(tree, device="cpu"), path)
+    refs = {ZAMBA: (cfg, model, jax.tree_util.tree_map(jnp.asarray, tree))}
+    cases = [{"name": v, "arch": ZAMBA, "route": "sw", "run": ["prefill"],
+              "variant": v, "keep_state": True, "params": path, "batch": B,
+              "prompt": P, "decode": T, "seed": 5} for v in MOVES]
+    ranks = _launch(VARIANT_MESH, cases, tmp)
+    one = make_mesh((1, 1), ("data", "model"), devices=[torch.device("cpu")])
+    plain = worker.run_case(dict(cases[0], variant=None), one,
+                            {"data": 0, "model": 0})
+    return ranks, plain, refs
+
+
+def _dryrun_tick(variant):
+    """The dry run's collective bytes by kind for one decode step of the
+    same case (f32, B rows, a cache of P + T slots) on one rank of the
+    variant's (1, 2, 2) mesh, on meta."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.variants import VARIANTS
+    v = VARIANTS[variant]
+    rec = dryrun.analyze_cell(
+        dataclasses.replace(get_config(ZAMBA), dtype="float32"),
+        ShapeSpec("tick", P + T, B, "decode"),
+        mesh=make_mesh(VARIANT_MESH, v["mesh_axes"],
+                       devices=[torch.device("meta")] * 4),
+        rules=v["rules"], axes=v["axes"])
+    return rec["collectives"]["bytes_by_kind"]
+
+
+@pytest.mark.parametrize("variant", list(MOVES))
+def test_state_cut_over_another_axis_than_its_params_is_resharded(
+        variant_runs, variant, tmp_path):
+    """Under ``attn2d`` (the cache coarser than the params) and ``ep``
+    (finer, and not inside them) the runtime moves each layer's Mamba2
+    state between the two cuts, the packed conv tail by component: on four
+    ranks the logits equal the unsharded port's (1e-5 of the largest) and
+    the reference's (float32 tolerances), every rank's ``conv`` and
+    ``ssm`` leaves put together equal the unsharded cache (1e-5: a wrong
+    component order moves x channels into B and C), each decode step moves
+    the bytes the dry run counts on meta, and the dry run's reduced
+    decode cell under the variant reads ok."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import hillclimb, spmd
     from repro_torch.launch.variants import VARIANTS
     from repro_torch.models import build_model
-    v = VARIANTS["attn2d"]
-    sizes = {"data": 1, "model_h": 2, "model_f": 2}
-    cfg = get_config(ZAMBA)
+    ranks, plain, refs = variant_runs
+    v, cfg = VARIANTS[variant], get_config(ZAMBA)
+    cache_ax, param_ax, m = MOVES[variant]
+    for key in KEYS:
+        got = ranks[0][variant][key]
+        for r in ranks[1:]:
+            assert torch.equal(got, r[variant][key]), key
+        _close(got, plain[key], SHARD_REL)
+        _ref_close(got, _ref_serve(ZAMBA, refs)[key], TOL[ZAMBA])
+    mesh = make_mesh(VARIANT_MESH, v["mesh_axes"],
+                     devices=[torch.device("cpu")] * 4)
+    with spmd.spmd(mesh, v["rules"], v["axes"]):
+        assert spmd.state_axes(cfg) == {"ssm": (-3, cache_ax, param_ax),
+                                        "conv": (-1, cache_ax, param_ax)}
+        _, specs = spmd.cache_specs(build_model(cfg), B, P + T)
+    state = partition.unshard_tree(
+        [r[variant]["state"] for r in ranks], specs["mamba"], mesh,
+        layout=partition.packed_layout(cfg))
+    for name, dim in (("conv", -1), ("ssm", -3)):
+        want = plain["state"][name]
+        assert all(r[variant]["state"][name].shape[dim] * m == want.shape[dim]
+                   for r in ranks)
+        _close(state[name], want, SHARD_REL)
+    stub = _dryrun_tick(variant)
+    for r in ranks:
+        for step in r[variant]["step_collectives"]:
+            assert step["bytes"] == stub, (step["bytes"], stub)
+    assert stub["all-gather"] > 0
+    shapes = {"decode_32k": dataclasses.replace(
+        SHAPES["decode_32k"], seq_len=64, global_batch=16)}
+    rec = hillclimb.run_variant("zamba2-1.2b", "decode_32k", variant,
+                                out_dir=str(tmp_path), shapes=shapes)
+    assert rec["status"] == "ok", rec.get("error") or rec.get("reason")
+
+
+SERVE_VARIANTS = [n for n, v in VARIANTS.items() if "mesh_axes" in v]
+
+
+@pytest.mark.parametrize("mesh", ["1x2x2", "own"])
+@pytest.mark.parametrize("variant", SERVE_VARIANTS)
+def test_cache_specs_accept_every_variant_mesh(variant, mesh):
+    """At full width, on (1, 2, 2) and on the variant's own mesh,
+    ``cache_specs`` takes zamba2-1.2b's and rwkv6-1.6b's serving caches:
+    Mamba2's state is cut over the ``attn`` axis and written by params on
+    the ``ssm`` one (moved between them), RWKV-6's WKV heads on the same
+    axis as ``wr``'s columns."""
+    from repro_torch.launch import spmd
+    from repro_torch.models import build_model
+    v = VARIANTS[variant]
+    shape = VARIANT_MESH if mesh == "1x2x2" else v["mesh_shape"]
+    sizes = dict(zip(v["mesh_axes"], shape))
     with spmd.spmd(sizes, v["rules"], v["axes"]):
-        spmd.check_runtime(cfg)            # the step itself is sharded
-        with pytest.raises(NotImplementedError,
-                           match=r"mamba/conv, mamba/ssm .*'model_h'"):
-            spmd.cache_specs(build_model(cfg), 2, 16)
+        for arch in ("zamba2-1.2b", "rwkv6-1.6b"):
+            cfg = get_config(arch)
+            spmd.check_runtime(cfg)
+            spmd.cache_specs(build_model(cfg), 16, 64)
+            for name, (_, cache_ax, param_ax) in \
+                    spmd.state_axes(cfg).items():
+                assert cache_ax == v["axes"]["attn"], name
+                assert param_ax == (v["axes"]["attn"] if name == "wkv"
+                                    else v["axes"]["ssm"]), name
 
 
 @pytest.mark.parametrize("arch", [ZAMBA, RWKV])
