@@ -3,7 +3,8 @@
 model-zoo, encoder-decoder, tuning and tensor-parallel paths, its examples
 and its dry run on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py               # from the root of a checkout
+    python3 chip_smoke.py --four-cards  # phase 17 alone, on four cards
 
 Phases (any failed check exits non-zero; nothing falls back to the CPU):
 
@@ -463,6 +464,57 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
              name and power limit (rehearsed on the CPU by
              ``test_torch_chip_smoke.py``).
              Then the seconds of every phase.
+17. nccl  — ``--four-cards`` runs this phase alone (not phases 1-16; it
+             raises where fewer than four cards are seen): the
+             tensor-parallel runtime over NCCL, one rank a card
+             (``mesh.rank_device``: rank r on ``cuda:r``; ``GroupComm``
+             without host copies).  (a) Each card's name and power limit,
+             ``nvidia-smi topo -m`` (or its refusal), the NCCL version and
+             the transports NCCL's INFO log names for the first launch.
+             (b) Each of the five kernels at one shape it serves
+             (attention at mixtral-8x7b's and llama4-scout's rank, H = 8
+             and 10 over Hkv = 2; SwiGLU, the SSD and the WKV at phase
+             15's ranks; 64 MiB for the checksum) on ``cuda:1``-``cuda:3``
+             while the current device stays ``cuda:0``: one launch on that
+             card, its plain version's result within phase 2's bounds (the
+             checksum equal), ``cuda:0``'s bits; timed on ``cuda:1``
+             beside its plain version, the library call and its bound.
+             Then every unsharded run on ``cuda:0``, each freed before the
+             next: phase 15's six and, per MoE model, 4 layers at full
+             width in f32 and bf16 (``TPServeSpec.keyed``: the draw of
+             ``LMModel.init_keyed``), and one launch of four NCCL ranks
+             serves in turn (c) phase 15's six jobs, checked as phase 15
+             checks them, each rank's prefill and tick ms beside the same
+             jobs' under gloo on ``cuda:0``, served after it; (d)
+             mixtral-8x7b and llama4-scout at 4 layers over (1, 4), phase
+             11's workload (6 requests of 16-128 tokens on 4 slots): in
+             f32 on route SW, no fault, each call's gathered logits within
+             1e-3 of the unsharded f32 run's and every request complete;
+             in f32 on route hw with a lane fault on rank 1's attention at
+             step 6, mixtral's calls before it within 4e-3 of the
+             unsharded f32 hw run's (the attention kernel computes in
+             bf16, whose rounding parts the ranks' f32 projections from
+             the unsharded run's; llama4-scout's part as far as in bf16,
+             so its readings print), the fault demoted at step 6 on
+             every rank; in bf16 on route hw with the same fault, the
+             ranks agree, demote it at step 6, each layer's router flips
+             against the unsharded bf16 run (phase 11's ``choice_flips``)
+             print, and mixtral's logits, the control, fail the f32 hw
+             job's check; (e) the same
+             models at
+             full depth, 32 and 48 layers, bf16, each rank drawing only its
+             block (21.75 and 50.19 GiB): the ranks agree, every request
+             completes, the fault is demoted, each tick moves the dry
+             run's stub bytes, the block is the meta's, the peak is under
+             80 GiB, the serve's peak within 10% of params and cache, the
+             draw's within its bound (``nccl_param_bounds``), and the
+             checksum of layers 0-3 equals the bf16 4-layer job's on the
+             same rank; prefill and tick ms, tok/s and peaks per rank.  (f)
+             Phase 16 over (2, 2), under NCCL and then gloo, its
+             collectives counted and timed per kind.  The phase must end
+             within 600 s.  Its ``kernels`` line lists the five kernels
+             with (b)'s numbers and their phase-17 launches (rehearsed on
+             the CPU by ``test_torch_chip_smoke.py``).
 
 The second-to-last line is one JSON object with the per-kernel numbers
 (``launches`` sums the counts of the paths, each read with the counters
@@ -480,10 +532,10 @@ also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -491,6 +543,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -2021,26 +2074,6 @@ def init_weights(cfg, dev, *, f32: bool = False):
     return params, params32, time.perf_counter() - t0
 
 
-@contextlib.contextmanager
-def router_record():
-    """Record each MoE FFN call's router probabilities (the f32 (B, S, E)
-    softmax that ``moe_ffn`` computes from its input) in call order: one
-    entry a layer in a prefill."""
-    import torch
-
-    from repro_torch.models import moe as moe_mod
-    probs, ffn = [], moe_mod.moe_ffn
-
-    def recording(p, x, **kw):
-        probs.append(torch.softmax(x.float() @ p["router"], dim=-1))
-        return ffn(p, x, **kw)
-    moe_mod.moe_ffn = recording
-    try:
-        yield probs
-    finally:
-        moe_mod.moe_ffn = ffn
-
-
 def choice_flips(cfg, probs_hw, probs_sw):
     """Per layer, the tokens whose top-k expert choice differs between the
     HW and the SW route's router probabilities: their count, the SW
@@ -2066,15 +2099,14 @@ def router_teacher_forced(cfg, params, prompt):
     """Layer by layer from the SW route's activations (teacher-forced):
     each layer's attention on the HW and on the SW route from the same
     input, its largest difference relative to the largest SW output; and
-    the router's probabilities after each route's attention (the same
-    residual and norm the block feeds the MoE FFN), for ``choice_flips``.
-    Each layer then continues from the SW block's output."""
-    import torch
-
+    the router's probabilities in each route's block from that input
+    (``moe.observe_router``), for ``choice_flips``.  Each layer then
+    continues from the SW block's output."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import blocks as B
     from repro_torch.models import build_model
     from repro_torch.models import layers as Lm
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import rope as rope_mod
     from repro_torch.viscosity import HW, SW
 
@@ -2099,12 +2131,12 @@ def router_teacher_forced(cfg, params, prompt):
                for r in (HW, SW)}
         worst = max(worst, (att[HW] - att[SW]).float().abs().max().item()
                     / att[SW].float().abs().max().item())
+        out_ = {}
         for r in (HW, SW):
-            hr = Lm.norm(p["ln2"], x + att[r], eps=cfg.norm_eps)
-            probs[r].append(torch.softmax(hr.float() @ p["moe"]["router"],
-                                          dim=-1))
-        x = B.attn_block(p, x, cfg, model.metas[0], ropes,
-                         {"flash_attention": SW})[0]
+            with moe_mod.observe_router(probs[r].append):
+                out_[r] = B.attn_block(p, x, cfg, model.metas[0], ropes,
+                                       {"flash_attention": r})[0]
+        x = out_[SW]
     return probs, worst
 
 
@@ -2133,6 +2165,7 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
                                         FaultClassifier)
     from repro_torch.kernels.checksum import checksum_tree, checksum_tree_ref
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import (RECOMPILE, RESIDENT, ServeConfig,
                                    ServeEngine, percentile, reference_decode,
                                    synthetic_workload)
@@ -2282,7 +2315,8 @@ def serve_path(cfg, dev, wrappers, params, workload, fault_stage,
     last, probs = {}, {}
     for route in (HW, SW):
         m = build_model(cfg, routes={s: route for s in stages})
-        with router_record() as probs[route]:
+        probs[route] = []
+        with moe_mod.observe_router(probs[route].append):
             logits, _ = m.prefill(params, {
                 "tokens": prompt, "cache": m.init_cache(1, max_len,
                                                         device=dev)})
@@ -3563,6 +3597,10 @@ def tp_want_launches(cfg, stage, rank, n_pre, n_pre_before, n_before,
                     swiglu_mlp=groups * n_calls, mamba2_ssd=L * n_pre_before)
     elif cfg.family == "ssm":
         want["rwkv6_wkv"] = L * n_pre_before
+    elif cfg.moe is not None:
+        # attention is the MoE family's one kernel stage, and the faulted
+        # one
+        want["flash_attention"] = L * n_pre_before
     else:
         want.update(flash_attention=L * n_pre, swiglu_mlp=L * n_before)
     want[stage] += rank == TP_FAULT_RANK
@@ -3572,7 +3610,7 @@ def tp_want_launches(cfg, stage, rank, n_pre, n_pre_before, n_before,
 def tp_shape_faults(cfg, shapes, variant=None):
     """What of a rank's recorded kernel shapes is not its shard's (empty
     when every served call ran at the rank's shapes)."""
-    from repro_torch.train.runner import canary_stages
+    from repro_torch.train.runner import canary_stages, model_stage_names
     loc, bad = tp_local_shapes(cfg, variant), []
     if cfg.family != "ssm":
         # the canary's probe (B, S, H, D) ports as the kernel sees them
@@ -3585,7 +3623,7 @@ def tp_shape_faults(cfg, shapes, variant=None):
                              for q, k in served):
             bad.append(f"attention ran at {shapes['flash_attention']}, not "
                        f"at {loc['heads']} heads")
-    if cfg.family != "ssm" and not cfg.is_encdec:
+    if "swiglu_mlp" in model_stage_names(cfg):
         served = [sh for sh in shapes["swiglu_mlp"]
                   if sh[0][1] == cfg.d_model]     # not the canary's probe
         if not served or any(w1 != [cfg.d_model, loc["d_ff"]]
@@ -3734,16 +3772,61 @@ def tp_reference(arch, dev, wrappers, tmp: str, variant=None, shared=None):
                                      layer_probe_path=probe)}
 
 
-def tp_model(arch, ref, res, *, count: str):
+def tp_rank_faults(spec, r, stub, count: str):
+    """What of one rank's report ``r`` of a served job breaks the checks
+    every sharded serve is held to (empty: nothing): the fault's stage
+    demoted at ``TP_FAULT_STEP`` (``spec.hw_route`` before it, SW from
+    it), each kernel's launches (``tp_want_launches``, read from the
+    rank's ``count``), the kernels' shapes (the rank's shard's), its
+    cache (its share of the unsharded one's) and each tick's collective
+    bytes (the dry run's ``stub``).  A spec on the SW route has no fault
+    and launches no kernel."""
+    from repro_torch.viscosity import SW
+    cfg, stage, bad = spec.config(), spec.fault_stage, []
+    routes, calls = r["routes"], r["calls"]
+    if spec.hw_route == SW:     # every stage on SW: no fault, no kernel
+        if r["fault_applied_step"] is not None or set(routes) != {SW}:
+            bad.append(f"a fault at step {r['fault_applied_step']}: "
+                       f"routes {routes}")
+        want = dict.fromkeys(("flash_attention", "swiglu_mlp",
+                              "mamba2_ssd", "rwkv6_wkv"), 0)
+    else:
+        if not (r["fault_applied_step"] == TP_FAULT_STEP
+                and routes[:TP_FAULT_STEP] == [spec.hw_route] * TP_FAULT_STEP
+                and set(routes[TP_FAULT_STEP:]) == {SW}):
+            bad.append(f"demoted {stage} at step "
+                       f"{r['fault_applied_step']}: routes {routes}")
+        before = [c for c in calls if c["step"] < TP_FAULT_STEP]
+        want = tp_want_launches(
+            cfg, stage, r["rank"],
+            sum(c["kind"] == "prefill" for c in calls),
+            sum(c["kind"] == "prefill" for c in before), len(before),
+            len(calls))
+        bad += tp_shape_faults(cfg, r["kernel_shapes"], spec.variant)
+    got = {k: r[count].get(k, 0) for k in want}
+    if got != want:
+        bad.append(f"launched {got}, want {want}")
+    cache_bad = tp_cache_faults(spec, r["cache_shapes"])
+    if cache_bad:
+        bad.append("its cache is not its share: " + "; ".join(cache_bad))
+    ticks = [c for c in calls if c["kind"] == "tick"]
+    if not (ticks and all(c["bytes"] == stub for c in ticks)):
+        bad.append(f"collective bytes a tick "
+                   f"{[c['bytes'] for c in ticks][:2]} differ from the dry "
+                   f"run's counting stub {stub}")
+    return bad
+
+
+def tp_model(arch, ref, res, *, count: str, backend: str = MH_BACKEND,
+             tag: str = "[tp]"):
     """Phase 15's checks of one job (``arch`` its ``tp_name``): ``ref``
     its ``tp_reference``, ``res`` its four ranks' reports from the
-    phase's launch.  Returns (entry, launches of the ranks, launches of
-    the unsharded run)."""
+    phase's launch over ``backend``; lines start with ``tag``.  Returns
+    (entry, launches of the ranks, launches of the unsharded run)."""
     import numpy as np
     import torch
 
     from repro_torch.launch import tp_serve
-    from repro_torch.viscosity import HW, SW
 
     spec, e2e, ref_launches = ref["spec"], ref["e2e"], ref["ref_launches"]
     cfg = spec.config()
@@ -3769,13 +3852,11 @@ def tp_model(arch, ref, res, *, count: str):
     for r in res:
         before = [c for c in r["calls"] if c["step"] < TP_FAULT_STEP]
         rels = r["logits_rel"][:len(before)]
-        check(r["world"] == 4 and r["backend"] == MH_BACKEND,
-              f"tp {arch}: rank {r['rank']} is not one of four gloo ranks")
-        check(r["fault_applied_step"] == TP_FAULT_STEP
-              and r["routes"][:TP_FAULT_STEP] == [HW] * TP_FAULT_STEP
-              and set(r["routes"][TP_FAULT_STEP:]) == {SW},
-              f"tp {arch}: rank {r['rank']} demoted {stage} at step "
-              f"{r['fault_applied_step']}: routes {r['routes']}")
+        check(r["world"] == 4 and r["backend"] == backend,
+              f"tp {arch}: rank {r['rank']} is not one of four {backend} "
+              "ranks")
+        bad = tp_rank_faults(spec, r, stub, count)
+        check(not bad, f"tp {arch}: rank {r['rank']}: " + "; ".join(bad))
         row = {"coords": r["coords"], "logits_rel_max": max(rels or [0.0])}
         if e2e is None:
             check(len(rels) == len(before) > 0 and max(rels) <= LOGITS_REL,
@@ -3803,24 +3884,7 @@ def tp_model(arch, ref, res, *, count: str):
                   f"{err:.3e} from the f32 model's, the bf16 SW route's "
                   f"{entry['sw_vs_f32_rel']:.3e}")
         calls = r["calls"]
-        n_pre = sum(c["kind"] == "prefill" for c in calls)
-        n_pre_before = sum(c["kind"] == "prefill" for c in before)
-        want = tp_want_launches(cfg, stage, r["rank"], n_pre, n_pre_before,
-                                len(before), len(calls))
-        got = {k: r[count].get(k, 0) for k in want}
-        check(got == want,
-              f"tp {arch}: rank {r['rank']} launched {got}, want {want}")
-        shape_bad = tp_shape_faults(cfg, r["kernel_shapes"], spec.variant)
-        check(not shape_bad, f"tp {arch}: rank {r['rank']}: "
-              + "; ".join(shape_bad))
-        cache_bad = tp_cache_faults(spec, r["cache_shapes"])
-        check(not cache_bad, f"tp {arch}: rank {r['rank']}'s cache is not "
-              "its share: " + "; ".join(cache_bad))
         ticks = [c for c in calls if c["kind"] == "tick"]
-        check(ticks and all(c["bytes"] == stub for c in ticks),
-              f"tp {arch}: rank {r['rank']}'s collective bytes a tick "
-              f"{[c['bytes'] for c in ticks][:2]} differ from the dry "
-              f"run's counting stub {stub}")
         pre_ms = [c["ms"] for c in calls if c["kind"] == "prefill"]
         tick_ms = [c["ms"] for c in ticks]
         row.update({"prefill_ms": pre_ms, "tick_ms": tick_ms,
@@ -3836,7 +3900,7 @@ def tp_model(arch, ref, res, *, count: str):
                   f"time-mix within {max(r['layer_rel']):.3e} of the "
                   f"unsharded SW one (worst layer), prefill logits "
                   f"{err:.3e} from f32 (bf16 SW {entry['sw_vs_f32_rel']:.3e})")
-        out(f"[tp] {arch} rank {r['rank']} {r['coords']}: prefill ms "
+        out(f"{tag} {arch} rank {r['rank']} {r['coords']}: prefill ms "
             f"{[round(x, 2) for x in pre_ms]}, tick ms median "
             f"{row['tick_ms_median']:.2f} (of {len(tick_ms)}), {detail}, "
             f"launches {r['launches']}, params "
@@ -3851,7 +3915,7 @@ def tp_model(arch, ref, res, *, count: str):
     entry["model_s"] = entry["reference_s"] + entry["ranks_s"]
     launches = {n: sum(r[count].get(n, 0) for r in res)
                 for n in ref_launches}
-    out(f"[tp] {arch}: {len(res)} ranks agree on "
+    out(f"{tag} {arch}: {len(res)} ranks agree on "
         f"{sum(map(len, entry['tokens'].values()))} tokens over "
         f"{entry['steps']} steps; {stage} demoted on every rank at step "
         f"{TP_FAULT_STEP}; collective bytes a tick {stub} on every rank, as "
@@ -3859,6 +3923,31 @@ def tp_model(arch, ref, res, *, count: str):
         f"launches {launches} (unsharded run {ref_launches}); unsharded "
         f"run {entry['reference_s']:.2f} s, ranks {entry['ranks_s']:.2f} s")
     return entry, launches, ref_launches
+
+
+def tp_references(dev, wrappers, tmp: str, jobs=TP_JOBS):
+    """Each job's ``tp_reference`` by ``tp_name`` (a variant's job shares
+    its model's unsharded run), in this process, one after another."""
+    refs = {}
+    for arch, variant in jobs:
+        refs[tp_name(arch, variant)] = tp_reference(
+            arch, dev, wrappers, tmp, variant, shared=refs.get(arch))
+    return refs
+
+
+def tp_checks(refs, names, res_all, *, count: str, backend: str,
+              tag: str = "[tp]"):
+    """``tp_model`` of each job of a launch (``res_all`` in ``names``'
+    order): (entries by name, {path: launches}: each job's ranks as "tp
+    <name>" and each unsharded run as "tp <name> unsharded")."""
+    models, paths = {}, {}
+    for name, res in zip(names, res_all):
+        models[name], launches, ref_launches = tp_model(
+            name, refs[name], res, count=count, backend=backend, tag=tag)
+        paths[f"tp {name}"] = launches
+        if not refs[name]["shared"]:
+            paths[f"tp {name} unsharded"] = ref_launches
+    return models, paths
 
 
 def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
@@ -3876,25 +3965,16 @@ def tp_phase(dev, wrappers, smi: str, *, timeout: float = TP_TIMEOUT_S,
     t0 = time.perf_counter()
     entry = {"mesh": list(TP_MESH), "variant_mesh": list(TP_VARIANT_MESH),
              "backend": MH_BACKEND, "models": {}, "nvidia_smi": smi}
-    paths = {}
     names = [tp_name(a, v) for a, v in jobs]
     with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
-        refs = {}
-        for (arch, variant), name in zip(jobs, names):
-            refs[name] = tp_reference(arch, dev, wrappers, tmp, variant,
-                                      shared=refs.get(arch))
+        refs = tp_references(dev, wrappers, tmp, jobs)
         t_ranks = time.perf_counter()
         res_all = tp_serve.launch_jobs(
             [refs[n]["job"] for n in names], TP_MESH, device=dev.type,
             backend=MH_BACKEND, timeout=timeout * len(jobs), src=str(SRC))
         entry["launch_s"] = time.perf_counter() - t_ranks
-        for name, res in zip(names, res_all):
-            e, launches, ref_launches = tp_model(name, refs[name], res,
-                                                 count=count)
-            entry["models"][name] = e
-            paths[f"tp {name}"] = launches
-            if not refs[name]["shared"]:
-                paths[f"tp {name} unsharded"] = ref_launches
+        entry["models"], paths = tp_checks(refs, names, res_all, count=count,
+                                           backend=MH_BACKEND)
     entry["phase_s"] = time.perf_counter() - t0
     out(f"[tp] phase {entry['phase_s']:.2f} s (the ranks' launch "
         f"{entry['launch_s']:.2f} s): " + ", ".join(
@@ -3927,19 +4007,19 @@ def tpt_jobs(init: str, want: str, ready: str):
                      compare="baseline")]
 
 
-def tpt_stub(spec):
+def tpt_stub(spec, mesh=TPT_MESH):
     """The dry run's counting stub for one step of ``spec`` on one rank of
-    the (2, 4) mesh on meta: its collective bytes by kind."""
+    ``mesh`` ((2, 4)) on meta: its collective bytes by kind."""
     import torch
 
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
-    n = TPT_MESH[0] * TPT_MESH[1]
+    n = mesh[0] * mesh[1]
     rec = dryrun.analyze_cell(
         spec.config(), ShapeSpec("tp_train", spec.seq, spec.batch, "train"),
         microbatch=1, zero1=spec.zero1,
-        mesh=make_mesh(TPT_MESH, ("data", "model"),
+        mesh=make_mesh(mesh, ("data", "model"),
                        devices=[torch.device("meta")] * n))
     return rec["collectives"]["bytes_by_kind"]
 
@@ -3948,13 +4028,13 @@ def _rel_gaps(got, want):
     return [abs(a - b) / abs(b) for a, b in zip(got, want)]
 
 
-def tpt_faults(ref, ctrl, res, stubs):
+def tpt_faults(ref, ctrl, res, stubs,
+               world: int = TPT_MESH[0] * TPT_MESH[1]):
     """What phase 16's ranks got wrong (empty: nothing): ``ref`` the
     unsharded run's report, ``ctrl`` the half-batch control's (held
     against ``ref``), ``res`` the ranks' reports by job (baseline, zero1),
-    ``stubs`` the dry run's bytes a step by job name."""
+    ``stubs`` the dry run's bytes a step by job name; ``world`` ranks."""
     bad = []
-    world = TPT_MESH[0] * TPT_MESH[1]
     base, zero = res
     if not (min(_rel_gaps(ctrl["grad_norms"], ref["grad_norms"]))
             > TPT_REF_REL and ctrl["vs"]["mu"] > TPT_REF_REL):
@@ -3999,13 +4079,18 @@ def tpt_faults(ref, ctrl, res, stubs):
     return bad
 
 
-def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
-    """Phase 16 (see the module docstring and the constants above).
-    Returns its report entry."""
+def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S,
+              mesh=TPT_MESH, backend: str = MH_BACKEND,
+              host: Optional[bool] = None, tag: str = "[tp_train]"):
+    """Phase 16 (see the module docstring and the constants above) over
+    ``mesh`` and ``backend`` (phase 17: (2, 2) over NCCL, a card a rank,
+    its collectives timed; ``host``: the ranks' ``GroupComm``'s).
+    Returns its report entry; lines start with ``tag``."""
     import torch
 
     from repro_torch.launch import tp_train
     import threading
+    world = mesh[0] * mesh[1]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="tp_train_") as tmp:
         init, want, ready = (os.path.join(tmp, f) for f in
@@ -4017,8 +4102,9 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
         def ranks():
             try:
                 box["res"] = tp_train.launch_ranks(
-                    tpt_jobs(init, want, ready), TPT_MESH, device=dev.type,
-                    backend=MH_BACKEND, timeout=timeout, src=str(SRC),
+                    tpt_jobs(init, want, ready), mesh, device=dev.type,
+                    backend=backend, host=host, timed=True,
+                    timeout=timeout, src=str(SRC),
                     env={**os.environ, "OMP_NUM_THREADS": "1"})
             except Exception as e:  # noqa: BLE001 — raised below
                 box["error"] = e
@@ -4038,17 +4124,22 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        stubs = {"baseline": tpt_stub(tpt_spec()),
-                 "zero1": tpt_stub(tpt_spec(True))}
+        stubs = {"baseline": tpt_stub(tpt_spec(), mesh),
+                 "zero1": tpt_stub(tpt_spec(True), mesh)}
         th.join()
         launch_s = time.perf_counter() - t0
     if "error" in box:
         raise box["error"]
     res = box["res"]
-    bad = tpt_faults(ref, ctrl, res, stubs)
-    check(not bad, "tp_train: " + "; ".join(bad))
+    bad = tpt_faults(ref, ctrl, res, stubs, world)
+    check(not bad, f"{tag} " + "; ".join(bad))
+    for job in res:
+        for r in job:
+            check(r["backend"] == backend and r["world"] == world,
+                  f"{tag} rank {r['rank']} is not one of {world} {backend} "
+                  "ranks")
     spec = tpt_spec()
-    entry = {"mesh": list(TPT_MESH), "backend": MH_BACKEND,
+    entry = {"mesh": list(mesh), "backend": backend,
              "spec": dataclasses.asdict(spec),
              "layers": spec.config().num_layers,
              "params": ref["param_bytes"] // 4, "unsharded": ref,
@@ -4056,7 +4147,7 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
              "unsharded_s": t_ref, "launch_s": launch_s, "stub_bytes": stubs,
              "jobs": {job[0]["name"]: job for job in res},
              "nvidia_smi": smi}
-    out(f"[tp_train] unsharded {tp_train.ARCH} at {entry['layers']} layers "
+    out(f"{tag} unsharded {tp_train.ARCH} at {entry['layers']} layers "
         f"({entry['params'] / 1e9:.3f} B params), B={spec.batch} "
         f"S={spec.seq}: losses {ref['losses']}, grad norms "
         f"{ref['grad_norms']}, step ms "
@@ -4064,7 +4155,7 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
         f"{ref['moment_bytes'] / 2**30:.3f} GiB, peak "
         f"{ref['peak_gib'] if ref['peak_gib'] is None else round(ref['peak_gib'], 2)}"
         f" GiB; {t_ref:.1f} s with the saves; {smi}")
-    out(f"[tp_train] control (half of each batch): grad norms "
+    out(f"{tag} control (half of each batch): grad norms "
         f"{ctrl['grad_norms']} (relative gaps "
         f"{_rel_gaps(ctrl['grad_norms'], ref['grad_norms'])}), first "
         f"moments {ctrl['vs']['mu']:.3e} and params "
@@ -4072,7 +4163,8 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
         f"limit {TPT_REF_REL:g}; {smi}")
     for job in res:
         for r in job:
-            out(f"[tp_train] {r['name']} rank {r['rank']} {r['coords']}: "
+            out(f"{tag} {r['name']} rank {r['rank']} {r['coords']} on "
+                f"{r['device']}: "
                 f"step ms {[round(st['ms'], 1) for st in r['steps']]}, "
                 f"losses {[st['loss'] for st in r['steps']]}, grad norms "
                 f"{[st['grad_norm'] for st in r['steps']]}; params "
@@ -4084,9 +4176,11 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
                 f"{r['param_bytes'] / 2**30:.3f} GiB, peak "
                 f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 2)}"
                 f" GiB; bytes a step {r['steps'][0]['collectives']['bytes']}"
-                f" (link {r['steps'][0]['collectives']['link_bytes']})")
+                f" (link {r['steps'][0]['collectives']['link_bytes']}), "
+                f"collectives a step by kind (count, ms) "
+                f"{[st['collective_ms'] for st in r['steps']]}")
     entry["phase_s"] = time.perf_counter() - t0
-    out(f"[tp_train] {len(res[0])} ranks over {list(TPT_MESH)}: ZeRO-1 "
+    out(f"{tag} {len(res[0])} {backend} ranks over {list(mesh)}: ZeRO-1 "
         f"within {TPT_PAIR_REL:g} of the baseline, both within "
         f"{TPT_REF_REL:g} of the unsharded run (losses, grad norms, first "
         f"moments, params), the half-batch control beyond it, moments "
@@ -4097,8 +4191,761 @@ def tpt_phase(dev, smi: str, *, timeout: float = TPT_TIMEOUT_S):
     return entry
 
 
+# Phase 17 (``--four-cards``): the tensor-parallel runtime over NCCL, one
+# card a rank (see the module docstring).  (c) phase 15's jobs over NCCL,
+# then under gloo on ``cuda:0`` (phase 15 as the one-card run has it); (d)
+# mixtral-8x7b and llama4-scout at 4 layers and full width, f32 on SW
+# (logits within ``NCCL_MOE_REL`` of the unsharded f32 run), f32 on hw
+# (mixtral within ``NCCL_MOE_HW_REL`` of the unsharded f32 hw run), then
+# bf16 on hw (router flips counted, mixtral's logits the control that must
+# fail the f32 hw bound); (e) the same at full depth, bf16, each rank
+# drawing its block alone (``TPServeSpec.keyed``); (f) phase 16 over
+# (2, 2).  The MoE jobs serve phase 11's workload.
+NCCL = "nccl"
+NCCL_CARDS = 4
+NCCL_DEVICES = [f"cuda:{i}" for i in range(NCCL_CARDS)]
+NCCL_MOE = ("mixtral-8x7b", "llama4-scout-17b-a16e")
+NCCL_MOE_LAYERS = 4
+NCCL_MOE_FULL = {"mixtral-8x7b": 32, "llama4-scout-17b-a16e": 48}
+NCCL_MOE_REL = 1e-3         # f32 on SW against the unsharded f32 run
+# f32 on hw: the attention kernel rounds its f32 operands to bf16, and
+# that rounding parts mixtral's ranks (their projections equal the
+# unsharded run's to 1e-7) from the unsharded run by 1.9e-3 on four H100s;
+# bf16's own rounding parts them by 6.6e-3 or more, so the bound tells the
+# two apart.  llama4-scout's part by 1.3e-3 to 2.1e-2 a call under the
+# same rounding, as far as its bf16 runs' (whose top-1 router flips at
+# near-ties): its f32 hw readings print, bounded by nothing
+NCCL_MOE_HW_REL = 4e-3
+NCCL_MOE_HW_HELD = ("mixtral-8x7b",)
+# (d)'s unsharded runs a model: (dtype, route)
+NCCL_MOE_REFS = (("float32", "sw"), ("float32", "hw"), ("bfloat16", "hw"))
+NCCL_MOE_WORKLOAD = dict(ZOO_WORKLOAD, requests=6, slots=4)
+NCCL_TRAIN_MESH = (2, 2)
+NCCL_CARD_GIB = 80.0        # a rank's peak stays under the card
+NCCL_SERVE_SLACK = 0.10     # a serve's peak over its params and cache
+NCCL_DRAW_SLACK = 64 << 20  # bytes over the keyed draw's bound
+NCCL_TIMEOUT_S = 900
+NCCL_BUDGET_S = 600         # the phase's seconds, checked
+
+
+def nccl_moe_spec(arch: str, layers: int, dtype: str = "bfloat16",
+                  route: str = "hw"):
+    """A (d) or (e) job: ``arch`` at full width and ``layers`` deep, in
+    ``dtype``, weights from ``init_keyed``, phase 11's workload; on
+    ``route`` hw with phase 15's fault (a lane fault on rank 1's
+    ``flash_attention``), on SW with none: the f32 SW job holds the
+    sharded math to the unsharded run's without the kernel's bf16
+    rounding."""
+    from repro_torch.launch.tp_serve import TPServeSpec
+    from repro_torch.viscosity import HW
+    hw = route == HW
+    return TPServeSpec(arch=arch, full=True, layers=layers, dtype=dtype,
+                       seed=0, hw_route=route,
+                       fault_step=TP_FAULT_STEP if hw else -1,
+                       fault_rank=TP_FAULT_RANK if hw else -1, keyed=True,
+                       **NCCL_MOE_WORKLOAD)
+
+
+def nccl_cards() -> dict:
+    """(a): each card's name and power limit, the topology, the NCCL
+    version."""
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    # nvidia-smi may refuse the topology query inside a container: its
+    # exit code and error stand in for the matrix then (NCCL's log below
+    # names the transport it chose either way)
+    got = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                         text=True)
+    topo = (got.stdout.rstrip() if got.returncode == 0 else
+            f"nvidia-smi topo -m exited {got.returncode}: "
+            f"{(got.stdout + got.stderr).strip()}")
+    version = ".".join(map(str, torch.cuda.nccl.version()))
+    for i, line in enumerate(smi):
+        out(f"[nccl] cuda:{i}: {line}")
+    for line in topo.splitlines():
+        out(f"[nccl] topo {line}")
+    out(f"[nccl] NCCL {version}, {torch.cuda.device_count()} cards")
+    return {"nvidia_smi": smi, "topo": topo, "nccl_version": version,
+            "cards": torch.cuda.device_count()}
+
+
+def nccl_transports(log_dir: str) -> list:
+    """The transports NCCL's INFO log names ("via P2P/...", "via SHM",
+    "via NET/...", NVLS), over every rank's log file in ``log_dir``."""
+    seen = set()
+    for name in sorted(os.listdir(log_dir)):
+        text = Path(log_dir, name).read_text(errors="replace")
+        seen.update(m.group(1) for m in re.finditer(r"via (\S+)", text))
+        if "NVLS" in text:
+            seen.add("NVLS")
+    return sorted(seen)
+
+
+def nccl_kernel_cases(dev):
+    """(b)'s inputs on ``dev``, one served shape a kernel, drawn on the
+    CPU from one seed (the same on every card): name -> (shape key, the
+    wrapper's call, the plain version's call, the tolerance, the library
+    call or None, (bytes, operations) of the bound)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.checksum import checksum_popcount, checksum_ref
+    from repro_torch.kernels.flash_attention import (attention_flops,
+                                                     attention_ref_blocked,
+                                                     flash_attention_bhsd)
+    from repro_torch.kernels.mamba2_scan import (ssd_chunked_cuda, ssd_flops,
+                                                 ssd_ref_blocked)
+    from repro_torch.kernels.rwkv6_scan import (wkv6_chunked_cuda,
+                                                wkv6_flops, wkv6_ref_blocked)
+    from repro_torch.kernels.swiglu import (swiglu_flops, swiglu_fused,
+                                            swiglu_ref_blocked)
+    from repro_torch.kernels.swiglu.ops import default_tiles
+    gen = torch.Generator().manual_seed(17)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+    cases = {}
+    ck = torch.randint(0, 256, ((64 << 20) + 3,), generator=gen,
+                       dtype=torch.uint8).to(dev)
+    cases["checksum"] = ("64 MiB + 3 bytes uint8",
+                         lambda: checksum_popcount(ck),
+                         lambda: checksum_ref(ck), None, None,
+                         (ck.numel(), 0))
+    # attention at the MoE ranks' prefill: mixtral-8x7b's 8 of 32 query
+    # heads over 2 of 8 kv heads, llama4-scout's 10 of 40 over 2 of 8
+    for arch in NCCL_MOE:
+        c = get_config(arch)
+        loc = tp_local_shapes(c)
+        H, Hkv, D, P = loc["heads"], loc["kv_heads"], c.resolved_head_dim, \
+            ZOO_PREFILL
+        q, k, v = randn(1, H, P, D), randn(1, Hkv, P, D), randn(1, Hkv, P, D)
+        cases[f"flash_attention {arch}"] = (
+            f"B=1 H={H} Hkv={Hkv} P={P} D={D} causal",
+            lambda q=q, k=k, v=v: flash_attention_bhsd(q, k, v),
+            lambda q=q, k=k, v=v: attention_ref_blocked(q, k, v),
+            ATTN_TOL,
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            ((2 * q.numel() + 2 * k.numel()) * 2,
+             attention_flops(1, P, P, H, D)))
+    # SwiGLU at phase 15's qwen1.5-4b rank (the MoE ranks launch none)
+    qwen = get_config("qwen1.5-4b")
+    Dm, Ff, M = qwen.d_model, tp_local_shapes(qwen)["d_ff"], 4
+    x = randn(M, Dm)
+    w1, w3 = randn(Dm, Ff, scale=Dm ** -0.5), randn(Dm, Ff, scale=Dm ** -0.5)
+    w2 = randn(Ff, Dm, scale=Ff ** -0.5)
+    tiles = dict(zip(("bm", "bf", "bs"), default_tiles(M, Ff)))
+    cases["swiglu_mlp"] = (
+        f"qwen1.5-4b rank M={M} {Dm}->{Ff}->{Dm}",
+        lambda: swiglu_fused(x, w1, w3, w2, **tiles),
+        lambda: swiglu_ref_blocked(x, w1, w3, w2, **tiles), SWIGLU_TOL,
+        lambda: (F.silu(x @ w1) * (x @ w3)) @ w2,
+        ((x.numel() + 3 * w1.numel() + M * Dm) * 2, swiglu_flops(M, Dm, Ff)))
+    # the scans at phase 15's ranks: 16 of zamba2's 64 SSD heads, 8 of
+    # rwkv6's 32 WKV heads
+    Bt, S, H, Pd, N = TP_SSD_CASES[0]
+    xs = randn(Bt, S, H, Pd)
+    dt = F.softplus(randn(Bt, S, H, dtype=torch.float32) - 1.0)
+    A = -torch.linspace(1.0, 16.0, H).to(dev)
+    Bm, Cm = randn(Bt, S, N, scale=0.1), randn(Bt, S, N, scale=0.1)
+    cases["mamba2_ssd"] = (
+        f"B={Bt} S={S} H={H} P={Pd} N={N} chunk=128, final state",
+        lambda: ssd_chunked_cuda(xs, dt, A, Bm, Cm, chunk=128,
+                                 with_state=True),
+        lambda: ssd_ref_blocked(xs, dt, A, Bm, Cm, chunk=128), SSD_TOL, None,
+        ((xs.numel() * 2 + Bm.numel() * 4 + dt.numel() * 4 + xs.numel() * 2
+          + Bt * H * N * Pd * 4), ssd_flops(Bt, S, H, Pd, N)))
+    Bt, S, H, K, V, _ = TP_WKV_CASES[0]
+    r, kk = randn(Bt, S, H, K, scale=0.2), randn(Bt, S, H, K, scale=0.2)
+    vv = randn(Bt, S, H, V, scale=0.5)
+    lw = (torch.rand((Bt, S, H, K), generator=gen) * (4.0 - 1e-4) - 4.0
+          ).to(dev, torch.bfloat16)
+    u = randn(H, K, scale=0.5, dtype=torch.float32)
+    cases["rwkv6_wkv"] = (
+        f"B={Bt} S={S} H={H} K=V={K} chunk=16, final state",
+        lambda: wkv6_chunked_cuda(r, kk, vv, lw, u, chunk=16,
+                                  with_state=True),
+        lambda: wkv6_ref_blocked(r, kk, vv, lw, u, chunk=16), WKV_TOL, None,
+        ((r.numel() * 3 + vv.numel() * 2 + u.numel() * 2 + Bt * H * K * V * 2)
+         * 2, wkv6_flops(Bt, S, H, K, V)))
+    return cases
+
+
+def _outputs(res):
+    """A kernel call's result as a list of tensors."""
+    import torch
+    if isinstance(res, torch.Tensor):
+        return [res]
+    return [t for t in res if t is not None]
+
+
+def nccl_kernel_parity(wrappers) -> dict:
+    """(b): each kernel at one shape it serves on ``cuda:1`` to ``cuda:3``
+    from this process, whose current device stays ``cuda:0``: each call
+    launches once on that card (its wrapper's counter), its outputs lie
+    there, agree with its plain version there within phase 2's bounds
+    (the checksum: equal), and equal bit for bit the same call on
+    ``cuda:0``.  Then each kernel's ms on ``cuda:1`` (CUDA events, the
+    card current while timing) beside its plain version's, the library
+    call's and its bound.  Returns the numbers by case."""
+    import torch
+    check(torch.cuda.device_count() >= NCCL_CARDS,
+          f"--four-cards: {torch.cuda.device_count()} cards")
+    torch.cuda.set_device(0)
+    home = {name: [t.cpu() for t in _outputs(call())]
+            for name, (_, call, *_) in nccl_kernel_cases(
+                torch.device("cuda", 0)).items()}
+    torch.cuda.synchronize(0)
+    report = {}
+    for i in range(1, NCCL_CARDS):
+        dev = torch.device("cuda", i)
+        for name, (shape, call, plain, tol, lib, (nb, ops)) in \
+                nccl_kernel_cases(dev).items():
+            kernel = name.split()[0]
+            before = wrappers[kernel].launches
+            got = _outputs(call())
+            torch.cuda.synchronize(dev)
+            launched = wrappers[kernel].launches - before
+            want = _outputs(plain())
+            check(torch.cuda.current_device() == 0,
+                  f"nccl {name} on {dev}: the current device moved to "
+                  f"cuda:{torch.cuda.current_device()}")
+            check(launched == 1 and all(t.device == dev for t in got),
+                  f"nccl {name} on {dev}: {launched} launches, outputs on "
+                  f"{[str(t.device) for t in got]}")
+            if tol is None:
+                err = max(abs(int(a) - int(b)) for a, b in zip(got, want))
+                ok = err == 0
+            else:
+                err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, want))
+                ref = max(b.float().abs().max().item() for b in want)
+                ok = err <= tol[0] and err / max(ref, 1e-30) <= tol[1]
+            same = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(got, home[name]))
+            out(f"[nccl] parity {name} {shape} on {dev} (current cuda:0): "
+                f"max_abs {err:.3e} against the plain version (tol "
+                f"{tol or 'equal'}), bits equal to cuda:0's: {same}")
+            check(ok, f"nccl {name} on {dev} disagrees with its plain "
+                  "version")
+            check(same, f"nccl {name} on {dev}: bits differ from cuda:0's")
+            row = report.setdefault(name, {"shape": shape, "max_abs_err": 0.0,
+                                           "cards": {}})
+            row["max_abs_err"] = max(row["max_abs_err"], float(err))
+            row["cards"][str(dev)] = {"max_abs_err": float(err),
+                                      "bits_as_cuda0": same}
+            if i == 1:
+                with torch.cuda.device(dev):
+                    ms_, by = bound(nb, ops)
+                    row.update(
+                        ms=time_ms(torch, call, 20),
+                        plain_ms=time_ms(torch, plain, 3, warmup=1),
+                        library_ms=(time_ms(torch, lib, 20) if lib else
+                                    None),
+                        bound_ms=ms_, bound_by=by)
+                out(f"[nccl] times {name} {shape} on {dev}: ms "
+                    f"{row['ms']:.4f} plain {row['plain_ms']:.4f} library "
+                    f"{row['library_ms']} bound {row['bound_ms']:.5f} "
+                    f"({row['bound_by']})")
+    return report
+
+
+def nccl_param_bounds(spec) -> dict:
+    """One rank's figures of a keyed job over ``TP_MESH`` on meta: its
+    param block's bytes, and the most its keyed draw may hold (the block,
+    one layer of it, and the largest layer leaf's transient: the leaf in
+    f32, its block in f32 and in the model's dtype; or the embedding
+    table in f32 and in the model's dtype, drawn first)."""
+    import torch
+
+    from repro_torch.launch import partition
+    from repro_torch.models import build_model
+    cfg, mesh = spec.config(), tp_mesh()
+    dt = getattr(torch, cfg.dtype)
+    meta = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device=torch.device("meta"), dtype=dt)
+    specs = partition.flatten(partition.params_pspecs(meta, mesh))
+
+    def block(path, t):
+        return math.prod(partition.local_shape(t.shape, specs[path], mesh))
+    params = layer = leaf = 0
+    for path, t in partition.flatten(meta).items():
+        n = block(path, t)
+        params += n * t.element_size()
+        if path.startswith("layers/"):
+            L = t.shape[0]
+            layer += n // L * t.element_size()
+            leaf = max(leaf, (t.numel() + n) // L * 4
+                       + n // L * t.element_size())
+    table = meta["embed"]["table"]
+    first = table.numel() * (4 + table.element_size())
+    return {"params": params, "draw": params + layer + max(leaf, first)
+            + NCCL_DRAW_SLACK}
+
+
+def nccl_moe_references(tmp: str, dev, wrappers):
+    """(d)'s unsharded runs on ``cuda:0``, one after another, each freed
+    before the next: per model and ``NCCL_MOE_REFS`` entry, its logits
+    (what the ranks of the same dtype and route are held to) and, in
+    bf16, its router probabilities (what the bf16 ranks' router choices
+    are counted against).  Returns {(arch, dtype, route): {"path", "res",
+    "s", "launches"}}."""
+    import torch
+
+    from repro_torch.launch import tp_serve
+    refs = {}
+    for arch in NCCL_MOE:
+        for dtype, route in NCCL_MOE_REFS:
+            t0 = time.perf_counter()
+            for w in wrappers.values():
+                w.launches = 0
+            path = os.path.join(tmp, f"{arch}_{dtype}_{route}.pt")
+            res = tp_serve.reference_run(
+                nccl_moe_spec(arch, NCCL_MOE_LAYERS, dtype, route),
+                device=dev, path=path, router=dtype == "bfloat16")
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            ref = refs[arch, dtype, route] = {
+                "path": path, "s": time.perf_counter() - t0, "res": res,
+                "launches": {n: w.launches for n, w in wrappers.items()}}
+            out(f"[nccl] unsharded {arch} {NCCL_MOE_LAYERS} layers {dtype} "
+                f"route {route} on {dev}: {res['steps']} steps, peak "
+                f"{res['peak_gib']} GiB, {ref['s']:.1f} s")
+    return refs
+
+
+def nccl_moe_jobs(tmp: str, refs) -> list:
+    """The ranks' (d) and (e) jobs, in order: per model f32 on SW and on
+    hw (each held to its unsharded run's logits), bf16 (its router
+    probabilities saved for the count; the checksum of layers 0-3), then
+    full depth (the same checksum)."""
+    from repro_torch.launch import tp_serve
+    jobs = []
+    for arch in NCCL_MOE:
+        d = os.path.join(tmp, f"{arch}_ranks")
+        os.makedirs(d, exist_ok=True)
+        for route in ("sw", "hw"):
+            jobs.append((f"d f32 {route}", arch, tp_serve.make_job(
+                nccl_moe_spec(arch, NCCL_MOE_LAYERS, "float32", route),
+                ref_logits=refs[arch, "float32", route]["path"])))
+        jobs.append(("d bf16", arch, tp_serve.make_job(
+            nccl_moe_spec(arch, NCCL_MOE_LAYERS),
+            ref_logits=refs[arch, "bfloat16", "hw"]["path"], out_dir=d,
+            router=True, checksum_layers=NCCL_MOE_LAYERS)))
+    for arch in NCCL_MOE:
+        jobs.append(("e", arch, tp_serve.make_job(
+            nccl_moe_spec(arch, NCCL_MOE_FULL[arch]),
+            checksum_layers=NCCL_MOE_LAYERS)))
+    return jobs
+
+
+def nccl_router_flips(cfg, ref_router, rank_router, n_calls: int):
+    """Per layer, the tokens whose top-k experts differ between a rank's
+    bf16 run and the unsharded one over their first ``n_calls`` calls
+    (phase 11's ``choice_flips``, layer by layer; a call's router entries
+    are layer-major): {"flips": [per layer], "margins", "drift"}."""
+    L = cfg.num_layers
+    per_layer = [[[], []] for _ in range(L)]
+    for i in range(n_calls):
+        mine, theirs = rank_router[i], ref_router[i]
+        check(len(mine) == len(theirs) and len(mine) % L == 0,
+              f"nccl router: call {i} has {len(mine)} router entries, the "
+              f"unsharded run {len(theirs)}")
+        rows = len(mine) // L
+        for j, (a, b) in enumerate(zip(mine, theirs)):
+            per_layer[j // rows][0].append(a)
+            per_layer[j // rows][1].append(b)
+    flips = [choice_flips(cfg, a, b) for a, b in per_layer]
+    return {"flips": [f["flips"] for f in flips],
+            "margins": [m for f in flips for m in f["margins"]],
+            "drift": max(f["drift"] for f in flips)}
+
+
+def _completes(spec, res) -> list:
+    """What of the workload a rank left unfinished (empty: every request
+    emitted its token budget)."""
+    want = {str(r.rid): r.max_new_tokens
+            for r in spec.workload(spec.config())}
+    got = {k: len(v) for k, v in res["tokens"].items()}
+    return [] if got == want else [f"tokens {got}, want {want}"]
+
+
+def nccl_logits_faults(rels, n_calls: int, limit: float, what: str) -> list:
+    """What a rank's gathered logits break against its unsharded run's
+    (empty: they hold): ``rels`` is each call's max |logits - ref| / max
+    |ref|, held to ``limit`` over the first ``n_calls`` calls (those
+    before a fault, every call without one)."""
+    held = rels[:n_calls]
+    if len(held) == n_calls > 0 and max(held) <= limit:
+        return []
+    return [f"gathered logits against the unsharded {what} run's over "
+            f"{n_calls} calls: {[f'{x:.3e}' for x in held]} (limit "
+            f"{limit:g})"]
+
+
+def nccl_moe_checks(kind, arch, spec, res, stub, *, count, backend=NCCL,
+                    router_dir=None, ref_router=None, bounds=None,
+                    checksums=None):
+    """(d) or (e)'s checks of one MoE job's ranks (``kind`` "d f32 sw",
+    "d f32 hw", "d bf16" or "e"), beside phase 15's shared ones
+    (``tp_rank_faults``): the ranks agree; each completes every request;
+    f32 on SW: each call's gathered logits within ``NCCL_MOE_REL`` of the
+    unsharded run's; f32 on hw (``NCCL_MOE_HW_HELD``): each call before
+    the fault within ``NCCL_MOE_HW_REL``; bf16: the router flips against
+    the unsharded bf16 run, per layer (printed, not bounded), and (held
+    models) its logits before the fault, the control, fail the f32 hw
+    check (``nccl_logits_faults``);
+    (e): the param block the meta's, the peak
+    under the card, the serve's within ``NCCL_SERVE_SLACK`` of params +
+    cache, the draw's within its bound, the checksum of layers 0-3 the
+    (d) bf16 job's on the same rank.  ``router_dir`` holds the bf16
+    ranks' router files.  Each rank's line prints before its checks.
+    Returns the job's entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import tp_serve
+    cfg = spec.config()
+    name = f"{kind} {arch}"
+    entry = {"layers": cfg.num_layers, "dtype": cfg.dtype, "ranks": [],
+             "stub_tick_bytes": stub, "tokens": res[0]["tokens"],
+             "steps": res[0]["steps"]}
+    gib = 2 ** 30
+    for r in res:
+        bad = tp_rank_faults(spec, r, stub, count) + _completes(spec, r)
+        if not (r["backend"] == backend and not r["host_copies"]
+                and (backend != NCCL or r["device"] == f"cuda:{r['rank']}"
+                     and r["mesh_devices"] == NCCL_DEVICES)):
+            bad.append(f"on {r['device']} over {r['backend']}, host "
+                       f"copies {r['host_copies']}, mesh over "
+                       f"{r['mesh_devices']}")
+        before = [c for c in r["calls"] if c["step"] < TP_FAULT_STEP]
+        ticks = [c["ms"] for c in r["calls"] if c["kind"] == "tick"]
+        pre = [c["ms"] for c in r["calls"] if c["kind"] == "prefill"]
+        toks = sum(map(len, r["tokens"].values()))
+        row = {"coords": r["coords"], "prefill_ms": pre, "tick_ms": ticks,
+               "tick_ms_median": float(np.median(ticks)),
+               "tok_s": toks / r["wall_s"], "wall_s": r["wall_s"],
+               "draw_s": r["draw_s"], "peak_gib": r["peak_gib"],
+               "draw_peak_gib": r["draw_peak_gib"],
+               "serve_peak_gib": r["serve_peak_gib"],
+               "local_bytes": r["local_bytes"], "launches": r["launches"],
+               "collectives": r["collectives"],
+               "checksum_layers": r.get("checksum_layers")}
+        rels = r["logits_rel"]
+        held = arch in NCCL_MOE_HW_HELD
+        if kind.startswith("d f32"):
+            sw = kind == "d f32 sw"     # no fault: every call
+            n = len(r["calls"]) if sw else len(before)
+            limit = NCCL_MOE_REL if sw else NCCL_MOE_HW_REL
+            row["logits_rel_max"] = max(rels[:n] or [0.0])
+            detail = (f", logits within {row['logits_rel_max']:.3e} of the "
+                      f"unsharded f32 {spec.hw_route} run's over {n} calls "
+                      + (f"(limit {limit:g})" if sw or held else
+                         f"({[f'{x:.3e}' for x in rels[:n]]}, not bounded: "
+                         "not in NCCL_MOE_HW_HELD)"))
+            if sw or held:
+                bad += nccl_logits_faults(rels, n, limit,
+                                          f"f32 {spec.hw_route}")
+        elif kind == "d bf16":
+            mine = torch.load(os.path.join(router_dir,
+                                           f"router_{r['rank']}.pt"))
+            row["router"] = nccl_router_flips(cfg, ref_router, mine,
+                                              len(before))
+            row["control_rel_max"] = max(rels[:len(before)] or [0.0])
+            detail = (f", router flips by layer {row['router']['flips']} "
+                      f"against the unsharded bf16 run over "
+                      f"{len(before)} calls; logits within "
+                      f"{row['control_rel_max']:.3e} of its"
+                      + (f", the control (fails the f32 hw limit "
+                         f"{NCCL_MOE_HW_REL:g})" if held else ""))
+            if held and not nccl_logits_faults(rels, len(before),
+                                               NCCL_MOE_HW_REL, "bf16"):
+                bad.append("the bf16 control passes the f32 hw logits "
+                           "check: it cannot tell bf16's rounding from "
+                           "the kernel's")
+        else:
+            params, cache = r["local_bytes"]["params"], \
+                r["local_bytes"]["cache"]
+            detail = (f", draw {r['draw_s']:.1f} s (peak "
+                      f"{_gib(r['draw_peak_gib'])} GiB, bound "
+                      f"{bounds['draw'] / gib:.2f}), serve peak "
+                      f"{_gib(r['serve_peak_gib'])} GiB (params "
+                      f"{params / gib:.2f} + cache {cache / gib:.3f}), "
+                      f"layers 0-{NCCL_MOE_LAYERS - 1} checksum "
+                      f"{r['checksum_layers']}, at 4 layers "
+                      f"{checksums[r['rank']]}")
+            for ok, what in (
+                    (params == bounds["params"],
+                     f"params {params} B, its block {bounds['params']} B"),
+                    (r["peak_gib"] is None or r["peak_gib"] < NCCL_CARD_GIB,
+                     f"peak {r['peak_gib']} GiB"),
+                    (r["serve_peak_gib"] is None or r["serve_peak_gib"] * gib
+                     <= (1 + NCCL_SERVE_SLACK) * (params + cache),
+                     "the serve's peak over params and cache"),
+                    (r["draw_peak_gib"] is None
+                     or r["draw_peak_gib"] * gib <= bounds["draw"],
+                     "the draw's peak over its bound"),
+                    (r["checksum_layers"] == checksums[r["rank"]],
+                     "layers 0-3's checksum is not the 4-layer job's")):
+                if not ok:
+                    bad.append(what)
+        entry["ranks"].append(row)
+        out(f"[nccl] {name} rank {r['rank']} on {r['device']}: prefill ms "
+            f"{[round(x, 1) for x in pre]}, tick ms median "
+            f"{row['tick_ms_median']:.1f} (of {len(ticks)}), "
+            f"{row['tok_s']:.1f} tok/s, peak {_gib(r['peak_gib'])} GiB"
+            f"{detail}; launches {r['launches']}")
+        check(not bad, f"nccl {name} rank {r['rank']}: " + "; ".join(bad))
+    bad = tp_serve.check_agreement(res)
+    check(not bad, f"nccl {name}: " + "; ".join(bad))
+    fault = (f"{spec.fault_stage} demoted at step {TP_FAULT_STEP} on every "
+             "rank" if spec.fault_step >= 0 else f"route {spec.hw_route}, "
+             "no fault")
+    out(f"[nccl] {name}: {len(res)} ranks agree on "
+        f"{sum(map(len, entry['tokens'].values()))} tokens over "
+        f"{entry['steps']} steps, every request complete, {fault}, "
+        f"collective bytes a tick {stub} as the dry run counts them")
+    return entry
+
+
+def _gib(x):
+    return None if x is None else round(x, 2)
+
+
+KERNEL_SOURCES = {
+    "checksum": ("src/repro_torch/csrc/checksum.cu",
+                 "src/repro/kernels/checksum/kernel.py:17"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:33"),
+    "swiglu_mlp": ("src/repro_torch/csrc/swiglu.cu",
+                   "src/repro/kernels/swiglu/kernel.py:32"),
+    "mamba2_ssd": ("src/repro_torch/csrc/mamba2_ssd.cu",
+                   "src/repro/kernels/mamba2_scan/kernel.py:28"),
+    "rwkv6_wkv": ("src/repro_torch/csrc/rwkv6_wkv.cu",
+                  "src/repro/kernels/rwkv6_scan/kernel.py:27")}
+
+
+def nccl_phase(dev, wrappers, smi: str, *, count: str = "launches",
+               backend: str = NCCL, host: Optional[bool] = None,
+               jobs=TP_JOBS, gloo_too: bool = True,
+               timeout: float = NCCL_TIMEOUT_S):
+    """Phase 17's (c)-(f) (see the constants above): every unsharded run
+    first, in this process on ``dev`` (``cuda:0``), each freed before the
+    next; then one launch of four ``backend`` ranks, a card a rank
+    (``host``: their ``GroupComm``'s), that serves (c)'s jobs (phase
+    15's ``jobs``) and (d)'s and (e)'s in turn, the first collectives
+    logged by NCCL (its transports); each job's checks; (c)'s jobs again
+    under gloo on the one card (``gloo_too``); then (f), under
+    ``backend`` and (``gloo_too``) gloo.  Returns (entry, {path:
+    launches})."""
+    import threading
+
+    import torch
+
+    from repro_torch.launch import tp_serve
+    t0 = time.perf_counter()
+    entry, paths = {"backend": backend, "mesh": list(TP_MESH)}, {}
+    names = [tp_name(a, v) for a, v in jobs]
+    with tempfile.TemporaryDirectory(prefix="nccl_") as tmp:
+        refs = tp_references(dev, wrappers, tmp, jobs)
+        moe_refs = nccl_moe_references(tmp, dev, wrappers)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        entry["references_s"] = time.perf_counter() - t0
+        for name in names:
+            if not refs[name]["shared"]:
+                paths[f"nccl {name} unsharded"] = refs[name]["ref_launches"]
+        for (arch, dtype, route), ref in moe_refs.items():
+            paths[f"nccl {arch} {dtype} {route} unsharded"] = \
+                ref["launches"]
+        c_jobs = [refs[n]["job"] for n in names]
+        moe_jobs = nccl_moe_jobs(tmp, moe_refs)
+        log_dir = os.path.join(tmp, "nccl_log")
+        os.makedirs(log_dir)
+        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        if backend == NCCL:
+            env.update(NCCL_DEBUG="INFO", NCCL_DEBUG_FILE=os.path.join(
+                log_dir, "nccl.%h.%p.log"))
+        # the dry run's stubs of the MoE jobs, while the ranks serve
+        stubs, box = {}, {}
+
+        def ranks():
+            try:
+                box["res"] = tp_serve.launch_jobs(
+                    c_jobs + [j for _, _, j in moe_jobs], TP_MESH,
+                    device=dev.type, backend=backend, host=host,
+                    timeout=timeout, src=str(SRC), env=env)
+            except Exception as e:  # noqa: BLE001 — raised below
+                box["error"] = e
+        t1 = time.perf_counter()
+        th = threading.Thread(target=ranks)
+        th.start()
+        for kind, arch, job in moe_jobs:
+            spec = tp_serve.TPServeSpec(**job["spec"])
+            stubs[kind, arch] = tp_collectives_stub(spec)
+        bounds = {arch: nccl_param_bounds(nccl_moe_spec(
+            arch, NCCL_MOE_FULL[arch])) for arch in NCCL_MOE}
+        th.join()
+        entry["launch_s"] = time.perf_counter() - t1
+        if "error" in box:
+            raise box["error"]
+        res_all = box["res"]
+        if dev.type == "cuda":      # kept whatever the checks below say
+            (ROOT / "chiprun_out").mkdir(exist_ok=True)
+            (ROOT / "chiprun_out" / "chip_smoke_four_cards_ranks.json"
+             ).write_text(json.dumps(res_all, default=str))
+        entry["transports"] = (nccl_transports(log_dir) if backend == NCCL
+                               else [])
+        out(f"[nccl] transports NCCL chose (its INFO log): "
+            f"{entry['transports']}")
+        entry["groups_s"] = [r["groups_s"] for r in res_all[0]]
+        entry["c"], c_paths = tp_checks(refs, names, res_all[:len(names)],
+                                        count=count, backend=backend,
+                                        tag="[nccl] (c)")
+        if gloo_too:        # the same jobs, every rank on the one card
+            t1 = time.perf_counter()
+            res = tp_serve.launch_jobs(
+                c_jobs, TP_MESH, device=dev.type, backend=MH_BACKEND,
+                timeout=timeout, src=str(SRC))
+            entry["c_gloo_launch_s"] = time.perf_counter() - t1
+            entry["c_gloo"], gloo_paths = tp_checks(
+                refs, names, res, count=count, backend=MH_BACKEND,
+                tag="[nccl] (c) gloo")
+            paths.update({f"nccl gloo {p[3:]}": n
+                          for p, n in gloo_paths.items()
+                          if not p.endswith("unsharded")})
+        paths.update({f"nccl {p[3:]}": n for p, n in c_paths.items()
+                      if not p.endswith("unsharded")})
+        for name in names:
+            for r, row in zip(res_all[names.index(name)],
+                              entry["c"][name]["ranks"]):
+                check(backend != NCCL or r["device"] == f"cuda:{r['rank']}"
+                      and not r["host_copies"]
+                      and r["mesh_devices"] == NCCL_DEVICES,
+                      f"nccl (c) {name}: rank {r['rank']} on {r['device']}"
+                      f", host copies {r['host_copies']}, mesh over "
+                      f"{r['mesh_devices']}")
+                g = (entry["c_gloo"][name]["ranks"][r["rank"]]
+                     if gloo_too else None)
+                out(f"[nccl] (c) {name} rank {r['rank']} on {r['device']}: "
+                    f"prefill ms {[round(x, 1) for x in row['prefill_ms']]}"
+                    f", tick ms median {row['tick_ms_median']:.2f}"
+                    + (f"; gloo on one card: prefill ms "
+                       f"{[round(x, 1) for x in g['prefill_ms']]}, tick ms "
+                       f"median {g['tick_ms_median']:.2f}" if g else ""))
+        entry["moe"], checksums = {}, {}
+        for (kind, arch, job), res in zip(moe_jobs, res_all[len(names):]):
+            spec = tp_serve.TPServeSpec(**job["spec"])
+            e = nccl_moe_checks(
+                kind, arch, spec, res, stubs[kind, arch], count=count,
+                backend=backend, router_dir=job["out_dir"],
+                ref_router=(torch.load(moe_refs[arch, "bfloat16", "hw"][
+                    "path"])["router"] if kind == "d bf16" else None),
+                bounds=bounds.get(arch), checksums=checksums.get(arch))
+            if kind == "d bf16":
+                checksums[arch] = [row["checksum_layers"]
+                                   for row in e["ranks"]]
+            entry["moe"][f"{kind} {arch}"] = e
+            paths[f"nccl {kind} {arch}"] = {
+                n: sum(r[count].get(n, 0) for r in res) for n in wrappers}
+    entry["f"] = tpt_phase(dev, smi, mesh=NCCL_TRAIN_MESH, backend=backend,
+                           host=host, tag="[nccl] (f)")
+    if gloo_too:
+        entry["f_gloo"] = tpt_phase(dev, smi, mesh=NCCL_TRAIN_MESH,
+                                    backend=MH_BACKEND,
+                                    tag="[nccl] (f) gloo")
+    entry["phase_s"] = time.perf_counter() - t0
+    return entry, paths
+
+
+def nccl_kernel_line(parity, paths) -> list:
+    """The ``kernels`` line of a ``--four-cards`` run: each kernel's (b)
+    numbers (attention's at mixtral-8x7b's rank, llama4-scout's beside
+    them) and its launches on phase 17's paths, counted from 0 on each."""
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        key = "flash_attention mixtral-8x7b" if name == "flash_attention" \
+            else name
+        row = parity[key]
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": max(v["max_abs_err"] for k, v in
+                                    parity.items()
+                                    if k.split()[0] == name),
+                 **{k: row[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}}
+        if name == "flash_attention":
+            entry["moe_shapes"] = {k: v for k, v in parity.items()
+                                   if k.startswith("flash_attention ")}
+        kernels.append(entry)
+    return kernels
+
+
+def run_four_cards() -> int:
+    """Phase 17 alone (``--four-cards``; the module docstring): it needs
+    four cards and never skips."""
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+    from repro_torch.launch.tp_serve import kernel_wrappers
+    n = torch.cuda.device_count()
+    if n < NCCL_CARDS:
+        raise SystemExit(f"chip_smoke --four-cards: {n} card(s); phase 17 "
+                         f"runs one rank a card on {NCCL_CARDS}")
+    torch.cuda.set_device(0)
+    dev = resolve_device("cuda:0")
+    wrappers = kernel_wrappers()
+    report = {"device": torch.cuda.get_device_name(0),
+              "torch": torch.__version__, "cuda": torch.version.cuda}
+    out(f"device {report['device']} x {n} torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    built = _build.build()
+    report["build_s"] = time.perf_counter() - t0
+    out(f"[build] {report['build_s']:.1f} s for {sorted(built)} -> "
+        f"{_build.build_dir()}")
+    t_phase = time.perf_counter()
+    report["cards"] = nccl_cards()
+    smi = "; ".join(report["cards"]["nvidia_smi"])
+    report["parity"] = nccl_kernel_parity(wrappers)
+    report["nccl"], paths = nccl_phase(dev, wrappers, smi)
+    report["phase_s"] = phase_s = time.perf_counter() - t_phase
+    out(f"[times] phases (s): 17 nccl {phase_s:.1f} (of it: references "
+        f"{report['nccl']['references_s']:.1f}, ranks' serve launch "
+        f"{report['nccl']['launch_s']:.1f}); {smi}")
+    check(phase_s <= NCCL_BUDGET_S, f"phase 17 took {phase_s:.1f} s, over "
+          f"its {NCCL_BUDGET_S} s")
+    kernels = nccl_kernel_line(report["parity"], paths)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_four_cards.json").write_text(
+        json.dumps(report, indent=1, default=str))
+    for line in report["cards"]["nvidia_smi"]:
+        out(line)
+    out(json.dumps({"kernels": kernels}))
+    out(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--four-cards", action="store_true",
+                    help="run phase 17 alone: the tensor-parallel runtime "
+                         "over NCCL, one rank a card on four cards")
+    args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from the root of a checkout "
                          "(src/repro_torch is missing)")
@@ -4113,7 +4960,7 @@ def main() -> int:
         os.environ["REPRO_TUNING_CACHE"] = tuning_dir
         from repro_torch.kernels import tuning
         tuning.reset()
-        return run(tuning_dir)
+        return run_four_cards() if args.four_cards else run(tuning_dir)
 
 
 def run(tuning_dir: str) -> int:

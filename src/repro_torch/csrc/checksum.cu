@@ -39,6 +39,7 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int UNROLL = 4;         // 16-byte loads in flight per thread
 constexpr int BLOCKS_PER_SM = 4;
+constexpr int MAX_DEVICES = 64;  // devices whose SM count is kept
 
 __device__ __forceinline__ unsigned popc16(const uint4& q) {
   return __popc(q.x) + __popc(q.y) + __popc(q.z) + __popc(q.w);
@@ -85,16 +86,18 @@ checksum_kernel(const uint8_t* __restrict__ base, size_t head, size_t nvec,
   }
 }
 
+// the current device's SMs (the caller's operand's: its wrapper enters
+// that device), read once per device
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
+  static int sms[MAX_DEVICES] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < MAX_DEVICES && sms[dev] != 0) return sms[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    n = 132;
+  if (dev < MAX_DEVICES) sms[dev] = n;
+  return n;
 }
 
 }  // namespace

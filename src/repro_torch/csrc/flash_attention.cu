@@ -96,6 +96,7 @@ constexpr int WG = 128;          // threads per warpgroup
 constexpr int DMAX = 256;
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;  // a Hopper block's dynamic shared memory
+constexpr int MAX_DEVICES = 64;  // devices with per-device setup remembered
 constexpr float NEG_INF = -1e30f;   // finite, as in the reference kernel
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ERR_ARGS = -1;
@@ -699,12 +700,17 @@ int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
            const AttnArgs& a, const LaneFaultArgs& f, int grid,
            cudaStream_t s) {
   auto* kernel = flash_attn_fwd<NWG, KD, VB, FAULT>;
-  static bool ready = false;  // the shared-memory cap, once per kernel
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the shared-memory cap, once per kernel and device (an attribute of
+  // the function in each device's context)
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES || !ready[dev]) {
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ready = true;
+    if (dev < MAX_DEVICES) ready[dev] = true;
   }
   kernel<<<grid, NWG * WG + 32, smem_bytes(NWG, KD, VB, a.stages), s>>>(
       q, k, v, a, f);

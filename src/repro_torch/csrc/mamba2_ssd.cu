@@ -84,6 +84,7 @@ using bf16 = __nv_bfloat16;
 namespace {
 
 constexpr int LMAX = 128;      // longest chunk
+constexpr int MAX_DEVICES = 64;  // devices with per-device setup remembered
 constexpr int N = 64;          // state width (padded by the wrapper)
 constexpr int P = 64;          // head channels (padded by the wrapper)
 constexpr int TILE = 64;       // rows of y a phase-3 block
@@ -553,9 +554,14 @@ cudaError_t launch(const bf16* x, const float* dt, const float* A,
                    float* scratch, int Bt, int S, int H, int L,
                    const Strides& st, const Plan& p, LaneFaultArgs f,
                    cudaStream_t s) {
-  static bool opted_in = false;   // once per process and instantiation
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // once per instantiation and device (an attribute of the function in
+  // each device's context)
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    e = cudaFuncSetAttribute(
         mamba2_ssd_chunk_state, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_state());
     if (e == cudaSuccess)
@@ -563,7 +569,7 @@ cudaError_t launch(const bf16* x, const float* dt, const float* A,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_scan());
     if (e != cudaSuccess) return e;
-    opted_in = true;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
   float* U = scratch;
   float* CB = U + p.scratch_floats[0];

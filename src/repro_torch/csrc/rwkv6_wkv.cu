@@ -85,6 +85,7 @@ using bf16 = __nv_bfloat16;
 namespace {
 
 constexpr int LMAX = 16;       // longest chunk; every chunk runs 16 slots
+constexpr int MAX_DEVICES = 64;  // devices with per-device setup remembered
 constexpr int K = 64;          // key channels (padded by the wrapper)
 constexpr int V = 64;          // value lanes (padded by the wrapper)
 constexpr int NT = 256;        // threads of the chunk phases
@@ -511,13 +512,18 @@ cudaError_t launch(const bf16* r, const bf16* k, const bf16* v,
                    const bf16* lw, const float* u, bf16* o, float* state_out,
                    float* scratch, int Bt, int S, int H, int L,
                    const Plan& p, LaneFaultArgs f, cudaStream_t s) {
-  static bool opted_in = false;   // once per process and instantiation
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // once per instantiation and device (an attribute of the function in
+  // each device's context)
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    e = cudaFuncSetAttribute(
         rwkv6_wkv_chunk_scan<FAULT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_scan());
     if (e != cudaSuccess) return e;
-    opted_in = true;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
   float* U = scratch;
   float* D = scratch + (size_t)Bt * H * p.ng * K * V;

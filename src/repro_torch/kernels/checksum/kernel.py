@@ -40,16 +40,18 @@ def _launch(x: torch.Tensor, out: torch.Tensor, slot: int):
     x = x if x.is_contiguous() else x.contiguous()
     lib = _build.load(_NAME, _PROTOTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.checksum_popcount(x.data_ptr(), x.numel() * x.element_size(),
-                               out.data_ptr() + 4 * slot, stream)
+    with torch.cuda.device(x.device):   # the kernel reads its SM count
+        rc = lib.checksum_popcount(x.data_ptr(),
+                                   x.numel() * x.element_size(),
+                                   out.data_ptr() + 4 * slot, stream)
     _build.check(lib, _NAME, rc)
     checksum_popcount.launches += 1
 
 
 def checksum_popcount(x: torch.Tensor) -> torch.Tensor:
     """Total popcount of ``x``'s bit pattern mod 2^32, as an int64 scalar on
-    ``x``'s device.  CUDA tensors: the Hopper kernel, any dtype, any
-    layout.  CPU tensors: the plain blocked version."""
+    ``x``'s device.  CUDA tensors: the Hopper kernel on that device and its
+    current stream, any dtype, any layout.  CPU tensors: the plain blocked version."""
     if x.device.type == "cuda":
         out = torch.zeros(1, dtype=torch.int32, device=x.device)
         _launch(x, out, 0)

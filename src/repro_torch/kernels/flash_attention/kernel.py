@@ -301,16 +301,18 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, H, Sq, D); k (B, Hkv, Skv, D); v (B, Hkv, Skv, Dv).  The output
     width is ``v.shape[3]`` (narrow under DEGRADED_REDUCED).
 
-    CUDA tensors: the Hopper kernel, bf16 only, any Sq and Skv, any strides
+    CUDA tensors: the Hopper kernel on q's device and its current stream,
+    bf16 only, any Sq and Skv, any strides
     (``bq``/``bk`` shape only the plain version), launched with ``knobs``
     ({nwg, stages, per_sm}: explicit knobs win, ValueError if the kernel
     does not take them) or the ``resolve``d plan; the output is a (B, H,
     Sq, Dv) view of a (B, Sq, H, Dv) tensor.  CPU tensors: the plain
     blocked version, Sq % bq == Skv % bk == 0."""
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal=causal, window=window,
-                       softcap=softcap, scale=scale, kv_len=kv_len,
-                       lane_fault=lane_fault, knobs=knobs)
+        with torch.cuda.device(q.device):
+            return _launch(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale, kv_len=kv_len,
+                           lane_fault=lane_fault, knobs=knobs)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return attention_ref_blocked(q, k, v, causal=causal, window=window,

@@ -3,8 +3,9 @@
 Port of the reference's ``kernels/flash_attention/ops.py``.  ``attention``
 is the stage entry point the models call; the route selects the lowering:
   * HW        -> the Hopper flash kernel on the model's (B, S, H, D)
-                 tensors as they are (its plain version, on tensors padded
-                 to the tiles, on CPU tensors)
+                 tensors as they are, in bf16 (a float32 model's rounded
+                 to it); its plain version, on tensors padded to the
+                 tiles, on CPU tensors
   * INTERPRET -> the kernel's blocked algorithm in PyTorch, CPU only
   * SW        -> the chunked online-softmax oracle
 On a CUDA tensor the kernel's plan comes from the tuning cache
@@ -49,11 +50,15 @@ def _kernel_path(q, k, v, *, causal=True, window=0, softcap=0.0, scale=0.0,
         return fault.corrupt_tree(out) if fault is not None else out
     if q.device.type == "cuda" and not interpret:
         # the Hopper kernel reads the model's (B, S, H, D) tensors through
-        # their strides and writes a (B, S, H, Dv) output: no copy, no pad
+        # their strides and writes a (B, S, H, Dv) output: no copy, no pad.
+        # It takes bf16 only: a float32 model's operands are rounded to
+        # bf16 for it (a copy) and its output comes back in their dtype
+        bf = torch.bfloat16
         return flash_attention_bhsd(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, softcap=softcap, scale=scale,
-            lane_fault=fault).transpose(1, 2)
+            q.transpose(1, 2).to(bf), k.transpose(1, 2).to(bf),
+            v.transpose(1, 2).to(bf), causal=causal, window=window,
+            softcap=softcap, scale=scale,
+            lane_fault=fault).transpose(1, 2).to(q.dtype)
     Sq, Skv = q.shape[1], k.shape[1]
     bq = min(bq or 128, max(8, Sq))
     bk = min(bk or 128, max(8, Skv))

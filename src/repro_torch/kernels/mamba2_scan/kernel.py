@@ -178,13 +178,15 @@ def ssd_chunked_cuda(x, dt, A, B_, C, *, chunk: int = 128, lane_fault=None,
     ``with_state`` else None).  S must be a multiple of ``L = min(chunk,
     S)`` (the op pads).
 
-    CUDA tensors: the Hopper kernel; x, B_ and C bf16 (any strides with
+    CUDA tensors: the Hopper kernel on x's device and its current
+    stream; x, B_ and C bf16 (any strides with
     the last dim contiguous), P and N up to 64, L up to 128.  CPU tensors:
     its plain version, ``ssd_ref_state_passing``."""
     L = min(chunk, x.shape[1])
     if x.device.type == "cuda":
-        return _launch(x, dt, A, B_, C, L=L, lane_fault=lane_fault,
-                       with_state=with_state)
+        with torch.cuda.device(x.device):
+            return _launch(x, dt, A, B_, C, L=L, lane_fault=lane_fault,
+                           with_state=with_state)
     if x.device.type != "cpu":
         raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
     y, state = ssd_ref_state_passing(x, dt, A, B_, C, chunk=L,

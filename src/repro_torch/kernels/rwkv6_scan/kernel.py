@@ -170,15 +170,17 @@ def wkv6_chunked_cuda(r, k, v, lw, u, *, chunk: int = 16, lane_fault=None,
     dtype, the final state (B,H,K,V) f32 when ``with_state`` else None).
     S must be a multiple of ``L = min(chunk, S)`` (the op pads).
 
-    CUDA tensors: the Hopper kernel; r, k, v and lw bf16, K and V up to
+    CUDA tensors: the Hopper kernel on r's device and its current
+    stream; r, k, v and lw bf16, K and V up to
     64.  CPU tensors: its plain version, ``wkv6_ref_state_passing`` with
     the plan's group size.  On both, L up to 16."""
     L = min(chunk, r.shape[1])
     _build.require(L <= LMAX, f"rwkv6_wkv: chunk {chunk} exceeds {LMAX}: "
                    "the factorization leaves f32 range past it")
     if r.device.type == "cuda":
-        return _launch(r, k, v, lw, u, L=L, lane_fault=lane_fault,
-                       with_state=with_state)
+        with torch.cuda.device(r.device):
+            return _launch(r, k, v, lw, u, L=L, lane_fault=lane_fault,
+                           with_state=with_state)
     if r.device.type != "cpu":
         raise ValueError(f"rwkv6_wkv: unsupported device {r.device}")
     o, state = wkv6_ref_state_passing(

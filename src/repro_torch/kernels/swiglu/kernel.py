@@ -251,14 +251,16 @@ def swiglu_fused(x, w1, w3, w2, *, act: str = "silu", bm: int = 128,
                  knobs: Optional[Dict[str, int]] = None):
     """x (M, D); w1/w3 (D, F); w2 (F, Do) -> (M, Do).
 
-    CUDA tensors: the Hopper kernels, bf16 only, tiled by ``plan`` with
+    CUDA tensors: the Hopper kernels on x's device and its current
+    stream, bf16 only, tiled by ``plan`` with
     ``knobs`` ({nwg, nsub}: explicit knobs win, ValueError if the kernel
     does not take them) or by the ``resolve``d plan (``bm`` / ``bf`` /
     ``bs`` shape only the plain version); any M.  CPU tensors: the plain
     blocked version."""
     if x.device.type == "cuda":
-        return _launch(x, w1, w3, w2, act=act, lane_fault=lane_fault,
-                       row_independent=row_independent, knobs=knobs)
+        with torch.cuda.device(x.device):
+            return _launch(x, w1, w3, w2, act=act, lane_fault=lane_fault,
+                           row_independent=row_independent, knobs=knobs)
     if x.device.type != "cpu":
         raise ValueError(f"swiglu: unsupported device {x.device}")
     return swiglu_ref_blocked(x, w1, w3, w2, act=act, bm=bm, bf=bf, bs=bs,

@@ -176,15 +176,23 @@ def lookup(kernel: str, kind: str, shape: Sequence[int], dtype
         return None
 
 
+def _device():
+    """The current CUDA device (whose section a lookup reads), None before
+    CUDA is initialised: the CPU paths never touch it."""
+    import torch
+    return torch.cuda.current_device() if torch.cuda.is_initialized() \
+        else None
+
+
 _LOOKUPS = memo()
 
 
 def lookup_once(kernel: str, kind: str, shape: Tuple[int, ...], dtype
                 ) -> Optional[Dict[str, int]]:
-    """``lookup``, made once per (kernel, kind, shape, dtype, plan key)
-    until the cache changes: the scans' chunk and attention's SW
+    """``lookup``, made once per (kernel, kind, shape, dtype, plan key,
+    device) until the cache changes: the scans' chunk and attention's SW
     ``kv_chunk`` take it on every call."""
-    key = (kernel, kind, shape, dtype, current_plan_key())
+    key = (kernel, kind, shape, dtype, current_plan_key(), _device())
     try:
         return _LOOKUPS[key]
     except KeyError:
@@ -203,7 +211,7 @@ def resolve_plan(kernel: str, shape: Tuple[int, ...], dtype,
     widths), else ``make()``, the default plan.  Made once per (kernel,
     shape, ``extra``: the rest of ``make``'s arguments, dtype, plan key)
     until the cache changes."""
-    key = (kernel, shape, extra, dtype, current_plan_key())
+    key = (kernel, shape, extra, dtype, current_plan_key(), _device())
     plan = _PLANS.get(key)
     if plan is None:
         cfg = lookup(kernel, "hw", shape, dtype)

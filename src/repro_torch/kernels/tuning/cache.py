@@ -34,14 +34,17 @@ DEFAULT_PLAN = "default"
 
 
 def backend_fingerprint() -> str:
-    """torch version + CUDA version + device name: the cache partition
-    key."""
+    """torch version + CUDA version + the current device's name: the cache
+    partition key.  A CUDA wrapper looks its plan up with its operands'
+    device current, so a process that spans cards reads each card's
+    section."""
     try:
         import torch
 
         if torch.cuda.is_available():
+            name = torch.cuda.get_device_name(torch.cuda.current_device())
             return (f"torch-{torch.__version__}/cuda-{torch.version.cuda}/"
-                    f"{torch.cuda.get_device_name(0)}")
+                    f"{name}")
         return f"torch-{torch.__version__}/cpu/cpu"
     except Exception:
         return "torch-unknown/none/none"
@@ -97,9 +100,15 @@ class TuningCache:
                  fingerprint: Optional[str] = None):
         self.dir = path or default_cache_dir()
         self.path = os.path.join(self.dir, "tuning_cache.json")
-        self.fingerprint = fingerprint or backend_fingerprint()
+        self._fingerprint = fingerprint
         self._lock = threading.Lock()
         self._doc: Optional[Dict] = None
+
+    @property
+    def fingerprint(self) -> str:
+        """The given fingerprint, else the current device's
+        (``backend_fingerprint``)."""
+        return self._fingerprint or backend_fingerprint()
 
     # ----------------------------------------------------------- loading
     def _load(self) -> Dict:

@@ -10,9 +10,11 @@ serving hardware.
 ``Mesh`` is the counterpart of the reference's ``jax.sharding.Mesh``: a
 frozen ``(shape, axes, devices)`` grid.  The tensor-parallel runtime
 (``launch/spmd.py``) runs one rank per mesh position, each rank holding
-its coordinates and one communicator per axis; several ranks may share a
-device (gloo), and the dry run builds meshes over ``torch.device("meta")``.
-``make_production_mesh`` gives the reference's pod shapes.
+its coordinates and one communicator per axis.  ``rank_device`` says
+which device a rank runs on: under NCCL rank r owns ``cuda:r``, one card a
+rank; under gloo the ranks may share a device, and the dry run builds
+meshes over ``torch.device("meta")``.  ``make_production_mesh`` gives the
+reference's pod shapes.
 """
 from __future__ import annotations
 
@@ -22,11 +24,46 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def cuda_devices() -> List[torch.device]:
     """Every CUDA device of this process, in index order (empty without
     CUDA)."""
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def rank_device(rank: int, world: int, backend: str,
+                device=None) -> torch.device:
+    """The device rank ``rank`` of ``world`` runs on.  ``nccl``: ``cuda:
+    rank``, one card a rank; it raises when ``device`` is not the card
+    (the CPU, or another rank's card) or when this process sees fewer
+    cards than ``world``.  ``gloo``: ``resolve_device(device)`` for every
+    rank, so ranks may share a card (their collectives go through host
+    copies)."""
+    dev = resolve_device(device)
+    if backend != "nccl":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"nccl runs one card a rank: rank {rank} cannot "
+                         f"run on {dev}")
+    if dev.index is not None and dev.index != rank:
+        raise ValueError(f"nccl runs rank {rank} on cuda:{rank}, not {dev}")
+    seen = torch.cuda.device_count()
+    if seen < world:
+        raise RuntimeError(f"nccl runs one card a rank: {world} ranks need "
+                           f"{world} cards, this process sees {seen}")
+    return torch.device("cuda", rank)
+
+
+def rank_devices(world: int, backend: str, device=None
+                 ) -> List[torch.device]:
+    """``rank_device`` of every rank, in rank order: a mesh's devices
+    (under nccl ``device`` names the card type: a rank's own card
+    passes)."""
+    if backend == "nccl":
+        device = resolve_device(device).type
+    return [rank_device(r, world, backend, device) for r in range(world)]
 
 
 @dataclass(frozen=True)

@@ -343,6 +343,18 @@ def shard_leaf(t, spec: P, mesh, coords: Mapping[str, int]):
     return t
 
 
+def leaf_cutter(mesh, coords: Mapping[str, int], axes=None):
+    """``cut(path, t)``: rank ``coords``' block of leaf ``path``'s tensor
+    ``t`` (a view), cut by ``param_pspec`` on ``t``'s own shape, which
+    reads only a leaf's trailing dims: one layer of a stacked leaf is cut
+    as the stack is.  What ``LMModel.init_keyed`` keeps on a rank (a
+    Mamba2 packed leaf, cut by component, is not covered)."""
+    def cut(path, t):
+        return shard_leaf(t, param_pspec(path, tuple(t.shape), mesh, axes),
+                          mesh, coords)
+    return cut
+
+
 Layout = Mapping[str, Tuple[Tuple[str, int], ...]]
 
 

@@ -39,7 +39,8 @@ Communicators:
   * ``GroupComm``: ``torch.distributed`` process groups over the ranks
     ``launch.distributed.initialize_runtime`` opened, one group per subset
     of mesh axes.  gloo (CPU, or ranks sharing one card, which NCCL
-    refuses) carries copies on the host; NCCL the device tensors.
+    refuses) carries copies on the host; NCCL, one card a rank
+    (``mesh.rank_device``), the device tensors where they lie.
   * ``CountingComm``: the dry run's stub on the meta device; it returns
     the right shape and moves nothing.
 Both record each collective's kind, axis, dtype and bytes
@@ -54,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -157,11 +159,19 @@ class GroupComm:
     """``torch.distributed`` process groups over a mesh whose ranks are
     the global ranks in row-major mesh order: one group for every subset
     of mesh axes (every rank builds them all, in one order, as
-    ``new_group`` requires).  ``host`` moves each payload through a CPU
-    copy (gloo; it also suits ranks that share one card)."""
+    ``new_group`` requires; ``build_s`` is what that took, and under NCCL
+    a group makes its communicator at its first collective).  ``host``
+    moves each payload through a CPU copy (gloo's default: it also suits
+    ranks that share one card); without it each collective runs on the
+    tensors where they lie (NCCL's, on the rank's card).  ``timed``
+    records each collective's time by kind (``times``): CUDA events on
+    the current stream around it on the card, the host clock on the
+    CPU."""
 
-    def __init__(self, mesh, rank: int, *, host: Optional[bool] = None):
+    def __init__(self, mesh, rank: int, *, host: Optional[bool] = None,
+                 timed: bool = False):
         import torch.distributed as dist
+        t0 = time.perf_counter()
         self.dist = dist
         self.sizes = mesh_sizes(mesh)
         names = list(self.sizes)
@@ -170,6 +180,8 @@ class GroupComm:
         self.coords = coords[rank]
         self.host = (dist.get_backend() == "gloo") if host is None else host
         self.log = CollectiveLog()
+        self.timed = timed
+        self._spans: List[Tuple[str, Any, Any]] = []
         self.groups: Dict[Tuple[str, ...], Any] = {}
         for k in range(1, len(names) + 1):
             for sub in itertools.combinations(names, k):
@@ -181,28 +193,64 @@ class GroupComm:
                     g = dist.new_group(members)
                     if rank in members:
                         self.groups[sub] = g
+        self.build_s = time.perf_counter() - t0
 
     def _group(self, axis):
         return self.groups[tuple(a for a in self.sizes
                                  if a in _axes_tuple(axis))]
 
+    @contextlib.contextmanager
+    def _span(self, kind: str, x):
+        if not self.timed:
+            yield
+            return
+        if x.device.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            yield
+            ev[1].record()
+            self._spans.append((kind, *ev))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._spans.append((kind, t0, time.perf_counter()))
+
+    def times(self) -> Dict[str, Dict[str, float]]:
+        """Each kind's collectives since the last call: {"n", "ms"} (the
+        card synchronised first), and forget them."""
+        out: Dict[str, Dict[str, float]] = {}
+        for kind, a, b in self._spans:
+            if isinstance(a, float):
+                ms = 1e3 * (b - a)
+            else:
+                b.synchronize()
+                ms = a.elapsed_time(b)
+            e = out.setdefault(kind, {"n": 0, "ms": 0.0})
+            e["n"] += 1
+            e["ms"] += ms
+        self._spans.clear()
+        return out
+
     def all_reduce(self, x, axis):
         self.log.add("all-reduce", axis, x.dtype,
                      x.numel() * x.element_size(), axis_size(self.sizes, axis))
-        buf = x.detach().to("cpu", copy=True) if self.host else \
-            x.detach().clone().contiguous()
-        self.dist.all_reduce(buf, group=self._group(axis))
-        return buf.to(x.device)
+        with self._span("all-reduce", x):
+            buf = x.detach().to("cpu", copy=True) if self.host else \
+                x.detach().clone().contiguous()
+            self.dist.all_reduce(buf, group=self._group(axis))
+            out = buf.to(x.device)
+        return out
 
     def all_gather(self, x, axis, dim):
         m = axis_size(self.sizes, axis)
-        src = x.detach().to("cpu") if self.host else x.detach()
-        src = src.contiguous()
-        if self.host and src.element_size() == 2:
-            src = src.view(torch.float16)   # gloo gathers the bits
-        parts = [torch.empty_like(src) for _ in range(m)]
-        self.dist.all_gather(parts, src, group=self._group(axis))
-        out = torch.cat(parts, dim=dim).view(x.dtype).to(x.device)
+        with self._span("all-gather", x):
+            src = x.detach().to("cpu") if self.host else x.detach()
+            src = src.contiguous()
+            if self.host and src.element_size() == 2:
+                src = src.view(torch.float16)   # gloo gathers the bits
+            parts = [torch.empty_like(src) for _ in range(m)]
+            self.dist.all_gather(parts, src, group=self._group(axis))
+            out = torch.cat(parts, dim=dim).view(x.dtype).to(x.device)
         self.log.add("all-gather", axis, x.dtype,
                      out.numel() * out.element_size(), m)
         return out
@@ -213,13 +261,17 @@ class GroupComm:
         m = axis_size(self.sizes, axis)
         self.log.add("reduce-scatter", axis, x.dtype,
                      x.numel() * x.element_size(), m)
-        src = x.detach().to("cpu") if self.host else x.detach()
-        # the blocks along dim 0, each contiguous, as the collective takes
-        src = src.movedim(dim, 0).contiguous()
-        out = torch.empty((src.shape[0] // m,) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        self.dist.reduce_scatter_tensor(out, src, group=self._group(axis))
-        return out.movedim(0, dim).contiguous().to(x.device)
+        with self._span("reduce-scatter", x):
+            src = x.detach().to("cpu") if self.host else x.detach()
+            # the blocks along dim 0, each contiguous, as the collective
+            # takes them
+            src = src.movedim(dim, 0).contiguous()
+            out = torch.empty((src.shape[0] // m,) + tuple(src.shape[1:]),
+                              dtype=src.dtype, device=src.device)
+            self.dist.reduce_scatter_tensor(out, src,
+                                            group=self._group(axis))
+            out = out.movedim(0, dim).contiguous().to(x.device)
+        return out
 
 
 # ---------------------------------------------------------------- context

@@ -7,12 +7,14 @@ mesh, or of a hillclimb variant's (``launch/variants.py``: ``attn2d``'s
     PYTHONPATH=src python -m repro_torch.launch.tp_serve --mesh 1x2 \\
         --device cpu [--arch zamba2-1.2b] [--hw-route interpret] \\
         [--fault-step 3 --fault-rank 1] [--frames 32] \\
-        [--variant attn2d --mesh 1x2x2]
+        [--variant attn2d --mesh 1x2x2] [--backend nccl] [--keyed]
 
-starts the ranks (gloo over a free local port; on the card every rank
-shares ``cuda:0`` unless ``--backend nccl``, which needs one card a rank),
-serves a synthetic workload on each, and checks that every rank emitted
-the same tokens and changed route at the same step.  The arch's reduced
+starts the ranks over a free local port (``--backend gloo``, the
+default: every rank on the one device, its collectives through host
+copies; ``--backend nccl``: rank r on ``cuda:r``, ``mesh.rank_device``,
+its collectives on the card, so as many cards as ranks), serves a
+synthetic workload on each, and checks that every rank emitted the same
+tokens and changed route at the same step.  The arch's reduced
 config by default; ``--full`` serves it at full width (``--layers`` cuts
 the depth).  ``--variant`` takes the variant's mesh axes, logical-axis
 rules and param axes (its config overrides and train knobs do not apply
@@ -20,9 +22,16 @@ to serving); ``--mesh`` then gives one size per axis.  ``--fault-rank``
 arms a lane fault on that rank's stage at
 ``--fault-step`` and reports what its canary finds; the ranks agree on it
 through ``EventChannel`` and demote the stage together.  The stage is the
-arch's own kernel's (``fault_stage_for``): SwiGLU for the dense and MoE
-families, the SSD for the hybrid one (zamba2-1.2b), the WKV for the SSM
-one (rwkv6-1.6b), attention for the encoder-decoder one (whisper-base).
+arch's own kernel's (``fault_stage_for``): SwiGLU for the dense family,
+the SSD for the hybrid one (zamba2-1.2b), the WKV for the SSM one
+(rwkv6-1.6b), attention for the MoE family (mixtral-8x7b,
+llama4-scout-17b-a16e: their FFN is no kernel stage) and the
+encoder-decoder one (whisper-base).
+
+A spec with ``keyed`` draws its weights with ``LMModel.init_keyed``: each
+rank draws only its own block, layer by layer, so a model that one card
+cannot hold whole (mixtral-8x7b, llama4-scout at full depth) is served
+over cards that hold a block each.
 
 The encoder-decoder family has no ``ServeEngine`` path, in the reference
 or the port: ``drive_encdec`` serves it as ``EncDecModel.prefill`` over a
@@ -63,7 +72,7 @@ from repro_torch.launch.distributed import (STAGE, EventChannel,
                                             KVCoordinator,
                                             initialize_runtime,
                                             shutdown_runtime)
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, rank_device, rank_devices
 from repro_torch.launch.variants import VARIANTS
 from repro_torch.models import build_model, compute_params
 from repro_torch.serve import ServeConfig, ServeEngine, synthetic_workload
@@ -101,6 +110,7 @@ class TPServeSpec:
     fault_stage: str = ""                # "": the arch's (fault_stage_for)
     frames: int = 32                     # encoder-decoder: frames a row
     variant: Optional[str] = None
+    keyed: bool = False                  # LMModel.init_keyed's draw
 
     def __post_init__(self):
         if not self.fault_stage:
@@ -127,10 +137,15 @@ class TPServeSpec:
             min_new=self.min_new, max_new=self.max_new,
             arrival_every=self.arrival_every, per_arrival=self.per_arrival)
 
-    def weights(self, cfg, device):
+    def weights(self, cfg, device, cut=None):
         """The full tree, drawn on ``device`` from ``seed`` (an
-        encoder-decoder model's in f32, then cast)."""
+        encoder-decoder model's in f32, then cast); under ``keyed``
+        ``init_keyed``'s, of which ``cut`` (``partition.leaf_cutter``)
+        keeps a rank's block."""
         dt = getattr(torch, self.dtype) if self.dtype else None
+        if self.keyed:
+            return build_model(cfg).init_keyed(self.seed, device, dtype=dt,
+                                               cut=cut)
         gen = torch.Generator(device=device).manual_seed(self.seed)
         if cfg.is_encdec:
             params = build_model(cfg).init(gen, device=device)
@@ -167,11 +182,14 @@ def layout_of(variant: Optional[str], cfg, mesh):
 
 def fault_stage_for(cfg) -> str:
     """The stage a tensor-parallel serve faults by default: the kernel the
-    family's layers are made of."""
-    if cfg.is_encdec:
-        return "flash_attention"
-    return {"hybrid": "mamba2_ssd", "ssm": "rwkv6_wkv"}.get(cfg.family,
-                                                           "swiglu_mlp")
+    family's layers are made of, of the stages the model runs
+    (``model_stage_names``): the scan of the hybrid and SSM families, else
+    SwiGLU, else attention (the MoE family, whose FFN is no kernel stage,
+    and the encoder-decoder one)."""
+    from repro_torch.train.runner import model_stage_names
+    names = model_stage_names(cfg)
+    return next(s for s in ("mamba2_ssd", "rwkv6_wkv", "swiglu_mlp",
+                            "flash_attention") if s in names)
 
 
 def free_port() -> int:
@@ -390,13 +408,17 @@ def logits_recorder(ref: Optional[Dict[str, List]] = None,
     each call's max |logits - ref| / max |ref| too, and until
     ``until_step`` the reference's tokens are fed back (teacher forcing:
     a near-tie that rounds the other way must not fork the streams the
-    comparison runs on)."""
+    comparison runs on).  Under ``record_router(rec)`` each call's MoE
+    router probabilities too, in ``rec["router"]``."""
     rec: Dict[str, Any] = {"logits": [], "kinds": [], "rel": [],
-                           "tokens": [], "steps": [], "now": 0}
+                           "tokens": [], "steps": [], "now": 0,
+                           "router": [], "pending": []}
 
     def on_logits(kind, logits):
         lg = logits.detach().float().cpu()
         i = len(rec["logits"])
+        rec["router"].append(rec["pending"])
+        rec["pending"] = []
         rec["logits"].append(lg)
         rec["kinds"].append(kind)
         rec["tokens"].append(lg.argmax(-1).tolist())
@@ -413,16 +435,29 @@ def logits_recorder(ref: Optional[Dict[str, List]] = None,
     return on_logits, rec
 
 
+@contextlib.contextmanager
+def record_router(rec: Dict[str, Any]):
+    """Within the body, each MoE FFN call's router probabilities (f32, on
+    the host) join ``rec`` (a ``logits_recorder``'s): ``rec["router"]``
+    holds each call's list of them, in call order (layer by layer, a
+    decode tick's slots within its layer)."""
+    from repro_torch.models import moe as moe_mod
+    with moe_mod.observe_router(
+            lambda probs: rec["pending"].append(probs.detach().cpu())):
+        yield
+
+
 def kernel_wrappers() -> Dict[str, Any]:
-    """The Hopper wrappers a served model calls, by stage: each counts
-    its CUDA launches in ``launches``."""
+    """The Hopper wrappers a served model calls, by stage, and the Fig. 4
+    checksum's: each counts its CUDA launches in ``launches``."""
+    from repro_torch.kernels.checksum import checksum_popcount
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.mamba2_scan import ssd_chunked_cuda
     from repro_torch.kernels.rwkv6_scan import wkv6_chunked_cuda
     from repro_torch.kernels.swiglu import swiglu_fused
     return {"flash_attention": flash_attention_bhsd,
             "swiglu_mlp": swiglu_fused, "mamba2_ssd": ssd_chunked_cuda,
-            "rwkv6_wkv": wkv6_chunked_cuda}
+            "rwkv6_wkv": wkv6_chunked_cuda, "checksum": checksum_popcount}
 
 
 def layer_probe(cfg, params, probe: Dict[str, List], route: str
@@ -449,33 +484,43 @@ def layer_probe(cfg, params, probe: Dict[str, List], route: str
 
 def serve_rank(jobs: Sequence[Dict[str, Any]], rank: int, world: int,
                port: int, mesh_shape, *, backend: str = "gloo",
-               device=None) -> List[Dict[str, Any]]:
-    """One rank: join the group once, then for each job cut its spec's
-    seeded weights to the rank's shard, serve under ``spmd`` and report
-    (see ``_serve_job``); the jobs' reports in order.  A job's mesh is
-    its ``"mesh"`` (``mesh_shape`` without one) over its spec's mesh
-    axes; the process groups of each mesh are made at its first job."""
+               device=None, host: Optional[bool] = None
+               ) -> List[Dict[str, Any]]:
+    """One rank, on its device (``mesh.rank_device``: under NCCL its own
+    card): join the group once, then for each job cut its spec's seeded
+    weights to the rank's shard, serve under ``spmd`` and report (see
+    ``_serve_job``); the jobs' reports in order.  A job's mesh is its
+    ``"mesh"`` (``mesh_shape`` without one) over its spec's mesh axes and
+    the ranks' devices; the process groups of each mesh are made at its
+    first job (``host``: ``spmd.GroupComm``'s, None the backend's
+    default)."""
     t_start = time.perf_counter()
     # the ranks share the host's cores
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dev = resolve_device(device)
+    dev = rank_device(rank, world, backend, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
     rt = initialize_runtime(f"127.0.0.1:{port}", world, rank,
                             backend=backend, timeout_s=600)
+    devices = rank_devices(world, backend, device)
     meshes: Dict[tuple, Any] = {}
     coord = KVCoordinator()
     out = []
     for job in jobs:
         shape = tuple(job.get("mesh") or mesh_shape)
         axes = mesh_axes_of(job["spec"]["variant"])
-        if (shape, axes) not in meshes:
-            mesh = make_mesh(shape, axes, devices=[dev] * world)
-            meshes[shape, axes] = (mesh, spmd.GroupComm(mesh, rank))
+        fresh = (shape, axes) not in meshes
+        if fresh:
+            mesh = make_mesh(shape, axes, devices=devices)
+            meshes[shape, axes] = (mesh, spmd.GroupComm(mesh, rank,
+                                                        host=host))
         mesh, comm = meshes[shape, axes]
         comm.log.reset()
         res = _serve_job(job, rank, dev, mesh, comm, coord)
         res.update({"rank": rank, "world": world, "backend": rt.backend,
+                    "device": str(dev), "host_copies": comm.host,
+                    "mesh_devices": [str(d) for d in mesh.devices],
+                    "groups_s": comm.build_s if fresh else 0.0,
                     "mesh": list(shape), "mesh_axes": list(axes),
                     "joined_s": time.perf_counter() - t_start})
         out.append(res)
@@ -492,13 +537,20 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
     """One job of ``serve_rank``: ``job["spec"]`` (a ``TPServeSpec``)
     served on the rank's shard, reported as ``drive`` or ``drive_encdec``
     does, with the rank's launches, kernel shapes, collectives, bytes and
-    ``cache_shapes`` (each leaf of its cache, by path).  ``ref_logits`` (a
-    ``torch.save``d list) is the unsharded run's logits, call by call;
-    ``out_dir`` receives this rank's logits as ``logits_<rank>.pt``;
-    ``layer_probe_path`` (an RWKV-6 model's ``layer_probe`` inputs) adds,
-    after the serve and its launch counts, the per-layer time-mix
-    comparison as ``layer_rel``."""
+    ``cache_shapes`` (each leaf of its cache, by path), and its draw:
+    seconds and peak (``draw_s``, ``draw_peak_gib``; ``serve_peak_gib``
+    after it, ``peak_gib`` the job's).  ``ref_logits`` (a ``torch.save``d
+    list) is the unsharded run's logits, call by call; ``out_dir``
+    receives this rank's logits as ``logits_<rank>.pt`` (and with
+    ``router`` each call's MoE router probabilities as
+    ``router_<rank>.pt``, ``record_router``); ``layer_probe_path`` (an
+    RWKV-6 model's ``layer_probe`` inputs) adds, after the serve and its
+    launch counts, the per-layer time-mix comparison as ``layer_rel``;
+    ``checksum_layers`` = k adds the Fig. 4 checksum (``checksum_tree``)
+    of the rank's first k layers, before the serve; ``params`` (a
+    ``torch.save``d full tree) replaces the spec's draw."""
     from repro_torch.core import CanaryChecker
+    from repro_torch.kernels.checksum import checksum_tree
     from repro_torch.train.runner import canary_stages
     t_start = time.perf_counter()
     if dev.type == "cuda":
@@ -508,23 +560,44 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
     coords = spmd.rank_coords(mesh, rank)
     cfg = spec.config()
     rules, axes = layout_of(spec.variant, cfg, mesh)
-    full = spec.weights(cfg, dev)
-    specs = partition.params_pspecs(full, mesh, axes)
-    local = partition.map_with_path(
-        partition.shard_tree(full, specs, mesh, coords,
-                             layout=partition.packed_layout(cfg)),
-        lambda _, t: t.clone())
-    del full
+    if spec.keyed:      # the rank's block alone, as it is drawn
+        local = spec.weights(cfg, dev, cut=partition.leaf_cutter(
+            mesh, coords, axes))
+    else:
+        full = (torch.load(job["params"], map_location=dev)
+                if job.get("params") else spec.weights(cfg, dev))
+        specs = partition.params_pspecs(full, mesh, axes)
+        local = partition.map_with_path(
+            partition.shard_tree(full, specs, mesh, coords,
+                                 layout=partition.packed_layout(cfg)),
+            lambda _, t: t.clone())
+        del full
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    draw = {"draw_s": time.perf_counter() - t_start, "draw_peak_gib": None}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+        draw["draw_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats(dev)
     reqs = spec.workload(cfg)
     ref = torch.load(ref_logits) if ref_logits else None
-    on_logits, rec = logits_recorder(ref, until_step=spec.fault_step)
+    # the reference's tokens are fed back until the fault (all along
+    # without one)
+    on_logits, rec = logits_recorder(
+        ref, until_step=spec.fault_step if spec.fault_step >= 0
+        else sys.maxsize)
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    if job.get("checksum_layers"):
+        k = job["checksum_layers"]
+        draw["checksum_layers"] = checksum_tree(
+            {n: t[:k] for n, t in partition.flatten(local["layers"]).items()})
+    routers = (record_router(rec) if job.get("router")
+               else contextlib.nullcontext())
     with spmd.spmd(mesh, rules, axes, coords, comm,
-                   dims=spmd.logical_sizes(cfg)), kernel_shapes() as seen:
+                   dims=spmd.logical_sizes(cfg)), kernel_shapes() as seen, \
+            routers:
         canary = None
         if rank == spec.fault_rank:
             canary = CanaryChecker(
@@ -552,6 +625,9 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
             res["layer_rel"] = layer_probe(
                 cfg, served, torch.load(job["layer_probe_path"]),
                 spec.hw_route)
+    serve_peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                  if dev.type == "cuda" else None)
+    res.update(draw)
     res.update({
         "coords": coords, "launches": launches,
         "kernel_calls": seen.pop("calls"),
@@ -563,10 +639,14 @@ def _serve_job(job: Dict[str, Any], rank: int, dev, mesh, comm, coord
         "cache_shapes": {path: list(t.shape) for path, t in
                          partition.flatten(held).items()},
         "process_s": time.perf_counter() - t_start,
-        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        "serve_peak_gib": serve_peak,
+        "peak_gib": (max(draw["draw_peak_gib"], serve_peak)
                      if dev.type == "cuda" else None)})
     if out_dir:
         torch.save(rec["logits"], os.path.join(out_dir, f"logits_{rank}.pt"))
+        if job.get("router"):
+            torch.save(rec["router"],
+                       os.path.join(out_dir, f"router_{rank}.pt"))
     return res
 
 
@@ -580,7 +660,8 @@ def worker(argv) -> int:
     ``RESULT {json}`` line, the list of its jobs' reports."""
     a = json.loads(argv[0])
     res = serve_rank(a["jobs"], a["rank"], a["world"], a["port"], a["mesh"],
-                     backend=a["backend"], device=a["device"])
+                     backend=a["backend"], device=a["device"],
+                     host=a.get("host"))
     sys.stdout.write(RESULT + json.dumps(res) + "\n")
     sys.stdout.flush()
     return 0
@@ -588,36 +669,48 @@ def worker(argv) -> int:
 
 def make_job(spec: TPServeSpec, *, mesh=None,
              ref_logits: Optional[str] = None, out_dir: Optional[str] = None,
-             layer_probe_path: Optional[str] = None) -> Dict[str, Any]:
-    """One job of ``launch_jobs`` (see ``_serve_job`` for the paths):
-    served on ``mesh`` (one size per axis of ``mesh_axes_of(spec.variant)``;
-    None: the launch's mesh)."""
+             layer_probe_path: Optional[str] = None, router: bool = False,
+             checksum_layers: int = 0,
+             params: Optional[str] = None) -> Dict[str, Any]:
+    """One job of ``launch_jobs`` (see ``_serve_job`` for the paths and
+    options): served on ``mesh`` (one size per axis of
+    ``mesh_axes_of(spec.variant)``; None: the launch's mesh)."""
     axes = mesh_axes_of(spec.variant)
     if mesh is not None and len(mesh) != len(axes):
         raise ValueError(f"mesh {tuple(mesh)} for the axes {axes}")
     return {"spec": dataclasses.asdict(spec), "ref_logits": ref_logits,
             "out_dir": out_dir, "layer_probe_path": layer_probe_path,
+            "router": router, "checksum_layers": checksum_layers,
+            "params": params,
             "mesh": list(mesh) if mesh is not None else None}
 
 
 def launch_jobs(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
                 device=None, backend: str = "gloo",
+                host: Optional[bool] = None,
                 timeout: float = 600.0, src: Optional[str] = None,
                 env=None) -> List[List[Dict]]:
-    """Start one process per rank of ``mesh_shape``, which joins the group
-    once and serves ``jobs`` (``make_job(...)``) in turn, each on its own
-    mesh of as many ranks; wait for all and return, per job, its results
-    by rank.  A rank that fails raises with its stderr."""
-    dev = resolve_device(device)
+    """Start one process per rank of ``mesh_shape``, each on its device
+    (``mesh.rank_device``: under NCCL rank r on ``cuda:r``, refused
+    without a card a rank), which joins the group once and serves
+    ``jobs`` (``make_job(...)``) in turn, each on its own mesh of as many
+    ranks; wait for all and return, per job, its results by rank.  The
+    kernels are built here first, not by every rank.  A rank that fails
+    raises with its stderr."""
     world = int(np.prod(mesh_shape))
+    devs = rank_devices(world, backend, device)
     for job in jobs:
         if job.get("mesh") and int(np.prod(job["mesh"])) != world:
             raise ValueError(f"a job's mesh {job['mesh']} is not "
                              f"{world} ranks")
+    if devs[0].type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build()
     port = free_port()
     args = [json.dumps({"jobs": list(jobs), "rank": rank, "world": world,
                         "port": port, "mesh": list(mesh_shape),
-                        "backend": backend, "device": str(dev)})
+                        "backend": backend, "device": str(devs[rank]),
+                        "host": host})
             for rank in range(world)]
     results = run_ranks(WORKER, args, timeout=timeout, src=src, env=env)
     return [[r[i] for r in results] for i in range(len(jobs))]
@@ -666,7 +759,8 @@ def run_ranks(worker: str, args: Sequence[str], *, timeout: float = 600.0,
 
 
 def launch_ranks(spec: TPServeSpec, mesh_shape, *, device=None,
-                 backend: str = "gloo", ref_logits: Optional[str] = None,
+                 backend: str = "gloo", host: Optional[bool] = None,
+                 ref_logits: Optional[str] = None,
                  out_dir: Optional[str] = None,
                  layer_probe_path: Optional[str] = None,
                  timeout: float = 600.0,
@@ -676,18 +770,39 @@ def launch_ranks(spec: TPServeSpec, mesh_shape, *, device=None,
                                  out_dir=out_dir,
                                  layer_probe_path=layer_probe_path)],
                        mesh_shape, device=device, backend=backend,
-                       timeout=timeout, src=src, env=env)[0]
+                       host=host, timeout=timeout, src=src, env=env)[0]
 
 
 def reference_run(spec: TPServeSpec, device=None,
-                  path: Optional[str] = None) -> Dict[str, Any]:
+                  path: Optional[str] = None,
+                  router: bool = False) -> Dict[str, Any]:
     """The same workload on one unsharded engine of the same weights; its
-    logits and greedy tokens, call by call, are saved to ``path`` when
-    given (what ``serve_rank``'s ``ref_logits`` reads)."""
+    logits and greedy tokens, call by call (and with ``router`` each
+    call's MoE router probabilities, ``record_router``), are saved to
+    ``path`` when given (what ``serve_rank``'s ``ref_logits`` reads).
+    Its ``peak_gib`` on the card."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     cfg = spec.config()
-    params = spec.weights(cfg, dev)
     on_logits, rec = logits_recorder()
+    routers = record_router(rec) if router else contextlib.nullcontext()
+    with routers:
+        res = _reference_serve(spec, cfg, spec.weights(cfg, dev), dev, rec,
+                               on_logits)
+    if path:
+        torch.save({"logits": rec["logits"], "tokens": rec["tokens"],
+                    "router": rec["router"]}, path)
+    res["logit_kinds"] = rec["kinds"]
+    res["call_tokens"] = rec["tokens"]
+    res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if dev.type == "cuda" else None)
+    return res
+
+
+def _reference_serve(spec, cfg, params, dev, rec, on_logits):
+    """``reference_run``'s serve of ``params`` (the engine keeps what it
+    needs of them)."""
     if cfg.is_encdec:
         res = drive_encdec(cfg, params, spec, dev, rec=rec,
                            on_logits=on_logits)
@@ -699,10 +814,6 @@ def reference_run(spec: TPServeSpec, device=None,
         eng.on_logits = on_logits
         del params
         res = drive(eng, spec.workload(cfg), spec, rec=rec)
-    if path:
-        torch.save({"logits": rec["logits"], "tokens": rec["tokens"]}, path)
-    res["logit_kinds"] = rec["kinds"]
-    res["call_tokens"] = rec["tokens"]
     return res
 
 
@@ -744,13 +855,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=32,
                     help="encoder-decoder: stub frame embeddings a request")
+    ap.add_argument("--keyed", action="store_true",
+                    help="each rank draws only its block (LMModel."
+                         "init_keyed): mixtral-8x7b and llama4-scout at "
+                         "full depth")
     args = ap.parse_args(argv)
     shape = tuple(int(v) for v in args.mesh.lower().split("x"))
     spec = TPServeSpec(arch=args.arch, full=args.full, layers=args.layers,
                        requests=args.requests, slots=args.slots,
                        hw_route=args.hw_route, fault_step=args.fault_step,
                        fault_rank=args.fault_rank, seed=args.seed,
-                       frames=args.frames, variant=args.variant)
+                       frames=args.frames, variant=args.variant,
+                       keyed=args.keyed)
     if len(shape) != len(mesh_axes_of(spec.variant)):
         raise SystemExit(f"--mesh {args.mesh}: one size per axis of "
                          f"{mesh_axes_of(spec.variant)}")
@@ -759,7 +875,8 @@ def main(argv=None):
     for r in results:
         per = [c["ms"] for c in r["calls"] if c["kind"] == "tick"]
         sys.stdout.write(
-            f"rank {r['rank']} {r['coords']}: {r['steps']} steps, "
+            f"rank {r['rank']} {r['coords']} on {r['device']} "
+            f"({r['backend']}): {r['steps']} steps, "
             f"{sum(map(len, r['tokens'].values()))} tokens, median tick "
             f"{np.median(per) if per else 0.0:.2f} ms, fault applied at "
             f"step {r['fault_applied_step']}; launches {r['launches']}\n")

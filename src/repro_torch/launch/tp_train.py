@@ -30,10 +30,11 @@ Outside ``spmd`` it is the unsharded step (every reduction the identity).
 (``launch/dryrun.py``): it wraps the grads, the accumulation and the
 update in spans.
 
-A rank joins its group with ``join`` (gloo over a free local port, host
-copies; on the card every rank shares ``cuda:0`` unless the backend is
-nccl, which needs a card a rank), takes its rows of each batch
-(``batch_rows``) and trains under ``rank_context``; ``leave`` ends it.
+A rank joins its group with ``join`` over a free local port (gloo: every
+rank on the one device, collectives through host copies; nccl: rank r on
+``cuda:r``, ``mesh.rank_device``, collectives on the cards), takes its
+rows of each batch (``batch_rows``) and trains under ``rank_context``;
+``leave`` ends it.
 ``launch_ranks`` runs ``TPTrainSpec`` jobs (qwen1.5-4b) as one process per
 rank of a ("data", "model") mesh (``worker``), and ``reference_run`` is
 the same training unsharded, in this process: ``chip_smoke.py``'s phase 16
@@ -219,17 +220,21 @@ def moment_bytes(opt) -> int:
 
 # ---------------------------------------------------------------- the ranks
 def join(port: int, world: int, rank: int, shape, dev, *,
-         backend: str = "gloo"):
+         backend: str = "gloo", host: Optional[bool] = None,
+         timed: bool = False):
     """Join the group of ``world`` ranks at a local ``port`` (rank 0
-    serves its store): the ("data", "model") mesh of ``shape`` over them,
-    every rank on ``dev``, its communicator and this rank's
-    coordinates."""
+    serves its store): the ("data", "model") mesh of ``shape`` over the
+    ranks' devices (``mesh.rank_devices`` of ``dev``: under nccl rank r's
+    is ``cuda:r``), its communicator (``spmd.GroupComm``'s ``host`` and
+    ``timed``) and this rank's coordinates."""
     from repro_torch.launch.distributed import initialize_runtime
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_mesh, rank_devices
     initialize_runtime(f"127.0.0.1:{port}", world, rank, backend=backend,
                        timeout_s=READY_TIMEOUT_S)
-    mesh = make_mesh(tuple(shape), AXES, devices=[dev] * world)
-    return mesh, spmd.GroupComm(mesh, rank), spmd.rank_coords(mesh, rank)
+    mesh = make_mesh(tuple(shape), AXES,
+                     devices=rank_devices(world, backend, dev))
+    return mesh, spmd.GroupComm(mesh, rank, host=host, timed=timed), \
+        spmd.rank_coords(mesh, rank)
 
 
 def leave(coord=None):
@@ -352,8 +357,9 @@ def train_job(job, rank: int, dev, mesh, comm, held: Dict[str, Any]
     """One job on this rank: its shard of the job's params trained
     ``spec.steps`` steps under ``rank_context``; per step the loss, the
     grad norm, the ms (the card synchronised) and the collectives (by
-    kind, by axis); the rank's param and moment bytes, its peak, and the
-    comparisons of ``make_job`` ("vs_want": {"params", "mu"};
+    kind, by axis; with a ``timed`` communicator each kind's count and ms
+    too, "collective_ms"); the rank's param and moment bytes, its peak,
+    and the comparisons of ``make_job`` ("vs_want": {"params", "mu"};
     "vs_compare").  Its final shards stay in ``held``."""
     from repro_torch.models import build_model
     spec = TPTrainSpec(**job["spec"])
@@ -386,6 +392,8 @@ def train_job(job, rank: int, dev, mesh, comm, held: Dict[str, Any]
         for s in range(spec.steps):
             batch = spec.batch_at(cfg, s, rows, dev)
             before = log.copy()
+            if comm.timed:
+                comm.times()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -397,6 +405,8 @@ def train_job(job, rank: int, dev, mesh, comm, held: Dict[str, Any]
             ms = 1e3 * (time.perf_counter() - t0)
             steps.append({"loss": loss, "grad_norm": float(st["grad_norm"]),
                           "ms": ms, "collectives": _since(log, before)})
+            if comm.timed:
+                steps[-1]["collective_ms"] = comm.times()
         if job.get("want"):
             res["vs_want"] = _vs_want(job["want"], params, opt, specs, mesh,
                                       coords, layout, spec.zero1)
@@ -435,22 +445,26 @@ def _nbytes(tree) -> int:
 
 def train_rank(jobs: Sequence[Dict[str, Any]], rank: int, world: int,
                port: int, mesh_shape, *, backend: str = "gloo",
-               device=None) -> List[Dict[str, Any]]:
-    """One rank: join the group once, run the jobs in turn
-    (``train_job``); their reports in order."""
+               device=None, host: Optional[bool] = None,
+               timed: bool = False) -> List[Dict[str, Any]]:
+    """One rank, on its device (``mesh.rank_device``): join the group
+    once, run the jobs in turn (``train_job``); their reports in order."""
+    from repro_torch.launch.mesh import rank_device
     t_start = time.perf_counter()
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dev = resolve_device(device)
+    dev = rank_device(rank, world, backend, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
-    mesh, comm, _ = join(port, world, rank, mesh_shape, dev, backend=backend)
+    mesh, comm, _ = join(port, world, rank, mesh_shape, device,
+                         backend=backend, host=host, timed=timed)
     held: Dict[str, Any] = {}
     out = []
     for job in jobs:
         comm.log.reset()
         res = train_job(job, rank, dev, mesh, comm, held)
         res.update({"rank": rank, "world": world, "backend": backend,
-                    "mesh": list(mesh_shape),
+                    "device": str(dev), "host_copies": comm.host,
+                    "groups_s": comm.build_s, "mesh": list(mesh_shape),
                     "process_s": time.perf_counter() - t_start})
         out.append(res)
         gc.collect()
@@ -470,7 +484,8 @@ def worker(argv) -> int:
     ``RESULT {json}`` line, the list of its jobs' reports."""
     a = json.loads(argv[0])
     res = train_rank(a["jobs"], a["rank"], a["world"], a["port"], a["mesh"],
-                     backend=a["backend"], device=a["device"])
+                     backend=a["backend"], device=a["device"],
+                     host=a.get("host"), timed=a.get("timed", False))
     sys.stdout.write(RESULT + json.dumps(res) + "\n")
     sys.stdout.flush()
     return 0
@@ -478,18 +493,24 @@ def worker(argv) -> int:
 
 def launch_ranks(jobs: Sequence[Dict[str, Any]], mesh_shape, *,
                  device=None, backend: str = "gloo",
+                 host: Optional[bool] = None, timed: bool = False,
                  timeout: float = 600.0, src: Optional[str] = None,
                  env=None) -> List[List[Dict]]:
-    """Start one process per rank of ``mesh_shape``, which joins the group
-    once and runs ``jobs`` (``make_job(...)``) in turn; per job, its
-    reports by rank.  A rank that fails raises with its stderr."""
+    """Start one process per rank of ``mesh_shape``, each on its device
+    (``mesh.rank_device``: under nccl rank r on ``cuda:r``, refused
+    without a card a rank), which joins the group once and runs ``jobs``
+    (``make_job(...)``) in turn; per job, its reports by rank.  ``host``
+    and ``timed``: the ranks' ``spmd.GroupComm``.  A rank that fails
+    raises with its stderr."""
+    from repro_torch.launch.mesh import rank_devices
     from repro_torch.launch.tp_serve import free_port, run_ranks
-    dev = resolve_device(device)
     world = int(np.prod(mesh_shape))
+    devs = rank_devices(world, backend, device)
     port = free_port()
     args = [json.dumps({"jobs": list(jobs), "rank": r, "world": world,
                         "port": port, "mesh": list(mesh_shape),
-                        "backend": backend, "device": str(dev)})
+                        "backend": backend, "device": str(devs[r]),
+                        "host": host, "timed": timed})
             for r in range(world)]
     results = run_ranks(WORKER, args, timeout=timeout, src=src, env=env)
     return [[r[i] for r in results] for i in range(len(jobs))]

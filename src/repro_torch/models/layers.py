@@ -13,6 +13,8 @@ output.
 ``spmd`` they change nothing."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch import viscosity
@@ -21,10 +23,29 @@ from repro_torch.launch import spmd
 from repro_torch.launch.sharding import constrain
 
 
+# What each weight ``_he`` draws goes through, in float32 before its cast
+# (``draw_hook``); None: the weight as drawn
+_DRAW_HOOK = None
+
+
+@contextlib.contextmanager
+def draw_hook(fn):
+    """Within the body, ``_he`` passes each weight it draws, in float32 and
+    in draw order, through ``fn`` and casts what ``fn`` returns
+    (``LMModel.init_keyed`` keeps a rank's block of each as it is
+    drawn)."""
+    global _DRAW_HOOK
+    prev, _DRAW_HOOK = _DRAW_HOOK, fn
+    try:
+        yield
+    finally:
+        _DRAW_HOOK = prev
+
+
 def _he(gen, shape, fan_in, dtype, device):
     # scaled in place: a leaf's draw takes one float32 copy, not two
-    return torch.randn(shape, generator=gen, device=device).div_(
-        fan_in ** 0.5).to(dtype)
+    t = torch.randn(shape, generator=gen, device=device).div_(fan_in ** 0.5)
+    return (t if _DRAW_HOOK is None else _DRAW_HOOK(t)).to(dtype)
 
 
 def per_row(fn, x):

@@ -24,6 +24,7 @@ axes.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
@@ -32,6 +33,22 @@ import torch.nn.functional as F
 from repro_torch.launch import spmd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import _he
+
+
+# what each call's router probabilities go to (``observe_router``)
+_ROUTER_OBSERVERS = []
+
+
+@contextlib.contextmanager
+def observe_router(fn):
+    """Within the body, ``fn(probs)`` sees each ``moe_ffn`` call's router
+    probabilities, the float32 (B, S, E) softmax (gathered over the
+    router's column axis under ``spmd``), in call order."""
+    _ROUTER_OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _ROUTER_OBSERVERS.remove(fn)
 
 
 def init_moe(gen, L, d, f, num_experts, dtype, device, *, shared=False):
@@ -93,6 +110,8 @@ def moe_ffn(p, x, *, top_k: int, capacity_factor: float, act: str = "silu",
     logits = spmd.replicate_over(x, r_ax).float() @ p["router"]   # (B,S,E)
     logits = spmd.gather_over(logits, r_ax, -1)
     probs = torch.softmax(logits, dim=-1)
+    for fn in _ROUTER_OBSERVERS:
+        fn(probs)
     gate_vals, gate_idx = _top_k(probs, top_k)                  # (B,S,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)

@@ -26,7 +26,8 @@ is ``models/encdec.py``'s; LayerNorm in a decoder-only model raises
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+import hashlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,7 +35,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6,
                                      ModelConfig)
 from repro_torch.core.routing import as_routes
 from repro_torch.device import resolve_device
-from repro_torch.launch import spmd
+from repro_torch.launch import partition, spmd
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -77,6 +78,13 @@ def _unsupported(cfg: ModelConfig):
     if not cfg.gated_mlp and cfg.family != "ssm":
         return "gated_mlp=False"
     return None
+
+
+def key_seed(seed: int, key: str) -> int:
+    """The seed of draw ``key`` under ``seed`` (``LMModel.init_keyed``): 63
+    bits of the SHA-256 of both, the same in every process."""
+    digest = hashlib.sha256(f"{int(seed)}/{key}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") >> 1
 
 
 def compute_params(params: PyTree, dtype: torch.dtype,
@@ -158,6 +166,87 @@ class LMModel:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_lm_head(gen, cfg.d_model,
                                                cfg.vocab_size, dt, dev)
+        return params
+
+    def init_keyed(self, seed: int = 0, device=None,
+                   dtype: Optional[torch.dtype] = None,
+                   cut: Optional[Callable[[str, torch.Tensor],
+                                          torch.Tensor]] = None) -> PyTree:
+        """Random params from a draw keyed by (seed, leaf, layer), which a
+        rank of a mesh makes for its own block alone.
+
+        Layer ``l`` of the stacked leaves is drawn by a generator on
+        ``device`` seeded from (``seed``, l) (``key_seed``) through
+        ``init_attn_layers(gen, 1, ...)``; the embedding and the head each
+        from a key of their own, whole.  ``cut(path, t)`` (default: the
+        whole ``t``) returns the block kept of leaf ``path`` ("layers/moe/
+        w1"), given one layer of it (its stacked dim 1) or the whole
+        unstacked leaf: a drawn weight is cut in float32 as it is drawn,
+        then cast to ``dtype`` as ``init(dtype=...)`` casts it.  So layer
+        ``l`` is the same at every depth, a rank's tree equals its slice
+        of the whole draw bit for bit, and the peak is the kept tree plus
+        one layer's leaf in float32 and its block.  Its bits are not
+        ``init``'s.  The attention families (dense, MoE, VLM) only."""
+        cfg = self.cfg
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the keyed draw covers the dense, MoE and VLM "
+                f"families, not {cfg.family!r}")
+        dev = resolve_device(device)
+        pdt, n = self.param_dtype, cfg.num_layers
+        dt = pdt if dtype is None else dtype
+
+        def gen(key):
+            return torch.Generator(device=dev).manual_seed(key_seed(seed,
+                                                                    key))
+
+        def own(path, t):
+            # the kept block, holding its own memory
+            b = t if cut is None else cut(path, t)
+            return b if b is t else b.clone(
+                memory_format=torch.contiguous_format)
+
+        params = {"embed": {"table": own("embed/table", L.init_embed(
+            gen("embed"), cfg.vocab_size, cfg.d_model, dt, dev)["table"])},
+            "final_norm": partition.map_with_path(
+                L.init_norm(cfg.d_model, pdt, dev),
+                lambda path, t: own("final_norm/" + path, t))}
+        if not cfg.tie_embeddings:
+            with L.draw_hook(lambda t: own("lm_head/w", t)):
+                params["lm_head"] = L.init_lm_head(
+                    gen("lm_head"), cfg.d_model, cfg.vocab_size, dt, dev)
+        # which leaf each draw of a layer is: the draw order on meta
+        # (float32 everywhere, so each drawn tensor is its leaf)
+        order = []
+        with L.draw_hook(lambda t: order.append(t) or t):
+            meta = B.init_attn_layers(torch.Generator().manual_seed(0), 1,
+                                      cfg, torch.float32, torch.float32,
+                                      torch.device("meta"))
+        where = {id(t): path for path, t in partition.flatten(meta).items()}
+        drawn = [where[id(t)] for t in order]
+        stacked: Dict[str, torch.Tensor] = {}
+
+        def put(li):
+            def copy(path, t):
+                if path not in drawn:       # ones and zeros: cut whole
+                    t = own("layers/" + path, t)
+                if path not in stacked:
+                    stacked[path] = torch.empty(
+                        (n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        device=dev)
+                stacked[path][li].copy_(t[0])
+            return copy
+        layer = None
+        for li in range(n):
+            paths = iter(drawn)
+            with L.draw_hook(lambda t: own("layers/" + next(paths), t)):
+                layer = B.init_attn_layers(gen(f"layers/{li}"), 1, cfg, dt,
+                                           pdt, dev)
+            # copied into the stacks; the layer keeps its structure alone
+            # (no block) while the next one is drawn
+            layer = partition.map_with_path(layer, put(li))
+        params["layers"] = partition.map_with_path(
+            layer, lambda path, _: stacked[path])
         return params
 
     def _kv_layout(self):

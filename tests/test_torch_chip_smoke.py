@@ -17,6 +17,7 @@ depend on the width.
 """
 import dataclasses
 import gc
+import sys
 import types
 
 import pytest
@@ -620,3 +621,124 @@ def test_tp_train_phase_spec_and_its_checks():
                    "vs": {"mu": 5e-5, "params": 1e-6}}):
         bad = chip_smoke.tpt_faults(ref, blind, good, stubs)
         assert bad and "control" in " ".join(bad), (blind, bad)
+
+
+# phase 17's MoE jobs at the reduced configs: few requests, 8 new tokens
+# each (the fault at step 6 needs 7 steps), the full-depth job 6 deep
+NCCL_SMOKE_WORK = dict(requests=2, slots=2, min_prompt=8, max_prompt=16,
+                       min_new=8, max_new=8)
+
+
+def test_nccl_phase_on_the_cpu(monkeypatch):
+    """Phase 17's (c)-(f) on four gloo CPU ranks with
+    ``GroupComm(host=False)``, NCCL's path without host copies: (c) one
+    of phase 15's jobs (the rest run in ``test_tp_phase_on_the_cpu``),
+    (d) mixtral-8x7b and llama4-scout at 4 layers in f32 on SW (logits
+    within 1e-3 of the unsharded run) and on HW with the fault (mixtral
+    within 4e-3 before it), and bf16 (HW, the fault, router flips
+    counted, mixtral's logits the control that fails the f32 HW bound),
+    (e) the same 6 deep, each rank drawing its block (``init_keyed``:
+    layers 0-3's checksum that of the 4-layer job's block), (f) phase 16
+    over (2, 2); every check the card's run makes.  The full job list and
+    depths are the card's."""
+    from repro_torch.launch.tp_serve import TPServeSpec
+    from repro_torch.launch.tp_train import TPTrainSpec
+    from repro_torch.viscosity import HW, SW
+    full = chip_smoke.nccl_moe_spec("llama4-scout-17b-a16e", 48)
+    assert (full.full, full.keyed, full.config().num_layers,
+            full.fault_stage, full.requests, full.hw_route,
+            full.fault_step) == (True, True, 48, "flash_attention", 6, HW,
+                                 chip_smoke.TP_FAULT_STEP)
+    parity = chip_smoke.nccl_moe_spec("mixtral-8x7b", 4, "float32", SW)
+    assert (parity.hw_route, parity.fault_step) == (SW, -1)
+    parity = chip_smoke.nccl_moe_spec("mixtral-8x7b", 4, "float32")
+    assert (parity.hw_route, parity.fault_step) == (
+        HW, chip_smoke.TP_FAULT_STEP)
+    assert chip_smoke.NCCL_MOE_FULL == {"mixtral-8x7b": 32,
+                                        "llama4-scout-17b-a16e": 48}
+
+    def tp_spec(a="qwen1.5-4b", v=None):
+        return TPServeSpec(arch=a, layers=2, dtype="bfloat16", hw_route=HW,
+                           fault_step=chip_smoke.TP_FAULT_STEP,
+                           fault_rank=chip_smoke.TP_FAULT_RANK, variant=v,
+                           **{**chip_smoke.TP_WORKLOAD, "min_prompt": 8,
+                              "max_prompt": 16})
+
+    card_spec = chip_smoke.nccl_moe_spec
+
+    def moe_spec(arch, layers, dtype="bfloat16", route=HW):
+        return dataclasses.replace(card_spec(arch, layers, dtype, route),
+                                   full=False, **NCCL_SMOKE_WORK)
+
+    def tpt_spec(zero1=False):
+        return TPTrainSpec(**{**chip_smoke.TPT_SPEC, "full": False,
+                              "layers": None, "seq": 16}, zero1=zero1)
+    monkeypatch.setattr(chip_smoke, "tp_spec", tp_spec)
+    monkeypatch.setattr(chip_smoke, "nccl_moe_spec", moe_spec)
+    monkeypatch.setattr(chip_smoke, "NCCL_MOE_FULL",
+                        dict.fromkeys(chip_smoke.NCCL_MOE, 6))
+    monkeypatch.setattr(chip_smoke, "tpt_spec", tpt_spec)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    counters = {name: types.SimpleNamespace(launches=0)
+                for name in ("checksum", "flash_attention", "swiglu_mlp",
+                             "mamba2_ssd", "rwkv6_wkv")}
+    entry, paths = chip_smoke.nccl_phase(
+        torch.device("cpu"), counters, "cpu", count="kernel_calls",
+        backend="gloo", host=False, jobs=(("qwen1.5-4b", None),),
+        gloo_too=False)
+    assert set(entry["c"]) == {"qwen1.5-4b"}
+    assert list(entry["moe"]) == [
+        f"{kind} {arch}" for arch in chip_smoke.NCCL_MOE
+        for kind in ("d f32 sw", "d f32 hw", "d bf16")] + [
+        f"e {arch}" for arch in chip_smoke.NCCL_MOE]
+    for name, e in entry["moe"].items():
+        assert len(e["ranks"]) == 4
+        if name.startswith("d f32 sw"):
+            assert all(r["logits_rel_max"] <= chip_smoke.NCCL_MOE_REL
+                       for r in e["ranks"])
+        held = name.split()[-1] in chip_smoke.NCCL_MOE_HW_HELD
+        if name.startswith("d f32 hw") and held:
+            assert all(r["logits_rel_max"] <= chip_smoke.NCCL_MOE_HW_REL
+                       for r in e["ranks"])
+        if name.startswith("d bf16"):
+            assert all(len(r["router"]["flips"]) == 4 for r in e["ranks"])
+            assert not held or all(
+                r["control_rel_max"] > chip_smoke.NCCL_MOE_HW_REL
+                for r in e["ranks"])
+    for arch in chip_smoke.NCCL_MOE:
+        assert [r["checksum_layers"] for r in
+                entry["moe"][f"e {arch}"]["ranks"]] == [
+            r["checksum_layers"] for r in
+            entry["moe"][f"d bf16 {arch}"]["ranks"]]
+        assert paths[f"nccl e {arch}"]["flash_attention"] > 0
+        assert paths[f"nccl e {arch}"]["swiglu_mlp"] == 0
+    assert entry["f"]["mesh"] == [2, 2]
+    for job in entry["f"]["jobs"].values():
+        for r in job:
+            assert max(r["vs_want"].values()) <= chip_smoke.TPT_REF_REL
+            assert not r["host_copies"]
+            assert all("collective_ms" in st for st in r["steps"])
+
+
+@pytest.mark.parametrize("rels, n_calls, holds", [
+    ([1.9e-3, 1.6e-3, 5e-4, 9.0], 3, True),     # after the fault: unheld
+    ([6.6e-3, 1e-3, 1e-3], 3, False),           # bf16's least reading
+    ([1e-3, 1e-3], 3, False),                   # a call without a reading
+    ([], 0, False)])
+def test_nccl_logits_bound(rels, n_calls, holds):
+    """The logits check of phase 17's f32 HW job, which its bf16 control
+    must fail: the calls before the fault within ``NCCL_MOE_HW_REL``."""
+    bad = chip_smoke.nccl_logits_faults(rels, n_calls,
+                                        chip_smoke.NCCL_MOE_HW_REL, "f32 hw")
+    assert (bad == []) == holds, bad
+
+
+def test_four_cards_needs_four_cards(monkeypatch):
+    """``--four-cards`` raises where the process sees fewer than four
+    cards: it never skips."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--four-cards"])
+    with pytest.raises(SystemExit, match="2 card"):
+        chip_smoke.main()
